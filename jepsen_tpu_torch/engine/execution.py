@@ -1,0 +1,231 @@
+"""The device-owning **execution** half of the checker engine — the port
+of :mod:`jepsen_tpu.engine.execution` for one CUDA device (or the CPU).
+
+JAX dispatches asynchronously and syncs when a result is read; here a
+chunk dispatch is: inputs copied from pinned host memory onto the
+device with ``non_blocking=True``, the kernel launched on the current
+CUDA stream, outputs copied back into pinned host tensors with
+``non_blocking=True``, and a :class:`torch.cuda.Event` recorded after
+them.  :class:`DispatchWindow` keeps at most ``window`` such chunks in
+flight and retires the oldest by synchronising its event.  On the CPU a
+dispatch runs the plain PyTorch version synchronously.
+
+Both classes are **owner-thread confined**: ``submit``/``drain`` must
+come from the thread that created them (checked at run time).  The
+oracle worker pool interacts with execution only through the futures
+each :class:`~jepsen_tpu_torch.engine.planning.RunContext` holds.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import deque
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+#: default bound on concurrently in-flight device dispatches; 1 = the
+#: strictly serial dispatch-sync-dispatch path
+DEFAULT_WINDOW = 4
+
+#: minimum dispatch row bucket: a chunk's row count rounds up to the next
+#: power of two ≥ this (never past the chunk cap) with neutral
+#: all-padding rows, so repeat traffic reuses a few stable shapes
+ROW_BUCKET = 64
+
+
+def row_bucket_target(n: int) -> int:
+    """Row count → its stable dispatch shape: the next power of two,
+    floored at :data:`ROW_BUCKET`."""
+    target = ROW_BUCKET
+    while target < n:
+        target *= 2
+    return target
+
+
+def _pad_rows(a: np.ndarray, n: int, fill) -> np.ndarray:
+    """Pad axis 0 of ``a`` up to ``n`` rows with ``fill``."""
+    if a.shape[0] >= n:
+        return a
+    pad = np.full((n - a.shape[0],) + a.shape[1:], fill, a.dtype)
+    return np.concatenate([a, pad], axis=0)
+
+
+class InFlight:
+    """One dispatched chunk on the card: its outputs' pinned host copies,
+    the event recorded after them, and every tensor the async copies and
+    the launch still use (kept alive until the event has passed)."""
+
+    __slots__ = ("event", "outputs", "keepalive")
+
+    def __init__(self, event, outputs, keepalive):
+        self.event = event
+        self.outputs = outputs
+        self.keepalive = keepalive
+
+
+def _materialize(out):
+    """Wait for a chunk and return its outputs as numpy (the sync point)."""
+    if isinstance(out, InFlight):
+        out.event.synchronize()
+        return tuple(t.numpy() for t in out.outputs)
+    return tuple(np.asarray(x) for x in out)
+
+
+class DispatchWindow:
+    """A bounded window of in-flight device dispatches.
+
+    ``submit(key, thunk)`` first retires (syncs) the oldest entries until
+    fewer than ``window`` are in flight, then calls ``thunk`` — which
+    must *dispatch* device work and return an :class:`InFlight` (or
+    already-host outputs) — and enqueues its result.  ``drain()`` retires
+    everything left.  Retirement materializes the outputs and hands
+    ``(key, outputs)`` to ``on_retire``.
+
+    window=1 is the serial contract: every dispatch fully settles before
+    the next one is issued.
+    """
+
+    def __init__(
+        self,
+        window: Optional[int] = None,
+        on_retire: Optional[Callable[[Any, tuple], None]] = None,
+    ):
+        self.window = max(1, int(window) if window is not None
+                          else DEFAULT_WINDOW)
+        self.on_retire = on_retire
+        #: (key, in-flight out), oldest first
+        self._inflight: deque = deque()
+        self._owner = threading.get_ident()
+
+    def _check_owner(self) -> None:
+        if threading.get_ident() != self._owner:
+            raise RuntimeError(
+                "DispatchWindow is owner-thread confined: submit/drain "
+                "must run on the creating thread (oracle workers hand "
+                "results back through Futures, never drive the window)"
+            )
+
+    def submit(self, key, thunk) -> None:
+        """Dispatch one unit of device work, first retiring the oldest
+        entries until there is room."""
+        self._check_owner()
+        while len(self._inflight) >= self.window:
+            self._retire()
+        self._inflight.append((key, thunk()))
+
+    def _retire(self) -> None:
+        key, out = self._inflight.popleft()
+        mat = _materialize(out)
+        if self.on_retire is not None:
+            self.on_retire(key, mat)
+
+    def drain(self) -> None:
+        """Retire every in-flight dispatch, oldest first."""
+        self._check_owner()
+        while self._inflight:
+            self._retire()
+
+
+class Executor:
+    """Device-owning execution of planned buckets on one device.
+
+    ``submit(planned_bucket)`` splits the bucket into chunks of at most
+    the plan's dispatch cap — every chunk padded with neutral rows to one
+    stable row count — and dispatches them through the executor's
+    :class:`DispatchWindow`; ``drain()`` retires everything in flight.
+    Row verdicts route through each row's ``(ctx, idx)`` token back to
+    its :class:`~jepsen_tpu_torch.engine.planning.RunContext`.  A bucket
+    with no device checker settles inline: its rows go to the oracle pool
+    at once, overlapping the remaining device work.
+    """
+
+    def __init__(self, window: Optional[int] = None, *,
+                 device: torch.device):
+        self.device = device
+        self._win = DispatchWindow(window, on_retire=self._settle_chunk)
+        #: chunk_id -> (plan, rows, live row count)
+        self._chunks: Dict[int, tuple] = {}
+        self._next_chunk = 0
+
+    # -- settle path (runs inside window retirement, owner thread) -------
+
+    def _settle_chunk(self, chunk_id, mat):
+        plan, rows, n_live = self._chunks.pop(chunk_id)
+        ok, failed_at, overflow = (np.asarray(x)[:n_live] for x in mat)
+        for row, (ctx, hist_idx) in enumerate(rows):
+            if overflow[row]:
+                # the dense automaton cannot overflow; should a kernel
+                # ever report it, the oracle decides, never a guess
+                ctx.route_oracle(hist_idx, "oracle-overflow", "overflow")
+            elif ok[row]:
+                ctx.assign(hist_idx, {
+                    "valid?": True,
+                    "engine": "gpu",
+                    "kernel": plan.kernel,
+                })
+            else:
+                ctx.assign(hist_idx, {
+                    "valid?": False,
+                    "engine": "gpu",
+                    "kernel": plan.kernel,
+                    "failed-event": int(failed_at[row]),
+                })
+
+    # -- dispatch path ----------------------------------------------------
+
+    def _launch(self, fn, arrays):
+        """Run ``fn`` on one padded chunk; returns host outputs (CPU) or
+        an :class:`InFlight` (CUDA, nothing synchronised)."""
+        host = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                     for a in arrays)
+        if self.device.type == "cpu":
+            return tuple(t.numpy() for t in fn(*host))
+        with torch.cuda.device(self.device):
+            host = tuple(t.pin_memory() for t in host)
+            dev = tuple(t.to(self.device, non_blocking=True) for t in host)
+            outs = fn(*dev)
+            out_host = tuple(
+                torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                for o in outs
+            )
+            for h, o in zip(out_host, outs):
+                h.copy_(o, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return InFlight(event, out_host, (host, dev, outs))
+
+    def submit(self, pb) -> None:
+        """Dispatch one planned bucket in capped chunks through the
+        window (or hand it to the oracle inline when no kernel runs)."""
+        from ..ops import wgl
+
+        plan, arrays, rows = pb.plan, pb.arrays, pb.rows
+        if plan.fn is None or plan.disp == 0:
+            # no device kernel for the shape yet (ROADMAP.md, kernel K4)
+            for ctx, idx in rows:
+                ctx.route_oracle(idx, "oracle-unported", "unported")
+            return
+        B = arrays[0].shape[0]
+        cap = plan.disp
+        # one stable shape per bucket: a short bucket pads to its power-of
+        # -two row bucket, a long one to full cap-row chunks (the tail
+        # too), so a bucket never launches at a per-tail-size shape
+        target = min(cap, row_bucket_target(B))
+        for lo in range(0, B, cap):
+            hi = min(lo + cap, B)
+            chunk = tuple(
+                _pad_rows(np.asarray(a[lo:hi]), target, fill)
+                for a, fill in zip(arrays, wgl._PAD_FILLS)
+            )
+            chunk_id = self._next_chunk
+            self._next_chunk += 1
+            self._chunks[chunk_id] = (plan, rows[lo:hi], hi - lo)
+            self._win.submit(
+                chunk_id, lambda fn=plan.fn, c=chunk: self._launch(fn, c)
+            )
+
+    def drain(self) -> None:
+        """Retire every in-flight dispatch."""
+        self._win.drain()

@@ -1,0 +1,59 @@
+"""The pipelined dispatch engine behind ``wgl.check_batch`` — the port of
+:func:`jepsen_tpu.engine.pipeline.run`.
+
+- **Shape buckets.**  Histories encode one at a time into per-``(E, C)``
+  buckets (``encode.bucket_key``), so a short history does not pay a
+  long one's padding; a bucket flushes into device chunks when it
+  reaches the flush threshold or at end of input.
+- **Dispatch window.**  Chunk dispatches are asynchronous CUDA launches;
+  :class:`~jepsen_tpu_torch.engine.execution.DispatchWindow` bounds how
+  many are in flight and syncs only the oldest when the window fills —
+  window=1 is the serial dispatch-sync-dispatch path.
+- **Concurrent oracle.**  Unencodable histories go to the CPU-oracle
+  worker pool the moment they are met, and buckets with no device
+  kernel join at plan time, so oracle wall time hides behind device wall
+  time.
+
+The reference's P-compositional decomposition front-end is a
+pass-through for every model of this slice (none declares a partition),
+so it waits for the slice that ports the partitionable models.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+from ..ops.step_kernels import spec_for
+from .execution import Executor
+from .planning import Planner, RunContext
+
+
+def run(
+    model,
+    histories: Sequence,
+    *,
+    slot_cap: int,
+    device,
+    max_dispatch: int,
+    oracle_fallback: bool = True,
+    window: Optional[int] = None,
+    bucketed: bool = True,
+) -> List[dict]:
+    """Check ``histories`` through the full pipeline on ``device`` (a
+    resolved :class:`torch.device`); per-history result dicts in input
+    order.  This is ``check_batch``'s engine — call that, not this."""
+    spec = spec_for(model)
+    ctx = RunContext(model, list(histories), spec=spec,
+                     oracle_fallback=oracle_fallback)
+    planner = Planner(spec=spec, slot_cap=slot_cap, device=device,
+                      max_dispatch=max_dispatch, bucketed=bucketed)
+    ex = Executor(window, device=device)
+    stream = planner.open_stream()
+    for idx in range(len(ctx.histories)):
+        for pb in stream.feed(ctx, idx):
+            ex.submit(pb)
+    for pb in stream.finish():  # largest estimated cost first
+        ex.submit(pb)
+    ex.drain()
+    ctx.drain_oracles()
+    return ctx.results

@@ -1,0 +1,228 @@
+"""The pure per-run **planning** half of the checker engine — the port of
+:mod:`jepsen_tpu.engine.planning`.
+
+Everything per-run and pure lives here: encoding histories into per-(E,
+C) shape buckets, stacking a bucket into padded arrays and planning its
+kernel route (``wgl.plan_bucket``).  Everything that owns the device
+lives in :mod:`jepsen_tpu_torch.engine.execution`.  The reference's
+tune/obs reads are gone: its defaults are constants or arguments here.
+
+Row identity is an opaque token ``(ctx, idx)``: every planned row carries
+the :class:`RunContext` it belongs to, so the execution layer can route
+each verdict home.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+#: rows a shape bucket accumulates before flushing mid-stream (the
+#: default dispatch cap: ordinary batches flush once per bucket, larger
+#: keyspaces stream — encode of flush k+1 overlaps device work of k)
+DEFAULT_FLUSH_ROWS = 16384
+
+#: sentinel distinct from every bucket key (``None`` is the legitimate
+#: key of unbucketed mode): this history routed to the oracle pool
+_ROUTED_ORACLE = object()
+
+
+class RunContext:
+    """One run's bookkeeping: the histories being checked, their result
+    slots, and the oracle hand-off state.
+
+    Thread contract (by phase ordering, not locks): during planning only
+    the planning thread touches the context; during execution only the
+    executor thread assigns results; the consumer calls
+    :meth:`drain_oracles` and reads :attr:`results` after execution."""
+
+    def __init__(
+        self,
+        model,
+        histories: Sequence,
+        *,
+        spec,
+        oracle_fallback: bool = True,
+    ):
+        self.model = model
+        self.histories = histories
+        self.spec = spec
+        self.oracle_fallback = oracle_fallback
+        self.results: List[Optional[dict]] = [None] * len(histories)
+        self.oracle_futs: Dict[int, Tuple[Any, str]] = {}
+
+    def assign(self, idx: int, result: dict) -> None:
+        self.results[idx] = result
+
+    def route_oracle(self, idx: int, engine_tag: str,
+                     unresolved_tag: str) -> None:
+        """Queue one history for the CPU oracle worker pool (running
+        concurrently with device work), or tag it unknown when the caller
+        runs the oracle itself (``oracle_fallback=False``)."""
+        from ..checker import linear
+
+        if not self.oracle_fallback:
+            self.assign(idx, {"valid?": "unknown", "engine": unresolved_tag})
+            return
+        self.oracle_futs[idx] = (
+            linear.analysis_async(
+                self.model, self.histories[idx], pure_fs=self.spec.pure_fs,
+            ),
+            engine_tag,
+        )
+
+    def drain_oracles(self) -> None:
+        """Collect the concurrent oracle verdicts."""
+        for idx, (fut, engine_tag) in self.oracle_futs.items():
+            r = fut.result()
+            r["engine"] = engine_tag
+            self.assign(idx, r)
+
+
+class PlannedBucket:
+    """One stacked-and-routed bucket, ready for the execution layer: the
+    :class:`~jepsen_tpu_torch.ops.wgl.BucketPlan`, the padded 6-tuple of
+    arrays, and one ``(ctx, idx)`` row token per array row."""
+
+    __slots__ = ("key", "plan", "arrays", "rows")
+
+    def __init__(self, key, plan, arrays, rows):
+        self.key = key
+        self.plan = plan
+        self.arrays = arrays
+        self.rows = rows
+
+
+class Planner:
+    """Pure per-run planning: stream host encode into per-(E, C) shape
+    buckets and plan each flush's kernel route on ``device``."""
+
+    def __init__(
+        self,
+        *,
+        spec,
+        slot_cap: int,
+        device,
+        max_dispatch: int,
+        bucketed: bool = True,
+    ):
+        self.spec = spec
+        self.slot_cap = slot_cap
+        self.device = device
+        self.max_dispatch = max_dispatch
+        self.bucketed = bucketed
+
+    def encode_one(self, ctx: RunContext, idx: int):
+        """Encode one history of ``ctx``; ``None`` routes it to the
+        oracle."""
+        from ..ops import encode as encode_mod
+
+        return encode_mod.encode_history(
+            ctx.histories[idx], ctx.model, self.slot_cap, self.spec
+        )
+
+    def bucket_key(self, e) -> Optional[tuple]:
+        from ..ops import encode as encode_mod
+
+        return (
+            encode_mod.bucket_key(e, self.slot_cap) if self.bucketed else None
+        )
+
+    def _accumulate(self, ctx: RunContext, idx: int, buckets, order):
+        """Encode one history into its bucket.  Returns the bucket key
+        the history landed in (``None`` IS a valid key in unbucketed
+        mode), or :data:`_ROUTED_ORACLE` when it went to the oracle
+        instead — that search starts NOW, on the worker pool."""
+        e = self.encode_one(ctx, idx)
+        if e is None:
+            ctx.route_oracle(idx, "oracle-fallback", "unencodable")
+            return _ROUTED_ORACLE
+        key = self.bucket_key(e)
+        acc = buckets.get(key)
+        if acc is None:
+            acc = buckets[key] = ([], [])
+            order.append(key)
+        acc[0].append(e)
+        acc[1].append((ctx, idx))
+        return key
+
+    def plan_rows(self, key, encs: list, rows: list) -> Optional[PlannedBucket]:
+        """Stack one bucket's encoded histories and plan its kernel
+        route; ``rows`` are ``(ctx, idx)`` tokens aligned with ``encs``.
+        Returns ``None`` for an empty bucket."""
+        from ..ops import encode as encode_mod
+        from ..ops import wgl
+
+        if not encs:
+            return None
+        if key is not None:
+            E, C = key
+        else:
+            E, C = encode_mod.global_shape(encs, self.slot_cap)
+        batch = encode_mod.stack_encoded(encs, rows, E, C)
+        arrays = (
+            batch.init_state, batch.ev_slot, batch.cand_slot,
+            batch.cand_f, batch.cand_a, batch.cand_b,
+        )
+        plan = wgl.plan_bucket(
+            self.spec, arrays, device=self.device,
+            max_dispatch=self.max_dispatch,
+        )
+        return PlannedBucket(key, plan, arrays, batch.row_history)
+
+    def open_stream(self) -> "BucketStream":
+        return BucketStream(self)
+
+
+class BucketStream:
+    """One in-progress streaming pass over a :class:`Planner`:
+    :meth:`feed` accumulates (and mid-stream-flushes) one history at a
+    time, :meth:`finish` plans the residual buckets and yields them
+    largest estimated cost first (big buckets keep the dispatch window
+    busy while small ones fill the tail; ties keep first-seen order)."""
+
+    __slots__ = ("planner", "buckets", "order", "finished")
+
+    def __init__(self, planner: Planner):
+        self.planner = planner
+        self.buckets: Dict[Any, Tuple[list, list]] = {}
+        self.order: List[Any] = []  # first-seen bucket order
+        self.finished = False
+
+    def feed(self, ctx: RunContext, idx: int):
+        """Encode history ``idx`` of ``ctx``; yields a
+        :class:`PlannedBucket` when its bucket fills mid-stream."""
+        if self.finished:
+            raise RuntimeError("BucketStream already finished")
+        p = self.planner
+        key = p._accumulate(ctx, idx, self.buckets, self.order)
+        if key is _ROUTED_ORACLE:
+            return
+        acc = self.buckets[key]
+        if p.bucketed and len(acc[0]) >= DEFAULT_FLUSH_ROWS:
+            pb = p.plan_rows(key, *acc)
+            self.buckets[key] = ([], [])
+            if pb is not None:
+                yield pb
+
+    def finish(self):
+        """Plan every residual bucket, then yield biggest-cost-first."""
+        if self.finished:
+            raise RuntimeError("BucketStream already finished")
+        p = self.planner
+        planned = []
+        for key in self.order:
+            pb = p.plan_rows(key, *self.buckets[key])
+            if pb is not None:
+                planned.append(pb)
+        self.finished = True
+        planned.sort(key=estimated_cost, reverse=True)
+        yield from planned
+
+
+def estimated_cost(pb: PlannedBucket) -> float:
+    """Per-bucket device-cost proxy the dispatch order ranks by: rows × E
+    for the dense automaton (a fixed-width scan), 0 for a bucket the
+    oracle takes.  It only ranks buckets; it never changes a verdict."""
+    if pb.plan.fn is None or pb.plan.disp == 0:
+        return 0.0
+    return float(len(pb.rows) * pb.plan.E)

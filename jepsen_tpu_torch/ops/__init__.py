@@ -1,0 +1,3 @@
+"""Device-facing code of the port: host encoding (:mod:`.encode`), model
+specs (:mod:`.step_kernels`), the dense automaton and its CUDA kernel
+(:mod:`.dense`, ``csrc/``), and the batched entry point (:mod:`.wgl`)."""

@@ -1,0 +1,233 @@
+"""Synthetic history generation — for differential tests and benchmarks.
+
+A copy of :mod:`jepsen_tpu.synth`'s CAS-register and lock generators:
+for the same seed they produce the same histories as the reference
+(``tests/test_torch_encode.py`` pins it), so the port and the JAX
+package can be fed identical corpora.
+
+Simulates honest linearizable executions of a CAS register with real
+concurrency (ops linearize at completion; crashes secretly apply or not),
+plus an optional corruption pass that produces likely-invalid histories.
+This is the batch feeder for BASELINE config 3 (batched 1000-op
+CAS-register suites).
+"""
+
+from __future__ import annotations
+
+import random
+
+from .history import History, invoke_op, ok_op, fail_op, info_op
+
+
+def generate_history(
+    rng: random.Random,
+    n_procs: int = 4,
+    n_ops: int = 30,
+    crash_p: float = 0.1,
+    corrupt: bool = False,
+    n_values: int = 5,
+    replace_crashed: bool = False,
+    op_weights=None,
+) -> History:
+    """One simulated concurrent CAS-register execution.
+
+    Valid by construction when corrupt=False (every completed op
+    linearizes at its completion point; crashed ops apply secretly with
+    probability 1/2).  corrupt=True flips one completion value, usually
+    (not always) making the history non-linearizable.
+
+    replace_crashed=True mirrors the interpreter's process retirement
+    (interpreter.clj:233-236): a crash frees the logical worker under a
+    fresh process id, so open (crashed) ops accumulate beyond n_procs.
+    op_weights biases the (read, write, cas) mix.
+    """
+    state = 0
+    hist = []
+    pending = {}
+    idle = list(range(n_procs))
+    next_pid = n_procs
+    values = list(range(1, n_values + 1))
+    ops_done = 0
+    while ops_done < n_ops or pending:
+        do_invoke = idle and (ops_done < n_ops) and (not pending or rng.random() < 0.6)
+        if do_invoke:
+            p = rng.choice(idle)
+            idle.remove(p)
+            # plain choice when unweighted: rng.choices consumes a
+            # different PRNG stream, which would silently regenerate
+            # every fixed-seed corpus
+            if op_weights is None:
+                f = rng.choice(["read", "write", "cas"])
+            else:
+                f = rng.choices(["read", "write", "cas"], weights=op_weights)[0]
+            if f == "read":
+                hist.append(invoke_op(p, "read"))
+                pending[p] = ("read", None)
+            elif f == "write":
+                v = rng.choice(values)
+                hist.append(invoke_op(p, "write", v))
+                pending[p] = ("write", v)
+            else:
+                old = rng.choice(values + [state])
+                new = rng.choice(values)
+                hist.append(invoke_op(p, "cas", (old, new)))
+                pending[p] = ("cas", (old, new))
+            ops_done += 1
+        else:
+            p = rng.choice(list(pending.keys()))
+            f, v = pending.pop(p)
+            if rng.random() < crash_p:
+                # crashed: decide secretly whether it took effect; the
+                # crashed process id is never reused
+                if f == "write" and rng.random() < 0.5:
+                    state = v
+                elif f == "cas" and rng.random() < 0.5 and state == v[0]:
+                    state = v[1]
+                hist.append(info_op(p, f, v))
+                if replace_crashed:
+                    idle.append(next_pid)
+                    next_pid += 1
+            else:
+                if f == "read":
+                    v = state
+                elif f == "write":
+                    state = v
+                elif f == "cas":
+                    if state == v[0]:
+                        state = v[1]
+                    else:
+                        hist.append(fail_op(p, f, v))
+                        idle.append(p)
+                        continue
+                hist.append(ok_op(p, f, v))
+                idle.append(p)
+        if not idle and not pending:
+            break
+    out = History(hist)
+    if corrupt and len(out) > 2:
+        oks = [i for i, op in enumerate(out) if op.type == "ok"]
+        if oks:
+            i = rng.choice(oks)
+            op = out[i]
+            if op.f in ("read", "write"):
+                out[i] = op.copy(value=rng.choice([7, 8, 9]))
+    for i, op in enumerate(out):
+        op.index = i
+        op.time = i
+    return out
+
+
+def generate_batch(
+    seed: int,
+    n_histories: int,
+    n_procs: int = 4,
+    n_ops: int = 30,
+    crash_p: float = 0.05,
+    corrupt_fraction: float = 0.0,
+):
+    """A list of histories, a deterministic function of seed."""
+    rng = random.Random(seed)
+    out = []
+    for i in range(n_histories):
+        corrupt = rng.random() < corrupt_fraction
+        out.append(
+            generate_history(
+                rng, n_procs=n_procs, n_ops=n_ops, crash_p=crash_p, corrupt=corrupt
+            )
+        )
+    return out
+
+
+def generate_lock_history(
+    rng,
+    n_procs: int = 4,
+    n_ops: int = 40,
+    reentrant: bool = False,
+    corrupt: bool = False,
+):
+    """Simulated owner-aware (optionally reentrant, hold bound 2)
+    distributed lock with real contention: waiters stay pending until
+    the lock frees (like the hazelcast suite's try_lock clients), so
+    histories are dense with successful acquire/release cycles rather
+    than failed probes.  A release's linearization point sits anywhere
+    in its invoke window, so a grant may interleave there — real
+    concurrency, still linearizable.  Completions carry {"client":
+    name} the way suites/hazelcast.py stamps identity.  corrupt=True
+    fabricates one definite violation: a grant while held with no open
+    release that could linearize first."""
+    cap = 2 if reentrant else 1
+    hist = []
+    idle = list(range(n_procs))
+    waiting: list = []      # acquire invoked, not granted
+    holds = {p: 0 for p in range(n_procs)}
+    releasing: list = []    # release invoked, not ok'd
+    eff = 0                 # holds outstanding after in-flight releases
+    corrupted = False
+    done = 0
+    while done < n_ops or waiting or releasing:
+        can_acq = [p for p in idle if holds[p] == 0]
+        can_reacq = [p for p in idle if 0 < holds[p] < cap]
+        can_rel = [p for p in idle if holds[p] > 0]
+        legit_grant = [
+            p for p in waiting
+            if eff == 0 or (0 < holds[p] < cap)
+        ]
+        moves = []
+        if done < n_ops and (can_acq or (reentrant and can_reacq)):
+            moves.append("inv_acq")
+        # releases stay available past the op budget so waiters drain
+        # (holders must free the lock for pending grants to complete)
+        if can_rel and (done < n_ops or waiting):
+            moves.append("inv_rel")
+        if legit_grant:
+            moves.append("grant")
+        elif waiting and corrupt and not corrupted and not releasing:
+            # no legitimate grant exists and no release is open: a
+            # grant here is a definite violation in every ordering
+            moves.append("bad_grant")
+        if releasing:
+            moves.append("ok_rel")
+        if not moves:
+            break  # defensive: the current move set always drains
+        mv = rng.choice(moves)
+        if mv == "inv_acq":
+            pool = can_acq + (can_reacq if reentrant else [])
+            p = pool[rng.randrange(len(pool))]
+            idle.remove(p)
+            hist.append(invoke_op(p, "acquire", None))
+            waiting.append(p)
+            done += 1
+        elif mv == "inv_rel":
+            p = can_rel[rng.randrange(len(can_rel))]
+            idle.remove(p)
+            hist.append(invoke_op(p, "release", None))
+            releasing.append(p)
+            eff -= 1  # the release may linearize from here on
+            done += 1
+        elif mv in ("grant", "bad_grant"):
+            pool = legit_grant if mv == "grant" else waiting
+            p = pool[rng.randrange(len(pool))]
+            waiting.remove(p)
+            holds[p] += 1
+            eff += 1
+            hist.append(ok_op(p, "acquire", {"client": f"c{p}"}))
+            idle.append(p)
+            if mv == "bad_grant":
+                corrupted = True
+        else:  # ok_rel
+            p = releasing.pop(rng.randrange(len(releasing)))
+            holds[p] -= 1
+            hist.append(ok_op(p, "release", {"client": f"c{p}"}))
+            idle.append(p)
+    # Defensive tail (currently unreachable: a move always exists while
+    # waiters remain, so the loop drains them): if a future move-set
+    # change ever strands a waiter, it must leave as an IDENTITY-BEARING
+    # info op — an identity-less open invoke would push the whole
+    # history onto the oracle, which is exponential at contended shapes.
+    for p in waiting:
+        hist.append(info_op(p, "acquire", {"client": f"c{p}"}))
+    h = History(hist)
+    for i, op in enumerate(h):
+        op.index = i
+        op.time = i
+    return h.index_ops()

@@ -1,0 +1,220 @@
+"""The plain PyTorch version of the dense automaton against the JAX
+kernel (``jepsen_tpu.ops.dense.make_dense_fn``) on the same numpy inputs.
+
+Tolerance: exact.  Every output (ok, failed_at, overflow) is an integer
+or a bool, so the three arrays are compared byte for byte.  The CUDA
+kernel is held against this same plain version on the card by
+``chip_smoke.py``.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from jepsen_tpu.ops import dense as ref_dense
+from jepsen_tpu_torch import models, synth
+from jepsen_tpu_torch.ops import carry, dense, encode, wgl
+from jepsen_tpu_torch.ops.step_kernels import F_ACQUIRE, F_RELEASE, F_WRITE
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The plain version issues many small tensor ops; one thread avoids
+    oversubscribing the cores the other test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _encoded(kind, n_procs, n_ops, n_values, seed, n=6):
+    rng = random.Random(seed)
+    if kind == "mutex":
+        model = models.mutex()
+        hs = [synth.generate_lock_history(rng, n_procs=n_procs, n_ops=n_ops,
+                                          corrupt=i % 2 == 0)
+              for i in range(n)]
+    else:
+        model = (models.register(0) if kind == "register"
+                 else models.cas_register(0))
+        weights = (1, 1, 0) if kind == "register" else None
+        hs = [synth.generate_history(rng, n_procs=n_procs, n_ops=n_ops,
+                                     corrupt=i % 2 == 0, n_values=n_values,
+                                     op_weights=weights)
+              for i in range(n)]
+    encs = [encode.encode_history(h, model, slot_cap=12) for h in hs]
+    return [e for e in encs if e is not None]
+
+
+def _stack(encs, C, pad_rows=2):
+    """Stack at exactly ``C`` lanes, plus all-padding rows."""
+    E = encode.round_up(max(e.ev_slot.shape[0] for e in encs))
+    b = encode.stack_encoded(encs, list(range(len(encs))), E, C)
+    arrays = [b.init_state, b.ev_slot, b.cand_slot, b.cand_f, b.cand_a,
+              b.cand_b]
+    fills = wgl._PAD_FILLS
+    return [np.concatenate([a, np.full((pad_rows,) + a.shape[1:], f, a.dtype)])
+            for a, f in zip(arrays, fills)]
+
+
+def _assert_matches_reference(spec, arrays, C, V):
+    ref_fn = ref_dense.make_dense_fn(spec, arrays[1].shape[1], C, V)
+    ref = [np.asarray(x) for x in ref_fn(*arrays)]
+    tensors = carry.batch_from_reference(*arrays, device="cpu")
+    ours = dense.make_dense_fn(spec, arrays[1].shape[1], C, V,
+                               torch.device("cpu"))(*tensors)
+    ours = [x.numpy() for x in ours]
+    for name, o, r in zip(("ok", "failed_at", "overflow"), ours, ref):
+        assert o.dtype == r.dtype, name
+        assert o.tobytes() == r.tobytes(), (name, o, r)
+    return ours
+
+
+# (spec, C, V, corpus: n_procs, n_ops, n_values) — every C in {4, 8, 12},
+# every V in {4, 8, 32}, each spec, and padded rows in every case (C = 12
+# with V = 32 is the slow corner on the CPU; chip_smoke.py runs it)
+CASES = [
+    ("cas-register", 4, 4, (3, 60, 1)),
+    ("cas-register", 8, 8, (5, 120, 5)),
+    ("cas-register", 12, 8, (11, 40, 5)),
+    ("register", 4, 32, (3, 60, 30)),
+    ("register", 8, 32, (6, 60, 30)),
+    ("register", 12, 4, (11, 40, 1)),
+    ("mutex", 4, 4, (3, 60, None)),
+    ("mutex", 8, 8, (6, 60, None)),
+    ("mutex", 12, 4, (10, 30, None)),
+]
+
+
+@pytest.mark.parametrize("spec,C,V,corpus", CASES,
+                         ids=[f"{s}-C{c}-V{v}" for s, c, v, _ in CASES])
+def test_plain_version_equals_jax_kernel(spec, C, V, corpus):
+    n_procs, n_ops, n_values = corpus
+    encs = _encoded(spec, n_procs, n_ops, n_values, seed=C * 100 + V)
+    assert max(e.max_open for e in encs) <= C
+    arrays = _stack(encs, C)
+    vdom = wgl.value_domain(arrays[0], arrays[4], arrays[5])
+    assert vdom <= V
+    ok, failed_at, _ = _assert_matches_reference(spec, arrays, C, V)
+    assert ok[-2:].all() and (failed_at[-2:] == -1).all()  # padding rows
+    if spec != "mutex" or C == 4:
+        assert not ok.all(), "the corpus must hold invalid histories"
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_plain_version_equals_jax_kernel_random_codes(seed):
+    """Random lanes, op codes (all twelve, so the read branch's catch-all
+    is exercised), slot ids and padding events."""
+    rs = np.random.default_rng(seed)
+    B, E, C, V = 6, 24, 8, 8
+    cand_slot = np.full((B, E, C), -1, np.int8)
+    for b in range(B):
+        for e in range(E):
+            k = rs.integers(0, C + 1)
+            cand_slot[b, e, :k] = rs.permutation(C)[:k]
+    ev_slot = np.where(rs.random((B, E)) < 0.2, -1,
+                       rs.integers(0, C, (B, E))).astype(np.int32)
+    arrays = [
+        rs.integers(0, V, B).astype(np.int32), ev_slot, cand_slot,
+        rs.integers(0, 12, (B, E, C)).astype(np.int8),
+        rs.integers(0, V, (B, E, C)).astype(np.int16),
+        rs.integers(0, V, (B, E, C)).astype(np.int16),
+    ]
+    _assert_matches_reference("cas-register", arrays, C, V)
+
+
+def test_mutex_codes_reach_the_cas_transitions():
+    """acquire/release are cas(0 → 1)/cas(1 → 0): a release first fails."""
+    ev_slot = np.array([[0, 0], [0, 0]], np.int32)
+    f = np.full((2, 2, 4), 0, np.int8)
+    f[0, :, 0] = (F_ACQUIRE, F_RELEASE)
+    f[1, :, 0] = (F_RELEASE, F_ACQUIRE)
+    cand_slot = np.full((2, 2, 4), -1, np.int8)
+    cand_slot[:, :, 0] = 0
+    zeros = np.zeros((2, 2, 4), np.int16)
+    arrays = [np.zeros(2, np.int32), ev_slot, cand_slot, f, zeros, zeros]
+    ok, failed_at, _ = _assert_matches_reference("mutex", arrays, 4, 4)
+    assert ok.tolist() == [True, False] and failed_at.tolist() == [-1, 0]
+
+
+@pytest.mark.parametrize("C", range(1, 13))
+def test_subset_tables_equal_reference(C):
+    maps = [np.asarray(t) for t in ref_dense._subset_maps(C)]
+    carry.tables_from_reference(C, *maps, np.asarray(ref_dense._subset_has(C)))
+
+
+def test_tables_from_reference_rejects_a_drift():
+    maps = [np.asarray(t) for t in ref_dense._subset_maps(8)]
+    maps[1] = maps[1].copy()
+    maps[1][3, 0] ^= 1
+    with pytest.raises(ValueError, match="umask"):
+        carry.tables_from_reference(8, *maps,
+                                    np.asarray(ref_dense._subset_has(8)))
+
+
+def test_batch_from_reference_checks_dtypes():
+    arrays = _stack(_encoded("cas-register", 3, 30, 3, seed=1), 4)
+    tensors = carry.batch_from_reference(*arrays, device="cpu")
+    assert [t.dtype for t in tensors] == [
+        torch.int32, torch.int32, torch.int8, torch.int8, torch.int16,
+        torch.int16]
+    arrays[4] = arrays[4].astype(np.int32)
+    with pytest.raises(TypeError, match="cand_a"):
+        carry.batch_from_reference(*arrays, device="cpu")
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 100])
+def test_pack_words_equal_reference(n):
+    bits = np.random.default_rng(n).random((3, n)) < 0.5
+    words = dense.pack_words_np(bits)
+    np.testing.assert_array_equal(words, ref_dense.pack_words_np(bits))
+    np.testing.assert_array_equal(dense.unpack_words_np(words, n), bits)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """On the CPU the engine takes the plain version; the kernel wrapper
+    itself only takes CUDA tensors and says so."""
+    arrays = _stack(_encoded("cas-register", 3, 30, 3, seed=2), 4)
+    tensors = carry.batch_from_reference(*arrays, device="cpu")
+    launches = dense.DENSE_AUTOMATON.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dense.DENSE_AUTOMATON(*tensors, V=4)
+    assert dense.DENSE_AUTOMATON.launches == launches
+
+
+def test_checker_validates_inputs():
+    arrays = _stack(_encoded("cas-register", 3, 30, 3, seed=3), 4)
+    tensors = list(carry.batch_from_reference(*arrays, device="cpu"))
+    checker = dense.make_dense_fn("cas-register", arrays[1].shape[1], 4, 4,
+                                  torch.device("cpu"))
+    tensors[1] = tensors[1][:, ::2]
+    with pytest.raises(ValueError):
+        checker(*tensors)
+    with pytest.raises(ValueError, match="no dense kernel"):
+        dense.DenseChecker("cas-register", 64, 13, 4)
+
+
+def test_work_counts_the_operations_the_function_needs():
+    """One write of 2 at C = 4, V = 4 (one word): a single closure pass
+    changes D (4 source-bit ORs + AND/shift/OR of the one live target +
+    D | update and compare over 4 words = 15), the confirming pass is not
+    counted, and the completion costs shift/AND/OR over 4 words (12).
+    Copies add up; an all-padding row adds nothing."""
+    lanes = np.array([[[0, -1, -1, -1]]], np.int8)
+    one = (np.zeros(1, np.int32), np.zeros((1, 1), np.int32), lanes,
+           np.array([[[F_WRITE, 0, 0, 0]]], np.int8),
+           np.array([[[2, 0, 0, 0]]], np.int16), np.zeros((1, 1, 4), np.int16))
+    work = {}
+    ok, failed_at, _ = dense.dense_check_reference(
+        *carry.batch_from_reference(*one, device="cpu"), V=4, work=work)
+    assert bool(ok[0]) and int(failed_at[0]) == -1
+    assert work == {"int_ops": 27}
+    fills = wgl._PAD_FILLS
+    three = [np.concatenate([a, a, np.full_like(a, f)])
+             for a, f in zip(one, fills)]
+    work = {}
+    dense.dense_check_reference(
+        *carry.batch_from_reference(*three, device="cpu"), V=4, work=work)
+    assert work == {"int_ops": 54}
