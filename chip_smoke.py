@@ -29,6 +29,28 @@ without its last line.
 5. times — kernel ms (CUDA events, median of 7 after 2 warm-ups), its
    bound, the plain version's ms, end-to-end histories/s, each beside the
    card's name and power limit.
+6. frontier — the frontier search's CUDA kernel against its plain
+   PyTorch version on the card at the slice's shape: 1024 synth 1000-op
+   CAS-register histories (seed 45200, 5 processes, crash probability
+   0.002, a quarter corrupted, writes from 40 values, so the value
+   domain leaves the dense envelope), E ≈ 768, C = 8, at F = 128 and at
+   F = 512.  Byte-equal on every output (tolerance: exact).
+7. frontier edges — the same comparison at C = 16 (crash-heavy
+   10-process histories), on the rows of that batch that overflowed,
+   padded as the escalation ladder pads them, at its first rung's
+   capacity (F = 512), at the sufficient rung's capacity (C = 4),
+   with two linset words (slot ids moved past 32), with max_closure = 2,
+   and on one random batch per step function (register, cas-register,
+   mutex, reentrant mutex, multi-register, unordered queue).
+8. frontier end to end — ``check_batch`` on the slice's 1024 histories
+   plus 8 crash-heavy 10-process ones, frontier launch counter and
+   escalation counter reset just before and read just after: the kernel
+   must have launched, at least one escalation rung must have run on the
+   card, and some rows must have gone to the oracle as
+   ``"oracle-overflow"``; device verdicts held against the CPU oracle on
+   a 64-history sample.
+9. frontier times — as in 5, for the frontier kernel at the slice's
+   shape (1024 rows, F = 128).
 
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -47,7 +69,10 @@ import torch
 
 from jepsen_tpu_torch import models, synth
 from jepsen_tpu_torch.checker import linear
-from jepsen_tpu_torch.ops import _build, dense, encode, wgl
+from jepsen_tpu_torch.ops import _build, dense, encode, step_kernels, wgl
+from jepsen_tpu_torch.ops.step_kernels import (
+    F_ACQUIRE, F_CAS, F_DEQUEUE, F_ENQUEUE, F_RACQUIRE, F_READ, F_READ_ANY,
+    F_RELEASE, F_RRELEASE, F_WRITE)
 
 #: H100 SXM peak rates the bound is priced against: HBM3 bandwidth
 #: (NVIDIA data sheet), and 32-bit integer operations at 132 SMs × 64
@@ -57,6 +82,7 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 FLAGSHIP_ROWS = 16384
 E2E_HISTORIES = 1024
+FRONTIER_HISTORIES = 1024
 
 
 def emit(**fields) -> None:
@@ -87,13 +113,14 @@ def batch_arrays(b: encode.EncodedBatch):
             b.cand_b)
 
 
-def compare(checker: dense.DenseChecker, arrays):
+def compare(checker, arrays, work=None):
     """Kernel vs plain version on the same device tensors; returns
     (kernel outputs as numpy, plain seconds, max |kernel - plain|)."""
     kern = checker(*arrays)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain = checker.reference(*arrays)
+    plain = (checker.reference(*arrays) if work is None
+             else checker.reference(*arrays, work=work))
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     kern = [x.cpu().numpy() for x in kern]
@@ -197,6 +224,119 @@ def edge_cases():
     ]
 
 
+def slice_histories(seed: int, n: int):
+    """The frontier slice's histories: ``synth.generate_batch`` with
+    writes drawn from 40 values (same generator, same draws per
+    history)."""
+    rng = random.Random(seed)
+    return [synth.generate_history(rng, n_procs=5, n_ops=1000,
+                                   crash_p=0.002, n_values=40,
+                                   corrupt=rng.random() < 0.25)
+            for _ in range(n)]
+
+
+def crash_heavy_histories(seed: int, n: int):
+    """10 processes, crashed processes replaced: C reaches 16."""
+    rng = random.Random(seed)
+    return [synth.generate_history(rng, n_procs=10, n_ops=200, crash_p=0.03,
+                                   replace_crashed=True, corrupt=i % 4 == 0)
+            for i in range(n)]
+
+
+def encoded(hs, slot_cap):
+    """One padded batch of the encodable histories, as arrays."""
+    b = encode.batch_encode(hs, models.cas_register(0), slot_cap=slot_cap)
+    return batch_arrays(b)
+
+
+#: op codes and value-id bound of each step function's random batch
+RANDOM_OPS = {
+    "register": ([F_READ, F_WRITE, F_READ_ANY], 6),
+    "cas-register": ([F_READ, F_WRITE, F_CAS, F_READ_ANY], 6),
+    "mutex": ([F_ACQUIRE, F_RELEASE], 2),
+    "reentrant-mutex": ([F_RACQUIRE, F_RRELEASE], 3),
+    "multi-register": ([F_READ, F_WRITE, F_READ_ANY], 5),
+    "unordered-queue": ([F_ENQUEUE, F_DEQUEUE], 34),
+}
+
+
+def random_batch(spec: str, seed: int, B=128, E=64, C=8):
+    """Random encoded histories of ``spec``: ops open into free slots,
+    each event completes one open op — mostly one the step accepts in a
+    sequential run, sometimes any — and ops left open act as crashed
+    ones (the generator of tests/test_torch_frontier.py)."""
+    r = np.random.default_rng(seed)
+    step = step_kernels.STEPS[spec]
+    codes, amax = RANDOM_OPS[spec]
+    init = np.zeros((B,), np.int32)
+    ev = np.full((B, E), -1, np.int32)
+    cs = np.full((B, E, C), -1, np.int8)
+    cf = np.zeros((B, E, C), np.int8)
+    ca = np.zeros((B, E, C), np.int16)
+    cb = np.zeros((B, E, C), np.int16)
+
+    def run(state, op):
+        s2, ok = step(*(torch.tensor([x], dtype=dt) for x, dt in zip(
+            (state,) + op, (torch.int32, torch.int8, torch.int16,
+                            torch.int16))))
+        return int(s2[0]), bool(ok[0])
+
+    for row in range(B):
+        state, open_ops = 0, {}
+        for e in range(E):
+            free = [c for c in range(C) if c not in open_ops]
+            while free and (not open_ops or r.random() < 0.6):
+                slot = free.pop(int(r.integers(0, len(free))))
+                open_ops[slot] = (int(codes[r.integers(0, len(codes))]),
+                                  int(r.integers(0, amax + 1)),
+                                  int(r.integers(0, 4)))
+            accepted = [c for c in open_ops if run(state, open_ops[c])[1]]
+            if r.random() < 0.1 or not (accepted or r.random() < 0.1):
+                continue
+            lanes = list(open_ops)
+            r.shuffle(lanes)
+            for lane, slot in enumerate(lanes):
+                cs[row, e, lane] = slot
+                cf[row, e, lane], ca[row, e, lane], cb[row, e, lane] = \
+                    open_ops[slot]
+            pool = accepted if accepted and r.random() < 0.95 else lanes
+            done = pool[int(r.integers(0, len(pool)))]
+            state2, ok = run(state, open_ops.pop(done))
+            state = state2 if ok else state
+            ev[row, e] = done
+    return init, ev, cs, cf, ca, cb
+
+
+def two_word(arrays, C2=40):
+    """The same histories with every slot id moved up by 32 at C2 lanes:
+    every linset bit lives in word 1."""
+    init, ev, cs, cf, ca, cb = arrays
+    B, E, C = cs.shape
+    cs2 = np.full((B, E, C2), -1, np.int8)
+    cs2[:, :, :C] = np.where(cs >= 0, cs + 32, cs)
+    wide = []
+    for a in (cf, ca, cb):
+        w = np.zeros((B, E, C2), a.dtype)
+        w[:, :, :C] = a
+        wide.append(w)
+    return (init, np.where(ev >= 0, ev + 32, ev).astype(np.int32), cs2,
+            *wide)
+
+
+def frontier_compare(name, spec, arrays, F, mc, device, work=None):
+    """The frontier kernel against its plain version on ``arrays``; emits
+    one line and returns (kernel outputs, plain seconds, max error)."""
+    B, E, C = arrays[2].shape
+    checker = wgl.make_check_fn(spec, E, C, F, mc, device)
+    (ok, failed_at, ovf), plain_s, err = compare(
+        checker, to_device(arrays, device), work)
+    emit(phase="frontier_edge" if name else "frontier", case=name, spec=spec,
+         rows=int(B), E=int(E), C=int(C), F=F, max_closure=mc,
+         invalid=int((~ok).sum()), overflowed=int(ovf.sum()),
+         max_abs_err=err, plain_s=plain_s, tolerance="exact (byte-equal)")
+    return (ok, failed_at, ovf), plain_s, err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -292,6 +432,96 @@ def main() -> int:
          library="no single PyTorch call computes the dense automaton",
          card=card)
 
+    # -- 6. frontier kernel against its plain version at the slice's shape --
+    slice_hs = slice_histories(45200, FRONTIER_HISTORIES)
+    f_arrays = encoded(slice_hs, slot_cap=32)
+    fB, fE, fC = f_arrays[2].shape
+    dom = wgl.value_domain(f_arrays[0], f_arrays[4], f_arrays[5])
+    require(wgl.kernel_choice("cas-register", fC, dom) == "frontier",
+            f"the slice's shape (C={fC}, V={dom}) is not a frontier shape")
+    f_work: dict = {}
+    (f_ok, f_failed, _), f_plain_s, f_err = frontier_compare(
+        "", "cas-register", f_arrays, wgl.DEFAULT_FRONTIER, fC + 1, device,
+        work=f_work)
+    _, _, e512 = frontier_compare("", "cas-register", f_arrays, 512, fC + 1,
+                                  device)
+    f_err = max(f_err, e512)
+
+    # -- 7. frontier edges ---------------------------------------------------
+    hc = encoded(crash_heavy_histories(45210, 64), slot_cap=16)
+    require(hc[2].shape[2] == 16, f"crash-heavy C={hc[2].shape[2]}, not 16")
+    suff_hs = [synth.generate_history(random.Random(45220 + i), n_procs=4,
+                                      n_ops=150, n_values=200, crash_p=0.0,
+                                      corrupt=i % 4 == 0) for i in range(64)]
+    suff = encoded(suff_hs, slot_cap=4)
+    suff_F = wgl.sufficient_frontier(
+        wgl.value_domain(suff[0], suff[4], suff[5]), suff[2].shape[2])
+    require(suff_F is not None, "no sufficient capacity for the C=4 batch")
+    short = tuple(a[:128] for a in f_arrays)
+    (_, _, hc_ovf), _, e_err = frontier_compare(
+        "C16", "cas-register", hc, wgl.DEFAULT_FRONTIER, 17, device)
+    f_err = max(f_err, e_err)
+    require(hc_ovf.any(), "no C = 16 row overflowed at the base capacity")
+    # the first escalation rung's own shape: the overflowed rows, padded
+    # as escalate_overflows pads them, at F × the first factor
+    _, hc_rung = wgl.overflow_rows(hc, hc_ovf)
+    edges = [
+        ("C16-rung", "cas-register", hc_rung,
+         wgl.DEFAULT_FRONTIER * wgl.ESCALATION_FACTORS[0], 17),
+        ("sufficient", "cas-register", suff, suff_F, 5),
+        ("W2", "cas-register", two_word(short), wgl.DEFAULT_FRONTIER, 41),
+        ("max_closure=2", "cas-register", short, wgl.DEFAULT_FRONTIER, 2),
+    ] + [(f"random-{spec}", spec, random_batch(spec, 45230 + i), 16, 9)
+         for i, spec in enumerate(RANDOM_OPS)]
+    for name, spec, arrays, F, mc in edges:
+        _, _, e_err = frontier_compare(name, spec, arrays, F, mc, device)
+        f_err = max(f_err, e_err)
+
+    # -- 8. frontier end to end through check_batch ---------------------------
+    f_hs = slice_histories(45240, FRONTIER_HISTORIES) + \
+        crash_heavy_histories(45250, 8)
+    wgl.FRONTIER_SEARCH.launches = 0
+    wgl.ESCALATIONS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f_results = wgl.check_batch(model, f_hs)
+    f_e2e_s = time.perf_counter() - t0
+    f_launches = wgl.FRONTIER_SEARCH.launches
+    rungs = dict(wgl.ESCALATIONS)
+    f_stats = wgl.batch_stats(f_results)
+    require(f_launches > 0, "check_batch never launched the frontier kernel")
+    require(rungs, "no escalation rung ran on the card")
+    require(f_stats["engines"].get("oracle-overflow", 0) > 0,
+            "no row went to the oracle as oracle-overflow")
+    f_device = [i for i, r in enumerate(f_results) if r["engine"] == "gpu"]
+    f_invalid = [i for i in f_device if f_results[i]["valid?"] is False]
+    f_sample = sorted(set(f_invalid[:16]) | set(
+        pick.choice(f_device, 64, replace=False).tolist()))[:64]
+    for i in f_sample:
+        r = linear.analysis(model, f_hs[i], pure_fs=("read",))
+        require(r["valid?"] == f_results[i]["valid?"],
+                f"frontier history {i}: device says "
+                f"{f_results[i]['valid?']}, oracle says {r['valid?']}")
+    emit(phase="frontier_end_to_end", histories=len(f_hs), seconds=f_e2e_s,
+         histories_per_s=len(f_hs) / f_e2e_s, launches=f_launches,
+         escalations={str(k): v for k, v in rungs.items()},
+         oracle_sample=len(f_sample), batch_stats=f_stats, card=card)
+
+    # -- 9. frontier times ----------------------------------------------------
+    f_checker = wgl.make_check_fn("cas-register", fE, fC,
+                                  wgl.DEFAULT_FRONTIER, fC + 1, device)
+    f_dev = to_device(f_arrays, device)
+    f_ms, f_all_ms = time_kernel(f_checker, f_dev)
+    f_bound_ms, f_bound_by, f_bytes = kernel_bound(f_arrays, f_failed,
+                                                   f_work["int_ops"])
+    emit(phase="frontier_times", kernel="frontier_search", rows=int(fB),
+         E=int(fE), C=int(fC), F=wgl.DEFAULT_FRONTIER, ms=f_ms,
+         runs_ms=f_all_ms, bound_ms=f_bound_ms, bound_by=f_bound_by,
+         bytes=f_bytes, int_ops=f_work["int_ops"], plain_ms=f_plain_s * 1e3,
+         e2e_histories_per_s=len(f_hs) / f_e2e_s, library_ms=None,
+         library="no single PyTorch call computes the frontier search",
+         card=card)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "dense_automaton",
@@ -304,6 +534,18 @@ def main() -> int:
         "plain_ms": plain_s * 1e3,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "frontier_search",
+        "route": "cuda",
+        "source": "jepsen_tpu_torch/ops/csrc/frontier_search.cu",
+        "replaces": "jepsen_tpu/ops/wgl.py:300",
+        "launches": f_launches,
+        "max_abs_err": f_err,
+        "ms": f_ms,
+        "plain_ms": f_plain_s * 1e3,
+        "bound_ms": f_bound_ms,
+        "bound_by": f_bound_by,
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import threading
 from collections import deque
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -134,30 +134,73 @@ class Executor:
     ``submit(planned_bucket)`` splits the bucket into chunks of at most
     the plan's dispatch cap — every chunk padded with neutral rows to one
     stable row count — and dispatches them through the executor's
-    :class:`DispatchWindow`; ``drain()`` retires everything in flight.
-    Row verdicts route through each row's ``(ctx, idx)`` token back to
-    its :class:`~jepsen_tpu_torch.engine.planning.RunContext`.  A bucket
-    with no device checker settles inline: its rows go to the oracle pool
-    at once, overlapping the remaining device work.
+    :class:`DispatchWindow`; ``drain()`` retires everything in flight and
+    then runs the escalation ladder.  Row verdicts route through each
+    row's ``(ctx, idx)`` token back to its
+    :class:`~jepsen_tpu_torch.engine.planning.RunContext`.
+
+    A frontier chunk gets 1/window of the plan's row cap, so the chunks
+    in flight together hold at most one cap's worth of device memory;
+    when the cap is below the window, the bucket dispatches serially at
+    the full cap.  Dense chunks keep the full cap.  A chunk with
+    overflowed rows is parked and escalates at :meth:`drain`, with the
+    window empty.  A bucket whose cap is 0 (not even one row fits)
+    settles inline: its rows go to the oracle pool at once, overlapping
+    the remaining device work.
     """
 
     def __init__(self, window: Optional[int] = None, *,
-                 device: torch.device):
+                 device: torch.device, escalation=None,
+                 sufficient_rung: bool = True,
+                 max_dispatch: Optional[int] = None):
+        from ..ops import wgl
+
         self.device = device
+        self.escalation = (wgl.ESCALATION_FACTORS if escalation is None
+                           else escalation)
+        self.sufficient_rung = sufficient_rung
+        self.max_dispatch = (wgl.DEFAULT_MAX_DISPATCH if max_dispatch is None
+                             else max_dispatch)
         self._win = DispatchWindow(window, on_retire=self._settle_chunk)
-        #: chunk_id -> (plan, rows, live row count)
+        #: chunk_id -> (plan, padded host arrays, rows, live row count)
         self._chunks: Dict[int, tuple] = {}
         self._next_chunk = 0
+        #: chunks whose base pass overflowed, parked until the window drains:
+        #: an escalation rerun holds a larger frontier, and running it on top
+        #: of in-flight base chunks would exceed the memory the caps allow
+        self._pending_escalations: List[tuple] = []
 
     # -- settle path (runs inside window retirement, owner thread) -------
 
     def _settle_chunk(self, chunk_id, mat):
-        plan, rows, n_live = self._chunks.pop(chunk_id)
-        ok, failed_at, overflow = (np.asarray(x)[:n_live] for x in mat)
+        plan, arrays, rows, n_live = self._chunks.pop(chunk_id)
+        # np.array, not asarray: the escalation pass writes into these
+        ok, failed_at, overflow = (np.array(x)[:n_live] for x in mat)
+        if overflow.any():
+            self._pending_escalations.append(
+                (plan, arrays, rows, ok, failed_at, overflow))
+        else:
+            self._assign_rows(plan, rows, ok, failed_at, overflow)
+
+    def _settle_rows(self, plan, arrays, rows, ok, failed_at, overflow):
+        """Escalate a chunk's overflows on the device, then assign verdicts
+        (still-overflowed rows join each row's oracle pool)."""
+        from ..ops import wgl
+
+        wgl.escalate_overflows(
+            plan, arrays, ok, failed_at, overflow, device=self.device,
+            escalation=self.escalation,
+            sufficient_rung=self.sufficient_rung,
+            max_dispatch=self.max_dispatch,
+        )
+        self._assign_rows(plan, rows, ok, failed_at, overflow)
+
+    @staticmethod
+    def _assign_rows(plan, rows, ok, failed_at, overflow):
         for row, (ctx, hist_idx) in enumerate(rows):
             if overflow[row]:
-                # the dense automaton cannot overflow; should a kernel
-                # ever report it, the oracle decides, never a guess
+                # still overflowed after escalation: the oracle decides,
+                # never a guess
                 ctx.route_oracle(hist_idx, "oracle-overflow", "overflow")
             elif ok[row]:
                 ctx.assign(hist_idx, {
@@ -196,19 +239,34 @@ class Executor:
             event.record(torch.cuda.current_stream(self.device))
         return InFlight(event, out_host, (host, dev, outs))
 
+    def _dispatch(self, plan, chunk, rows) -> None:
+        chunk_id = self._next_chunk
+        self._next_chunk += 1
+        self._chunks[chunk_id] = (plan, chunk, rows, len(rows))
+        self._win.submit(
+            chunk_id, lambda fn=plan.fn, c=chunk: self._launch(fn, c)
+        )
+
     def submit(self, pb) -> None:
         """Dispatch one planned bucket in capped chunks through the
-        window (or hand it to the oracle inline when no kernel runs)."""
+        window (or hand it to the oracle inline when no row fits)."""
         from ..ops import wgl
 
         plan, arrays, rows = pb.plan, pb.arrays, pb.rows
-        if plan.fn is None or plan.disp == 0:
-            # no device kernel for the shape yet (ROADMAP.md, kernel K4)
-            for ctx, idx in rows:
-                ctx.route_oracle(idx, "oracle-unported", "unported")
-            return
         B = arrays[0].shape[0]
+        if plan.disp == 0:
+            # every escalation rung is as undispatchable (caps shrink as
+            # the capacity grows), so settling here dispatches nothing
+            self._settle_rows(plan, arrays, rows, np.zeros((B,), bool),
+                              np.zeros((B,), np.int32), np.ones((B,), bool))
+            return
         cap = plan.disp
+        serialize = False
+        if plan.kernel != "dense" and self._win.window > 1:
+            if cap >= self._win.window:
+                cap //= self._win.window
+            else:
+                serialize = True
         # one stable shape per bucket: a short bucket pads to its power-of
         # -two row bucket, a long one to full cap-row chunks (the tail
         # too), so a bucket never launches at a per-tail-size shape
@@ -219,13 +277,29 @@ class Executor:
                 _pad_rows(np.asarray(a[lo:hi]), target, fill)
                 for a, fill in zip(arrays, wgl._PAD_FILLS)
             )
-            chunk_id = self._next_chunk
-            self._next_chunk += 1
-            self._chunks[chunk_id] = (plan, rows[lo:hi], hi - lo)
-            self._win.submit(
-                chunk_id, lambda fn=plan.fn, c=chunk: self._launch(fn, c)
-            )
+            if serialize:
+                self._win.drain()
+            self._dispatch(plan, chunk, rows[lo:hi])
+        if serialize:
+            self._win.drain()
 
     def drain(self) -> None:
-        """Retire every in-flight dispatch."""
+        """Retire every in-flight dispatch, then run the escalation ladder
+        with the window empty.  Parked chunks merge per plan first (live
+        rows only: tail chunks carry neutral padding rows), so a bucket
+        pays one padded rerun per rung, not one ladder per chunk."""
         self._win.drain()
+        pending, self._pending_escalations = self._pending_escalations, []
+        merged: Dict[int, List[tuple]] = {}
+        for item in pending:
+            merged.setdefault(id(item[0]), []).append(item)
+        for group in merged.values():
+            n = [len(g[2]) for g in group]
+            arrays = tuple(
+                np.concatenate([g[1][i][:k] for g, k in zip(group, n)])
+                for i in range(6)
+            )
+            self._settle_rows(
+                group[0][0], arrays, [r for g in group for r in g[2]],
+                *(np.concatenate([g[i] for g in group]) for i in (3, 4, 5)),
+            )

@@ -9,10 +9,13 @@
   :class:`~jepsen_tpu_torch.engine.execution.DispatchWindow` bounds how
   many are in flight and syncs only the oldest when the window fills —
   window=1 is the serial dispatch-sync-dispatch path.
+- **Escalation.**  Frontier rows that overflow are parked and climb
+  the escalation ladder once the window has drained
+  (:meth:`~jepsen_tpu_torch.engine.execution.Executor.drain`).
 - **Concurrent oracle.**  Unencodable histories go to the CPU-oracle
-  worker pool the moment they are met, and buckets with no device
-  kernel join at plan time, so oracle wall time hides behind device wall
-  time.
+  worker pool the moment they are met, rows still overflowed after the
+  ladder join when it ends, so oracle wall time hides behind the
+  remaining device work.
 
 The reference's P-compositional decomposition front-end is a
 pass-through for every model of this slice (none declares a partition),
@@ -35,7 +38,11 @@ def run(
     slot_cap: int,
     device,
     max_dispatch: int,
+    frontier: int,
+    max_closure: Optional[int] = None,
+    escalation=None,
     oracle_fallback: bool = True,
+    sufficient_rung: bool = True,
     window: Optional[int] = None,
     bucketed: bool = True,
 ) -> List[dict]:
@@ -46,8 +53,10 @@ def run(
     ctx = RunContext(model, list(histories), spec=spec,
                      oracle_fallback=oracle_fallback)
     planner = Planner(spec=spec, slot_cap=slot_cap, device=device,
-                      max_dispatch=max_dispatch, bucketed=bucketed)
-    ex = Executor(window, device=device)
+                      max_dispatch=max_dispatch, frontier=frontier,
+                      max_closure=max_closure, bucketed=bucketed)
+    ex = Executor(window, device=device, escalation=escalation,
+                  sufficient_rung=sufficient_rung, max_dispatch=max_dispatch)
     stream = planner.open_stream()
     for idx in range(len(ctx.histories)):
         for pb in stream.feed(ctx, idx):

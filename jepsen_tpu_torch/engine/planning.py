@@ -103,12 +103,16 @@ class Planner:
         slot_cap: int,
         device,
         max_dispatch: int,
+        frontier: int,
+        max_closure: Optional[int] = None,
         bucketed: bool = True,
     ):
         self.spec = spec
         self.slot_cap = slot_cap
         self.device = device
         self.max_dispatch = max_dispatch
+        self.frontier = frontier
+        self.max_closure = max_closure
         self.bucketed = bucketed
 
     def encode_one(self, ctx: RunContext, idx: int):
@@ -164,8 +168,8 @@ class Planner:
             batch.cand_f, batch.cand_a, batch.cand_b,
         )
         plan = wgl.plan_bucket(
-            self.spec, arrays, device=self.device,
-            max_dispatch=self.max_dispatch,
+            self.spec, arrays, device=self.device, frontier=self.frontier,
+            max_closure=self.max_closure, max_dispatch=self.max_dispatch,
         )
         return PlannedBucket(key, plan, arrays, batch.row_history)
 
@@ -221,8 +225,15 @@ class BucketStream:
 
 def estimated_cost(pb: PlannedBucket) -> float:
     """Per-bucket device-cost proxy the dispatch order ranks by: rows × E
-    for the dense automaton (a fixed-width scan), 0 for a bucket the
-    oracle takes.  It only ranks buckets; it never changes a verdict."""
-    if pb.plan.fn is None or pb.plan.disp == 0:
+    for the dense automaton (a fixed-width scan), rows × F·(C+1)·⌈E/32⌉
+    for the frontier search (its closure's candidate lanes over the
+    event scan), 0 for a bucket the oracle takes.  It only ranks
+    buckets; it never changes a verdict."""
+    plan = pb.plan
+    rows = len(pb.rows)
+    if plan.disp == 0:
         return 0.0
-    return float(len(pb.rows) * pb.plan.E)
+    if plan.kernel == "dense":
+        return float(rows * plan.E)
+    words = max(1, -(-plan.E // 32))
+    return float(rows * plan.frontier * (plan.C + 1) * words)

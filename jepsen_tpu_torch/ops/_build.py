@@ -29,6 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 #: every kernel source of the port, by library name
 SOURCES: Dict[str, Path] = {
     "dense_automaton": CSRC / "dense_automaton.cu",
+    "frontier_search": CSRC / "frontier_search.cu",
 }
 
 #: sm_90a keeps Hopper-only instructions (wgmma, setmaxnreg) available;

@@ -334,9 +334,9 @@ _IN_NAMES = ("init_state", "ev_slot", "cand_slot", "cand_f", "cand_a",
              "cand_b")
 
 
-def check_inputs(arrays, V: int) -> Tuple[int, int, int]:
+def batch_shape(arrays) -> Tuple[int, int, int]:
     """Validate an encoded batch as tensors — dtypes, ranks, shapes, one
-    device, contiguity, envelope — and return ``(B, E, C)``."""
+    device, contiguity — and return ``(B, E, C)``."""
     if len(arrays) != 6:
         raise ValueError("expected the six EncodedBatch arrays")
     for t, dt, name in zip(arrays, _IN_DTYPES, _IN_NAMES):
@@ -358,6 +358,12 @@ def check_inputs(arrays, V: int) -> Tuple[int, int, int]:
     for t, name in zip(arrays[3:], _IN_NAMES[3:]):
         if tuple(t.shape) != (B, E, C):
             raise ValueError(f"{name} must be [B, E, C] = {(B, E, C)}")
+    return B, E, C
+
+
+def check_inputs(arrays, V: int) -> Tuple[int, int, int]:
+    """:func:`batch_shape`, plus the dense envelope; ``(B, E, C)``."""
+    B, E, C = batch_shape(arrays)
     if not 1 <= C <= MAX_C or not 1 <= V <= MAX_V:
         raise ValueError(f"(C={C}, V={V}) is outside the dense envelope "
                          f"(C ≤ {MAX_C}, V ≤ {MAX_V})")

@@ -2,10 +2,12 @@
 ``jepsen_tpu.ops.wgl.check_batch`` on the same corpus.
 
 Result dicts must be equal, with ``"engine": "gpu"`` in the port where
-the reference writes ``"tpu"`` as the only mapping.  The one shape
-outside the dense envelope (a value domain past 32) runs the reference's
-frontier kernel and, in this slice of the port, the CPU oracle: there
-only ``"valid?"`` is compared, and the port's oracle tag is asserted.
+the reference writes ``"tpu"`` as the only mapping.  The corpus spans the
+dense automaton, the frontier search (a value domain past 32) and the
+oracle fallback (a history past the slot cap).  The reference runs with
+its exact ``sort`` compaction (``JEPSEN_TPU_FRONTIER_COMPACTION``, its own
+switch), so frontier rows overflow, escalate and settle as the port's
+exact compaction does.
 """
 
 import random
@@ -55,8 +57,10 @@ OVER_SLOT_CAP, OUT_OF_ENVELOPE = 10, 11
 
 @pytest.fixture(scope="module")
 def reference_results():
-    return ref_wgl.check_batch(ref_models.cas_register(0),
-                               _corpus(ref_synth), slot_cap=SLOT_CAP)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("JEPSEN_TPU_FRONTIER_COMPACTION", "sort")
+        return ref_wgl.check_batch(ref_models.cas_register(0),
+                                   _corpus(ref_synth), slot_cap=SLOT_CAP)
 
 
 @pytest.fixture(scope="module")
@@ -82,22 +86,19 @@ def test_check_batch_equals_reference(reference_results, port_results):
     ours = port_results[4]
     assert len(ours) == len(reference_results)
     for i, (o, r) in enumerate(zip(ours, reference_results)):
-        if i == OUT_OF_ENVELOPE:
-            continue
         expected = dict(r)
         if expected["engine"] == "tpu":
             expected["engine"] = "gpu"
         assert o == expected, i
 
 
-def test_out_of_envelope_shape_goes_to_the_oracle(reference_results,
-                                                   port_results):
+def test_out_of_envelope_shape_runs_the_frontier_search(port_results):
     ours = port_results[4][OUT_OF_ENVELOPE]
-    assert ours["engine"] == "oracle-unported"
-    assert ours["valid?"] == reference_results[OUT_OF_ENVELOPE]["valid?"]
+    assert ours["engine"] == "gpu" and ours["kernel"] == "frontier"
     stats = wgl.batch_stats(port_results[4])
-    assert stats["oracle-rate"] == pytest.approx(2 / len(port_results[4]))
-    assert stats["kernels"] == {"dense": len(port_results[4]) - 2}
+    assert stats["oracle-rate"] == pytest.approx(1 / len(port_results[4]))
+    assert stats["kernels"] == {"dense": len(port_results[4]) - 2,
+                                "frontier": 1}
 
 
 def test_window_does_not_move_a_verdict(port_results):
