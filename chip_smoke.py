@@ -51,6 +51,30 @@ without its last line.
    a 64-history sample.
 9. frontier times — as in 5, for the frontier kernel at the slice's
    shape (1024 rows, F = 128).
+10. lock and permit families — the dense automaton's reentrant-mutex
+    (K1r), register (owner-mutex as cas codes) and acquired-permits
+    (K1p) families against their plain versions on the card, at the
+    hazelcast workloads' full width: 1024 synth 1000-op histories each
+    (10 processes, a quarter corrupted): ``reentrant-cp-lock`` (E = 1024,
+    C = 12, V = 24), ``non-reentrant-cp-lock`` (V = 12) and the
+    semaphore (2 permits, (N, P) = (12, 2), S = 91 — the largest permit
+    shape the planner gives at C = 12).  Byte-equal (tolerance: exact).
+11. multi-register — the multi-register family (K1m) the same way: 1024
+    two-key 1000-op histories (8 processes, 8 values, crash probability
+    0.002) as one composite automaton, (Vr, K) = (11, 2), S = 121, C = 8;
+    and bench.py's decomposition headline, 64 histories of 1000 ops over
+    64 keys split into per-key sub-histories (K = 1).
+12. family edges — the largest shapes the planner gives at C = 12: K1m
+    at (Vr, K) = (128, 1) and (3, 4), and K1r at V = 32 (a directly
+    encoded batch of clients 1..15; no synth history reaches it).
+13. family end to end — ``check_batch`` on each of the five batches of
+    10 and 11, with a few 15-process lock and permit histories beside
+    them (past the dense envelope: the oracle and its direct checkers
+    take them), every family's launch counter reset just before and read
+    just after: each family's kernel must have launched on its phase.
+    Verdicts held against the CPU oracle on a sample; the multi-register
+    batches decomposed and undecomposed must agree.
+14. family times — as in 5, for each family at its phase-10/11 shape.
 
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -69,6 +93,7 @@ import torch
 
 from jepsen_tpu_torch import models, synth
 from jepsen_tpu_torch.checker import linear
+from jepsen_tpu_torch.engine import decompose
 from jepsen_tpu_torch.ops import _build, dense, encode, step_kernels, wgl
 from jepsen_tpu_torch.ops.step_kernels import (
     F_ACQUIRE, F_CAS, F_DEQUEUE, F_ENQUEUE, F_RACQUIRE, F_READ, F_READ_ANY,
@@ -83,6 +108,8 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 FLAGSHIP_ROWS = 16384
 E2E_HISTORIES = 1024
 FRONTIER_HISTORIES = 1024
+FAMILY_HISTORIES = 1024
+DECOMPOSE_HISTORIES, DECOMPOSE_KEYS = 64, 64
 
 
 def emit(**fields) -> None:
@@ -160,11 +187,12 @@ def flagship_batch():
     return arrays, reps, encode.round_up(vmax + 1, 4)
 
 
-def kernel_bound(arrays, failed_at, int_ops):
+def kernel_bound(arrays, failed_at, int_ops, table_bytes=0):
     """Least time for the function on these inputs: each input byte the
     run needs read once (a row's events up to its failing one, candidate
-    lanes of non-padding events only), each output written once, and the
-    integer operations the run's data needs; the larger of the two."""
+    lanes of non-padding events only, and ``table_bytes`` of transition
+    tables), each output written once, and the integer operations the
+    run's data needs; the larger of the two."""
     ev_slot = arrays[1]
     B, E = ev_slot.shape
     C = arrays[2].shape[2]
@@ -172,7 +200,7 @@ def kernel_bound(arrays, failed_at, int_ops):
     needed = np.arange(E)[None, :] < n_ev[:, None]
     live = needed & (ev_slot >= 0)
     nbytes = (B * (4 + 6) + 4 * int(needed.sum())
-              + (1 + 1 + 2 + 2) * C * int(live.sum()))
+              + (1 + 1 + 2 + 2) * C * int(live.sum()) + table_bytes)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = int_ops / INT32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -260,14 +288,19 @@ RANDOM_OPS = {
 }
 
 
-def random_batch(spec: str, seed: int, B=128, E=64, C=8):
+def random_batch(spec: str, seed: int, B=128, E=64, C=8, amin=0, amax=None,
+                 p_accept=0.95, p_stray=0.1):
     """Random encoded histories of ``spec``: ops open into free slots,
-    each event completes one open op — mostly one the step accepts in a
-    sequential run, sometimes any — and ops left open act as crashed
-    ones (the generator of tests/test_torch_frontier.py)."""
+    each event completes one open op — one the step accepts in a
+    sequential run with probability ``p_accept``, else any; when the step
+    accepts none, any with probability ``p_stray``, else none — and ops
+    left open act as crashed ones (the generator of
+    tests/test_torch_frontier.py).  ``a`` is drawn from [amin, amax]
+    (default: the spec's bound in RANDOM_OPS)."""
     r = np.random.default_rng(seed)
     step = step_kernels.STEPS[spec]
-    codes, amax = RANDOM_OPS[spec]
+    codes, spec_amax = RANDOM_OPS[spec]
+    amax = spec_amax if amax is None else amax
     init = np.zeros((B,), np.int32)
     ev = np.full((B, E), -1, np.int32)
     cs = np.full((B, E, C), -1, np.int8)
@@ -288,10 +321,10 @@ def random_batch(spec: str, seed: int, B=128, E=64, C=8):
             while free and (not open_ops or r.random() < 0.6):
                 slot = free.pop(int(r.integers(0, len(free))))
                 open_ops[slot] = (int(codes[r.integers(0, len(codes))]),
-                                  int(r.integers(0, amax + 1)),
+                                  int(r.integers(amin, amax + 1)),
                                   int(r.integers(0, 4)))
             accepted = [c for c in open_ops if run(state, open_ops[c])[1]]
-            if r.random() < 0.1 or not (accepted or r.random() < 0.1):
+            if r.random() < 0.1 or not (accepted or r.random() < p_stray):
                 continue
             lanes = list(open_ops)
             r.shuffle(lanes)
@@ -299,7 +332,7 @@ def random_batch(spec: str, seed: int, B=128, E=64, C=8):
                 cs[row, e, lane] = slot
                 cf[row, e, lane], ca[row, e, lane], cb[row, e, lane] = \
                     open_ops[slot]
-            pool = accepted if accepted and r.random() < 0.95 else lanes
+            pool = accepted if accepted and r.random() < p_accept else lanes
             done = pool[int(r.integers(0, len(pool)))]
             state2, ok = run(state, open_ops.pop(done))
             state = state2 if ok else state
@@ -335,6 +368,295 @@ def frontier_compare(name, spec, arrays, F, mc, device, work=None):
          invalid=int((~ok).sum()), overflowed=int(ovf.sum()),
          max_abs_err=err, plain_s=plain_s, tolerance="exact (byte-equal)")
     return (ok, failed_at, ovf), plain_s, err
+
+
+# ---------------------------------------------------------------------------
+# the lock, permit and multi-register families (phases 10-14)
+# ---------------------------------------------------------------------------
+
+
+def lock_histories(seed: int, n: int, n_procs=10, n_ops=1000,
+                   reentrant=False):
+    rng = random.Random(seed)
+    return [synth.generate_lock_history(rng, n_procs=n_procs, n_ops=n_ops,
+                                        reentrant=reentrant,
+                                        corrupt=i % 4 == 0)
+            for i in range(n)]
+
+
+def permit_histories(seed: int, n: int, n_procs=10, n_ops=1000):
+    rng = random.Random(seed)
+    return [synth.generate_permits_history(rng, n_procs=n_procs,
+                                           n_ops=n_ops, n_permits=2,
+                                           corrupt=i % 4 == 0)
+            for i in range(n)]
+
+
+def mr_histories(seed: int, n: int, n_keys: int, n_values: int,
+                 n_procs=8, n_ops=1000, crash_p=0.002, corrupt=True):
+    rng = random.Random(seed)
+    return [synth.generate_mr_history(rng, n_procs=n_procs, n_ops=n_ops,
+                                      n_keys=n_keys, n_values=n_values,
+                                      crash_p=crash_p,
+                                      corrupt=corrupt and i % 4 == 0)
+            for i in range(n)]
+
+
+def flip_one_read(h):
+    """A copy of a 0/1-valued multi-register history with one completed
+    read's value flipped (an invalid history that keeps the value
+    domain)."""
+    h = type(h)(op.copy() for op in h)
+    for i, op in enumerate(h):
+        if op.type == "ok" and op.value and op.value[0][0] == "r":
+            _, k, v = op.value[0]
+            h[i] = op.copy(value=[("r", k, 1 - v)])
+            break
+    return h
+
+
+def family_batch(model, hs, device, slot_cap=32):
+    """The histories as one encoded batch and the plan the engine gives
+    it; the plan must be the dense automaton."""
+    b = encode.batch_encode(hs, model, slot_cap=slot_cap)
+    require(not b.fallback, f"{len(b.fallback)} histories did not encode")
+    arrays = batch_arrays(b)
+    plan = wgl.plan_bucket(model, step_kernels.spec_for(model), arrays,
+                           device=device)
+    require(plan.kernel == "dense",
+            f"{type(model).__name__} batch routed to {plan.kernel}")
+    return arrays, plan
+
+
+def decomposed_batch(model, hs, device):
+    """bench.py's decomposition headline as the engine splits it: every
+    history's per-key sub-histories, encoded against their seeded
+    sub-models, in one batch; (arrays, plan, sub-histories, sub-models)."""
+    subs, encs = [], []
+    for h in hs:
+        for _key, sub, subh in decompose.split_history(model, h):
+            e = encode.encode_history(subh, sub, 32)
+            require(e is not None, "a sub-history did not encode")
+            subs.append((sub, subh))
+            encs.append(e)
+    E = encode.round_up(max(e.ev_slot.shape[0] for e in encs))
+    C = encode.round_up(max(e.max_open for e in encs), 4)
+    b = encode.stack_encoded(encs, list(range(len(encs))), E, C)
+    arrays = batch_arrays(b)
+    plan = wgl.plan_bucket(subs[0][0], step_kernels.spec_for(subs[0][0]),
+                           arrays, device=device)
+    require(plan.kernel == "dense", f"sub-histories routed to {plan.kernel}")
+    return arrays, plan, subs
+
+
+def family_compare(name, checker, arrays, device, phase="family"):
+    """A family's kernel against its plain version on every row of
+    ``arrays``; emits one line and returns (failed_at, plain seconds,
+    max error, integer operations)."""
+    B, E, C = arrays[2].shape
+    work: dict = {}
+    (ok, failed_at, _), plain_s, err = compare(
+        checker, to_device(arrays, device), work)
+    emit(phase=phase, case=name, spec=checker.spec_name,
+         family=checker.family, rows=int(B), E=int(E), C=int(C),
+         V=str(checker.V), S=checker.S, compared_rows=int(B),
+         invalid=int((~ok).sum()), max_abs_err=err, plain_s=plain_s,
+         tolerance="exact (byte-equal)")
+    return failed_at, plain_s, err, work["int_ops"]
+
+
+def reset_dense_launches() -> None:
+    for k in dense.DENSE_KERNELS.values():
+        k.launches = 0
+
+
+def family_end_to_end(name, fam, model, hs, extra, card, pick,
+                      decomposed=True, oracle_sample=24):
+    """``check_batch`` on ``hs`` plus ``extra`` (histories past the dense
+    envelope, which the oracle must take), dense launch counters reset
+    around it; device verdicts held against the CPU oracle on a sample.
+    Returns (results, launches of ``fam``, seconds)."""
+    allh = hs + extra
+    reset_dense_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = wgl.check_batch(model, allh, decomposed=decomposed)
+    seconds = time.perf_counter() - t0
+    launches = {f: k.launches for f, k in dense.DENSE_KERNELS.items()}
+    require(launches[fam] > 0,
+            f"{name}: check_batch never launched the {fam} kernel")
+    stats = wgl.batch_stats(results)
+    for i in range(len(hs), len(allh)):
+        require(str(results[i]["engine"]).startswith("oracle"),
+                f"{name}: history {i} past the envelope ran on "
+                f"{results[i]['engine']}")
+    on_device = [i for i, r in enumerate(results) if r["engine"] == "gpu"]
+    require(on_device, f"{name}: no history was decided on the card")
+    invalid = [i for i in on_device if results[i]["valid?"] is False]
+    sample = sorted(set(invalid[:oracle_sample // 4]) | set(pick.choice(
+        on_device, min(oracle_sample, len(on_device)),
+        replace=False).tolist()))
+    for i in sample:
+        r = linear.analysis(model, allh[i])
+        require(r["valid?"] == results[i]["valid?"],
+                f"{name} history {i}: device says {results[i]['valid?']}, "
+                f"oracle says {r['valid?']}")
+    emit(phase="family_end_to_end", case=name, histories=len(allh),
+         decomposed=decomposed, seconds=seconds,
+         histories_per_s=len(allh) / seconds, launches=launches,
+         oracle_sample=len(sample), batch_stats=stats, card=card)
+    return results, launches[fam], seconds
+
+
+def same_verdicts(a, b) -> bool:
+    return [r["valid?"] for r in a] == [r["valid?"] for r in b]
+
+
+def family_phases(device, card, pick):
+    """Phases 10-14; returns the ``{"kernels": [...]}`` entries of the
+    reentrant-mutex, acquired-permits and multi-register families, and
+    the register family's largest error on the owner-mutex batch."""
+    n = FAMILY_HISTORIES
+    lock_cases = [
+        ("reentrant-cp-lock", "reentrant-mutex", models.reentrant_mutex(),
+         lock_histories(46100, n, reentrant=True),
+         lock_histories(46110, 4, n_procs=15, n_ops=200, reentrant=True)),
+        ("non-reentrant-cp-lock", "register", models.owner_mutex(),
+         lock_histories(46200, n),
+         lock_histories(46210, 4, n_procs=15, n_ops=200)),
+        ("semaphore", "acquired-permits", models.acquired_permits(2),
+         permit_histories(46300, n),
+         permit_histories(46310, 4, n_procs=15, n_ops=200)),
+    ]
+    mr_model = models.multi_register({0: 0, 1: 0})
+    mr_hs = mr_histories(46400, n, n_keys=2, n_values=8)
+    wide_model = models.multi_register(
+        {k: 0 for k in range(DECOMPOSE_KEYS)})
+    wide_hs = mr_histories(45100, DECOMPOSE_HISTORIES,
+                           n_keys=DECOMPOSE_KEYS, n_values=4)
+
+    # -- 10/11. each family against its plain version at full width ------
+    measured = {}
+    for name, fam, model, hs, _extra in lock_cases:
+        arrays, plan = family_batch(model, hs, device)
+        measured[name] = (arrays, plan.fn) + family_compare(
+            name, plan.fn, arrays, device)
+    arrays, plan = family_batch(mr_model, mr_hs, device)
+    require(plan.n_values == (11, 2),
+            f"multi-register shape {plan.n_values}, not (11, 2)")
+    measured["multi-register"] = (arrays, plan.fn) + family_compare(
+        "multi-register", plan.fn, arrays, device)
+    d_arrays, d_plan, subs = decomposed_batch(wide_model, wide_hs, device)
+    require(d_plan.n_values[1] == 1, "decomposed sub-histories have K > 1")
+    _, _, d_err, _ = family_compare("multi-register-decomposed", d_plan.fn,
+                                    d_arrays, device)
+    errs = {"reentrant-mutex": 0, "acquired-permits": 0,
+            "multi-register": d_err}
+
+    # -- 12. the largest shapes the planner gives at C = 12 ---------------
+    k1 = [e for e in (encode.encode_history(h, models.multi_register({0: 0}),
+                                            12)
+                      for h in mr_histories(46500, 64, n_keys=1,
+                                            n_values=126, n_procs=10,
+                                            n_ops=250, crash_p=0.005))
+          if e is not None]
+    k4_model = models.multi_register({k: 0 for k in range(4)})
+    k4_hs = [flip_one_read(h) if i % 4 == 0 else h for i, h in enumerate(
+        mr_histories(46600, 64, n_keys=4, n_values=1, n_procs=10,
+                     n_ops=250, crash_p=0.005, corrupt=False))]
+    k4 = [e for e in (encode.encode_history(h, k4_model, 12) for h in k4_hs)
+          if e is not None]
+    edges = []
+    for name, encs, shape in (("K1m-Vr128-K1", k1, (128, 1)),
+                              ("K1m-Vr3-K4", k4, (3, 4))):
+        E = encode.round_up(max(e.ev_slot.shape[0] for e in encs))
+        eb = batch_arrays(encode.stack_encoded(encs, list(range(len(encs))),
+                                               E, 12))
+        probe = dense.mr_shape_probe(eb[0], eb[4], eb[5])
+        require(probe[0] <= shape[0] and probe[1] <= shape[1],
+                f"{name}: shape {probe} exceeds {shape}")
+        edges.append((name, "multi-register", eb, shape))
+    r_edge = random_batch("reentrant-mutex", 46700, B=128, E=256, C=12,
+                          amin=1, amax=15, p_accept=0.99, p_stray=0.0)
+    r_dom = encode.round_up(wgl.value_domain("reentrant-mutex", r_edge[0],
+                                             r_edge[4], r_edge[5]), 4)
+    require(r_dom == 32, f"reentrant edge domain {r_dom}, not 32")
+    edges.append(("K1r-V32", "reentrant-mutex", r_edge, 32))
+    for name, spec, eb, shape in edges:
+        checker = dense.make_dense_fn(spec, eb[1].shape[1], 12, shape,
+                                      device)
+        _, _, e_err, _ = family_compare(name, checker, eb, device,
+                                        phase="family_edge")
+        errs[spec] = max(errs[spec], e_err)
+
+    # -- 13. end to end through check_batch -------------------------------
+    e2e = {}
+    for name, fam, model, hs, extra in lock_cases:
+        _, launches, seconds = family_end_to_end(name, fam, model, hs, extra,
+                                                 card, pick)
+        e2e[name] = (launches, (len(hs) + len(extra)) / seconds)
+    mr_res, mr_launches, mr_s = family_end_to_end(
+        "multi-register", "multi-register", mr_model, mr_hs, [], card, pick,
+        decomposed=False)
+    mr_dec = wgl.check_batch(mr_model, mr_hs)
+    require(same_verdicts(mr_res, mr_dec),
+            "multi-register: decomposed and undecomposed verdicts differ")
+    w_res, w_launches, w_s = family_end_to_end(
+        "multi-register-decomposed", "multi-register", wide_model, wide_hs,
+        [], card, pick)
+    w_whole = wgl.check_batch(wide_model, wide_hs, decomposed=False)
+    require(same_verdicts(w_res, w_whole),
+            "64-key batch: decomposed and undecomposed verdicts differ")
+    require(all(r["engine"] == "oracle-fallback" for r in w_whole),
+            "undecomposed 64-key histories should not encode")
+    emit(phase="decomposition", histories=len(wide_hs),
+         sub_histories=len(subs),
+         decomposed_histories_per_s=len(wide_hs) / w_s,
+         verdicts_agree=True, composite_verdicts_agree=True, card=card)
+    e2e["multi-register"] = (mr_launches + w_launches,
+                             len(mr_hs) / mr_s)
+
+    # -- 14. times ----------------------------------------------------------
+    entries = []
+    for name, fam, replaces in (
+            ("reentrant-cp-lock", "reentrant-mutex",
+             "jepsen_tpu/ops/dense.py:516"),
+            ("semaphore", "acquired-permits", "jepsen_tpu/ops/dense.py:506"),
+            ("multi-register", "multi-register",
+             "jepsen_tpu/ops/dense.py:471"),
+            ("non-reentrant-cp-lock", "register", None)):
+        arrays, checker, failed_at, plain_s, err, int_ops = measured[name]
+        ms, all_ms = time_kernel(checker, to_device(arrays, device))
+        tables = (2 * 4 * checker.pm_acq.numel()
+                  if fam == "acquired-permits" else 0)
+        bound_ms, bound_by, nbytes = kernel_bound(arrays, failed_at, int_ops,
+                                                  tables)
+        launches, e2e_rate = e2e[name]
+        B, E, C = arrays[2].shape
+        emit(phase="family_times", case=name, kernel=dense.DENSE_KERNELS[
+            fam].name, rows=int(B), E=int(E), C=int(C), V=str(checker.V),
+             S=checker.S, ms=ms, runs_ms=all_ms, bound_ms=bound_ms,
+             bound_by=bound_by, bytes=nbytes, int_ops=int_ops,
+             plain_ms=plain_s * 1e3, e2e_histories_per_s=e2e_rate,
+             launches=launches, library_ms=None,
+             library="no single PyTorch call computes the dense automaton",
+             card=card)
+        if replaces is None:
+            continue
+        entries.append({
+            "name": dense.DENSE_KERNELS[fam].name,
+            "route": "cuda",
+            "source": "jepsen_tpu_torch/ops/csrc/dense_automaton.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(err, errs[fam]),
+            "ms": ms,
+            "plain_ms": plain_s * 1e3,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+        })
+    return entries, measured["non-reentrant-cp-lock"][4]
 
 
 def main() -> int:
@@ -378,7 +700,7 @@ def main() -> int:
         E_edge = encode.round_up(max(e.ev_slot.shape[0] for e in encs))
         eb = encode.stack_encoded(encs, list(range(len(encs))), E_edge,
                                   c_edge)
-        dom = wgl.value_domain(eb.init_state, eb.cand_a, eb.cand_b)
+        dom = wgl.value_domain(spec, eb.init_state, eb.cand_a, eb.cand_b)
         v = v_edge or encode.round_up(dom, 4)
         require(dom <= v, f"{name}: value domain {dom} exceeds V={v}")
         edge = dense.make_dense_fn(spec, E_edge, c_edge, v, device)
@@ -436,7 +758,8 @@ def main() -> int:
     slice_hs = slice_histories(45200, FRONTIER_HISTORIES)
     f_arrays = encoded(slice_hs, slot_cap=32)
     fB, fE, fC = f_arrays[2].shape
-    dom = wgl.value_domain(f_arrays[0], f_arrays[4], f_arrays[5])
+    dom = wgl.value_domain("cas-register", f_arrays[0], f_arrays[4],
+                           f_arrays[5])
     require(wgl.kernel_choice("cas-register", fC, dom) == "frontier",
             f"the slice's shape (C={fC}, V={dom}) is not a frontier shape")
     f_work: dict = {}
@@ -455,7 +778,8 @@ def main() -> int:
                                       corrupt=i % 4 == 0) for i in range(64)]
     suff = encoded(suff_hs, slot_cap=4)
     suff_F = wgl.sufficient_frontier(
-        wgl.value_domain(suff[0], suff[4], suff[5]), suff[2].shape[2])
+        wgl.value_domain("cas-register", suff[0], suff[4], suff[5]),
+        suff[2].shape[2])
     require(suff_F is not None, "no sufficient capacity for the C=4 batch")
     short = tuple(a[:128] for a in f_arrays)
     (_, _, hc_ovf), _, e_err = frontier_compare(
@@ -522,6 +846,10 @@ def main() -> int:
          library="no single PyTorch call computes the frontier search",
          card=card)
 
+    # -- 10-14. the lock, permit and multi-register families ---------------
+    family_entries, owner_err = family_phases(device, card, pick)
+    err = max(err, owner_err)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "dense_automaton",
@@ -535,7 +863,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }, {
+    }] + family_entries + [{
         "name": "frontier_search",
         "route": "cuda",
         "source": "jepsen_tpu_torch/ops/csrc/frontier_search.cu",

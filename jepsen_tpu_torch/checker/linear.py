@@ -1,12 +1,10 @@
 """Linearizability checking — CPU oracle.
 
-A copy of :mod:`jepsen_tpu.checker.linear`'s search (same verdicts and
-result dicts) for the register-family models of this slice.  Two parts
-of the reference stay out: its telemetry span, and its search-free
-direct checker for lock models (``locks_direct``), which returns nothing
-for the register family and so never changes a result here.  No model of
-this slice declares a partition, so the per-key decomposition of the
-reference has no counterpart either.
+A copy of :mod:`jepsen_tpu.checker.linear` (same verdicts and result
+dicts): the search, the search-free direct checkers for the lock family,
+the permit semaphore and the unordered queue
+(:mod:`.locks_direct`), and the per-key decomposition of models that
+declare a partition.  Only the reference's telemetry span stays out.
 
 Event-driven just-in-time linearization (the knossos.linear / knossos.wgl
 algorithm family the reference consumes at checker.clj:199-203):
@@ -223,6 +221,46 @@ def _final_paths(
     return paths
 
 
+def _partition_by_key(model: Model, events: list, ops: list):
+    """P-compositionality (knossos-style, arXiv:1504.00204), driven by
+    the models' partition protocol (``partition_key`` /
+    ``subhistory_model`` / ``partition_op`` — the same protocol the
+    engine-side pass :mod:`jepsen_tpu.engine.decompose` consumes):
+    a history whose every op touches exactly one partition is
+    linearizable iff each partition's subhistory is linearizable
+    against that partition's sub-model.  Returns
+    [(submodel, events, ops)] per partition in first-seen order, or
+    None when the model declares no partition or any op's partition is
+    undeterminable.  The per-partition searches are exponentially
+    smaller than the product search (the config set factors across
+    partitions).  Ops here are post-``prepare`` (completion values
+    propagated onto invocations), so a dequeue's value is resolved."""
+    key_fn = getattr(model, "partition_key", None)
+    if not callable(key_fn):
+        return None
+    op_key: list = []
+    for op in ops:
+        k = key_fn(op)
+        if k is None:
+            return None
+        op_key.append(k)
+    parts: Dict[Any, Tuple[list, list, Dict[int, int]]] = {}
+    order: list = []
+    for kind, op_id in events:
+        k = op_key[op_id]
+        if k not in parts:
+            parts[k] = ([], [], {})
+            order.append(k)
+        ev_k, ops_k, remap = parts[k]
+        if op_id not in remap:
+            remap[op_id] = len(ops_k)
+            ops_k.append(model.partition_op(ops[op_id], k))
+        ev_k.append((kind, remap[op_id]))
+    return [
+        (model.subhistory_model(k), parts[k][0], parts[k][1]) for k in order
+    ]
+
+
 def _search_fast(
     model: Model,
     events: list,
@@ -417,6 +455,13 @@ def analysis(
     the last completed op) and ``op-ids``/``ops`` context for the
     failure-witness renderer.
 
+    Exception to the shape: the lock family, the permit semaphore and
+    the unordered queue decide via the search-free direct checker
+    (:mod:`.locks_direct`), whose results carry an ``algorithm`` and NO
+    ``configs`` key (there is no config set to sample) —
+    ``witness=True`` failures still re-search for the full report.
+    Treat ``configs`` as optional.
+
     ``budget_s`` bounds wall time: the exponential search reports an
     honest "unknown" past the budget instead of hanging a whole analysis
     on one poisoned history.  None (the default) keeps the search
@@ -425,14 +470,58 @@ def analysis(
         _time.monotonic() + budget_s if budget_s is not None else None
     )
     events, ops = prepare(history, pure_fs)
+
+    # Per-key decomposition first when the model factors (knossos-style
+    # P-compositionality) — for BOTH paths: the fast search checks each
+    # key, and a witness run then searches ONLY the failing key's
+    # subhistory, so the witness report stays focused and the
+    # object-based search never pays the whole-history state space.
+    def witness_confirm(r, m, ev, op_l):
+        """A fast-search failure re-searched with parent pointers so the
+        report carries final-paths; the definite False is KEPT if the
+        witness search cannot confirm within the remaining budget."""
+        w = _search_witness(m, ev, op_l, max_configs, deadline, budget_s)
+        return w if w.get("valid?") is False else r
+
+    # Single-lock histories decide in O(n log n) with no search at all
+    # (checker/locks_direct.py: plain mutex via greedy alternation
+    # scheduling, owner-aware mutex via disjoint hold cores) — no
+    # config space, no budget, no "unknown".  Witness requests still
+    # re-search a failure so the final-paths report exists; the direct
+    # verdict stands if the witness search blows its budget.  A None
+    # return (uncovered model or structure) falls through to the
+    # generic search.
+    from . import locks_direct
+
+    d = locks_direct.dispatch_events(model, events, ops)
+    if d is not None:
+        if d["valid?"] is False and witness:
+            return witness_confirm(d, model, events, ops)
+        return d
+
+    parts = _partition_by_key(model, events, ops)
+    if parts is not None and len(parts) > 1:
+        worst = None
+        for m_k, ev_k, ops_k in parts:
+            # a partition's sub-model may itself have a direct checker
+            # (multi-mutex → per-lock Mutex decides in O(n log n));
+            # fall through to the fast search otherwise
+            d_k = locks_direct.dispatch_events(m_k, ev_k, ops_k)
+            r = d_k if d_k is not None else _search_fast(
+                m_k, ev_k, ops_k, max_configs, deadline, budget_s
+            )
+            if r["valid?"] is False:
+                if witness:
+                    return witness_confirm(r, m_k, ev_k, ops_k)
+                return r
+            if r["valid?"] == "unknown":
+                worst = r
+        if worst is not None:
+            return worst
+        return {"valid?": True, "op-count": len(ops)}
     r = _search_fast(model, events, ops, max_configs, deadline, budget_s)
     if witness and r["valid?"] is False:
-        # a fast-search failure re-searched with parent pointers so the
-        # report carries final-paths; the definite False is KEPT if the
-        # witness search cannot confirm within the remaining budget
-        w = _search_witness(model, events, ops, max_configs, deadline,
-                            budget_s)
-        return w if w.get("valid?") is False else r
+        return witness_confirm(r, model, events, ops)
     return r
 
 

@@ -144,9 +144,10 @@ class Executor:
     when the cap is below the window, the bucket dispatches serially at
     the full cap.  Dense chunks keep the full cap.  A chunk with
     overflowed rows is parked and escalates at :meth:`drain`, with the
-    window empty.  A bucket whose cap is 0 (not even one row fits)
-    settles inline: its rows go to the oracle pool at once, overlapping
-    the remaining device work.
+    window empty.  A bucket with no device checker (routed to the
+    oracle) or whose cap is 0 (not even one row fits) settles inline:
+    its rows go to the oracle pool at once, overlapping the remaining
+    device work.
     """
 
     def __init__(self, window: Optional[int] = None, *,
@@ -197,11 +198,13 @@ class Executor:
 
     @staticmethod
     def _assign_rows(plan, rows, ok, failed_at, overflow):
+        unresolved = "routed" if plan.kernel == "oracle" else "overflow"
         for row, (ctx, hist_idx) in enumerate(rows):
             if overflow[row]:
-                # still overflowed after escalation: the oracle decides,
-                # never a guess
-                ctx.route_oracle(hist_idx, "oracle-overflow", "overflow")
+                # routed to the oracle, or still overflowed after
+                # escalation: the oracle decides, never a guess
+                ctx.route_oracle(hist_idx, plan.overflow_engine(),
+                                 unresolved)
             elif ok[row]:
                 ctx.assign(hist_idx, {
                     "valid?": True,
@@ -254,9 +257,12 @@ class Executor:
 
         plan, arrays, rows = pb.plan, pb.arrays, pb.rows
         B = arrays[0].shape[0]
-        if plan.disp == 0:
-            # every escalation rung is as undispatchable (caps shrink as
-            # the capacity grows), so settling here dispatches nothing
+        if plan.fn is None or plan.disp == 0:
+            # no device checker (an oracle-routed shape, a dense-only spec
+            # outside its envelope) or not even one row fits: every
+            # escalation rung is as undispatchable (caps shrink as the
+            # capacity grows), so settling here dispatches nothing and
+            # hands the rows to the oracle pool at once
             self._settle_rows(plan, arrays, rows, np.zeros((B,), bool),
                               np.zeros((B,), np.int32), np.ones((B,), bool))
             return

@@ -16,19 +16,19 @@
   worker pool the moment they are met, rows still overflowed after the
   ladder join when it ends, so oracle wall time hides behind the
   remaining device work.
-
-The reference's P-compositional decomposition front-end is a
-pass-through for every model of this slice (none declares a partition),
-so it waits for the slice that ports the partitionable models.
+- **Decomposition.**  Ahead of all of this, histories of a model that
+  declares a partition split into per-partition sub-histories
+  (:mod:`.decompose`); the sub-histories flow through their own planner
+  into the same executor, and their verdicts AND back at the end.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
-from ..ops.step_kernels import spec_for
+from .decompose import DecomposedRun
 from .execution import Executor
-from .planning import Planner, RunContext
+from .planning import Planner, estimated_cost
 
 
 def run(
@@ -45,24 +45,31 @@ def run(
     sufficient_rung: bool = True,
     window: Optional[int] = None,
     bucketed: bool = True,
+    decomposed: bool = True,
 ) -> List[dict]:
     """Check ``histories`` through the full pipeline on ``device`` (a
     resolved :class:`torch.device`); per-history result dicts in input
     order.  This is ``check_batch``'s engine — call that, not this."""
-    spec = spec_for(model)
-    ctx = RunContext(model, list(histories), spec=spec,
-                     oracle_fallback=oracle_fallback)
-    planner = Planner(spec=spec, slot_cap=slot_cap, device=device,
-                      max_dispatch=max_dispatch, frontier=frontier,
-                      max_closure=max_closure, bucketed=bucketed)
+    dec = DecomposedRun(model, histories, oracle_fallback=oracle_fallback,
+                        enabled=decomposed)
     ex = Executor(window, device=device, escalation=escalation,
                   sufficient_rung=sufficient_rung, max_dispatch=max_dispatch)
-    stream = planner.open_stream()
-    for idx in range(len(ctx.histories)):
+    streams = {}  # id(ctx) -> the BucketStream of that context's planner
+    for ctx, idx in dec.feed():
+        stream = streams.get(id(ctx))
+        if stream is None:
+            stream = streams[id(ctx)] = Planner(
+                ctx.model, slot_cap=slot_cap, device=device,
+                max_dispatch=max_dispatch, frontier=frontier,
+                max_closure=max_closure, bucketed=bucketed,
+            ).open_stream()
         for pb in stream.feed(ctx, idx):
             ex.submit(pb)
-    for pb in stream.finish():  # largest estimated cost first
+    # end-of-input buckets of every stream, largest estimated cost first
+    finished = [pb for stream in streams.values() for pb in stream.finish()]
+    finished.sort(key=estimated_cost, reverse=True)
+    for pb in finished:
         ex.submit(pb)
     ex.drain()
-    ctx.drain_oracles()
-    return ctx.results
+    dec.drain_oracles()
+    return dec.results()

@@ -28,7 +28,9 @@ _ROUTED_ORACLE = object()
 
 class RunContext:
     """One run's bookkeeping: the histories being checked, their result
-    slots, and the oracle hand-off state.
+    slots, per-history model overrides (the decomposition front-end's
+    sub-history context seeds one sub-model per row), and the oracle
+    hand-off state.
 
     Thread contract (by phase ordering, not locks): during planning only
     the planning thread touches the context; during execution only the
@@ -40,15 +42,38 @@ class RunContext:
         model,
         histories: Sequence,
         *,
-        spec,
+        models: Optional[List] = None,
         oracle_fallback: bool = True,
     ):
+        from ..ops.step_kernels import spec_for
+
         self.model = model
-        self.histories = histories
-        self.spec = spec
+        self.histories = list(histories)
+        #: per-history models, or None: every history checks against
+        #: ``model``
+        self.models = models
+        self.spec = spec_for(model)
         self.oracle_fallback = oracle_fallback
-        self.results: List[Optional[dict]] = [None] * len(histories)
+        self.results: List[Optional[dict]] = [None] * len(self.histories)
         self.oracle_futs: Dict[int, Tuple[Any, str]] = {}
+
+    def model_for(self, idx: int):
+        """The model history ``idx`` checks against (encode's initial
+        state and the oracle both read it, so they cannot disagree about
+        a sub-history's seeded state)."""
+        return self.model if self.models is None else self.models[idx]
+
+    def append(self, history, model=None) -> int:
+        """Grow the context by one history (and its result slot) while it
+        is still being planned; returns the new index."""
+        idx = len(self.histories)
+        self.histories.append(history)
+        self.results.append(None)
+        if self.models is not None:
+            self.models.append(model if model is not None else self.model)
+        elif model is not None and model is not self.model:
+            self.models = [self.model] * idx + [model]
+        return idx
 
     def assign(self, idx: int, result: dict) -> None:
         self.results[idx] = result
@@ -65,7 +90,8 @@ class RunContext:
             return
         self.oracle_futs[idx] = (
             linear.analysis_async(
-                self.model, self.histories[idx], pure_fs=self.spec.pure_fs,
+                self.model_for(idx), self.histories[idx],
+                pure_fs=self.spec.pure_fs if self.spec else (),
             ),
             engine_tag,
         )
@@ -98,8 +124,8 @@ class Planner:
 
     def __init__(
         self,
+        model,
         *,
-        spec,
         slot_cap: int,
         device,
         max_dispatch: int,
@@ -107,7 +133,10 @@ class Planner:
         max_closure: Optional[int] = None,
         bucketed: bool = True,
     ):
-        self.spec = spec
+        from ..ops.step_kernels import spec_for
+
+        self.model = model
+        self.spec = spec_for(model)
         self.slot_cap = slot_cap
         self.device = device
         self.max_dispatch = max_dispatch
@@ -116,12 +145,16 @@ class Planner:
         self.bucketed = bucketed
 
     def encode_one(self, ctx: RunContext, idx: int):
-        """Encode one history of ``ctx``; ``None`` routes it to the
-        oracle."""
+        """Encode one history of ``ctx`` against its own model
+        (``ctx.model_for``); ``None`` routes it to the oracle — every
+        history of a model without a spec (the fenced mutexes, the FIFO
+        queue, an undecomposed multi-mutex) does."""
         from ..ops import encode as encode_mod
 
+        if self.spec is None:
+            return None
         return encode_mod.encode_history(
-            ctx.histories[idx], ctx.model, self.slot_cap, self.spec
+            ctx.histories[idx], ctx.model_for(idx), self.slot_cap, self.spec
         )
 
     def bucket_key(self, e) -> Optional[tuple]:
@@ -168,7 +201,8 @@ class Planner:
             batch.cand_f, batch.cand_a, batch.cand_b,
         )
         plan = wgl.plan_bucket(
-            self.spec, arrays, device=self.device, frontier=self.frontier,
+            self.model, self.spec, arrays, device=self.device,
+            frontier=self.frontier,
             max_closure=self.max_closure, max_dispatch=self.max_dispatch,
         )
         return PlannedBucket(key, plan, arrays, batch.row_history)
@@ -227,11 +261,12 @@ def estimated_cost(pb: PlannedBucket) -> float:
     """Per-bucket device-cost proxy the dispatch order ranks by: rows × E
     for the dense automaton (a fixed-width scan), rows × F·(C+1)·⌈E/32⌉
     for the frontier search (its closure's candidate lanes over the
-    event scan), 0 for a bucket the oracle takes.  It only ranks
-    buckets; it never changes a verdict."""
+    event scan), 0 for a bucket the oracle takes.  It reads no value
+    domain, so the pairs of the composite automata pass through.  It
+    only ranks buckets; it never changes a verdict."""
     plan = pb.plan
     rows = len(pb.rows)
-    if plan.disp == 0:
+    if plan.fn is None or plan.disp == 0:
         return 0.0
     if plan.kernel == "dense":
         return float(rows * plan.E)

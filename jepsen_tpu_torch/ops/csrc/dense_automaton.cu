@@ -1,38 +1,50 @@
-// Dense subset automaton for register-family linearizability, by hand for
-// Hopper (sm_90a).
+// Dense subset automaton for linearizability, by hand for Hopper (sm_90a).
 //
-// Replaces jepsen_tpu/ops/dense.py:build_dense (register / cas-register /
-// read-any transitions, with mutex acquire/release as cas), the jitted
-// vmap-of-scan that the JAX package runs on the TPU.  Same function, same
-// outputs: per history, ok (no completion ever emptied the automaton),
-// failed_at (index of the event that emptied it, else -1) and overflow
-// (always 0 — the dense automaton cannot overflow).
+// Replaces jepsen_tpu/ops/dense.py:build_dense, the jitted vmap-of-scan that
+// the JAX package runs on the TPU, in all four of its transition families
+// (one template instantiation each):
+//   kFamilyRegister  register / cas-register / read-any, mutex acquire and
+//                    release as cas(0 -> 1) / cas(1 -> 0), owner-mutex ops
+//                    as the cas codes its encoder emits      (dense.py:534-546)
+//   kFamilyReentrant reentrant mutex over {0, 2c-1, 2c}        (dense.py:516-533)
+//   kFamilyPermits   semaphore permits, table-driven from the inverse of
+//                    dense.py:permits_tables' acq/rel maps   (dense.py:506-515)
+//   kFamilyMulti     multi-register, composite S = Vr^K states, digit k of s
+//                    is register k's value id              (dense.py:471-493)
+// Same function, same outputs: per history, ok (no completion ever emptied
+// the automaton), failed_at (index of the event that emptied it, else -1)
+// and overflow (always 0 — the dense automaton cannot overflow).
 //
-// State: D[v][w], V values x W = max(1, 2^C / 32) packed uint32 words; bit s
-// of the subset axis says "some order of the open ops in subset s takes the
-// register to value v".  Per non-padding event:
-//   1. regroup the C candidate lanes by slot and build, per (slot j, target
-//      value v'), the V-bit mask of source values v with T[j][v'][v];
-//   2. closure: X_j[v'][k] = OR_{v in src[j][v']} D[v][uidx(j,k)], then
+// State: D[s][w], S states x W = max(1, 2^C / 32) packed uint32 words; bit k
+// of the subset axis says "some order of the open ops in subset k takes the
+// model to state s".  Per non-padding event:
+//   1. regroup the C candidate lanes by slot and build, per (slot j,
+//      target state s'), the mask of source states s that linearizing
+//      slot j moves to s' (ceil(S/32) words; one while S <= 32);
+//   2. closure: X_j[s'][k] = OR_{s in src[j][s']} D[s][uidx(j,k)], then
 //      D |= OR_j (X_j & umask(j,k)) << ushl(j), as a Jacobi pass (every
 //      pass reads the pre-pass D), until no word changes or C+2 passes;
-//   3. completion of slot e: D'[v][k] = (D[v][didx(e,k)] >> dshr(e)) &
+//   3. completion of slot e: D'[s][k] = (D[s][didx(e,k)] >> dshr(e)) &
 //      dmask(e,k); an all-zero D' fails the history at this event.
-// The subset-map tables (uidx, umask, ushl, didx, dmask, dshr) are the ones
-// dense.py:_subset_maps builds, computed here from j and k.
+// Steps 2 and 3 are the same code for every family.  The subset-map tables
+// (uidx, umask, ushl, didx, dmask, dshr) are the ones dense.py:_subset_maps
+// builds, computed here from j and k.
 //
 // What bounds it on this card: not device memory — a history's inputs are
-// 4 + 6C bytes per event (52 B at C = 8), read once.  The work is integer
-// ops on shared memory plus about four block barriers per event, serial
-// over the E events of one history; that chain of dependent passes is the
-// limit.  The design answers it with many small independent blocks: one
-// block per history keeps D (at most 32 x 128 words, 16 KB, double
-// buffered) in shared memory for the whole scan, a block is as wide as D
-// has words (64 threads at the flagship V = 8, C = 8), so an SM holds many
-// histories at once and hides one block's barriers behind the others'
-// work.  Padding events are skipped and a block stops at the first failed
-// event: both are exact, because the reference keeps D on a padding event
-// and never changes failed_at once a history is done.
+// 4 + 6C bytes per event (76 B at C = 12), read once.  The work is integer
+// ops on shared memory plus four block barriers per event, serial over the
+// E events of one history; that chain of dependent passes is the limit.
+// The design answers it with many independent blocks: one block per history
+// keeps D (at most 128 x 128 words, 64 KB, double buffered) and the source
+// masks in shared memory for the whole scan, a block is as wide as D has
+// words (up to 512 threads), so an SM holds several histories at once and
+// hides one block's barriers behind the others' work.  Past 48 KB of shared
+// memory (S * W large: the permit and multi-register automata at C = 12)
+// the launch raises the kernel's dynamic shared-memory limit for its shape
+// and returns the error if the card refuses it.  Padding events are skipped
+// and a block stops at the first failed event: both are exact, because the
+// reference keeps D on a padding event and never changes failed_at once a
+// history is done.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -40,8 +52,15 @@
 namespace {
 
 constexpr int kMaxC = 12;
-constexpr int kMaxV = 32;
-constexpr int kMaxThreads = 256;
+constexpr int kMaxS = 128;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxRegisters = 4;  // step_kernels.MR_REGISTERS
+constexpr int kValueBits = 8;     // step_kernels.MR_VALUE_BITS
+
+constexpr int kFamilyRegister = 0;
+constexpr int kFamilyReentrant = 1;
+constexpr int kFamilyPermits = 2;
+constexpr int kFamilyMulti = 3;
 
 // op codes (jepsen_tpu_torch/ops/step_kernels.py)
 constexpr int F_WRITE = 1;
@@ -49,6 +68,19 @@ constexpr int F_CAS = 2;
 constexpr int F_READ_ANY = 3;
 constexpr int F_ACQUIRE = 4;
 constexpr int F_RELEASE = 5;
+constexpr int F_RACQUIRE = 8;
+constexpr int F_PACQUIRE = 10;
+
+// per-launch constants of the transition families
+struct Params {
+  int S;           // states
+  int mr_vr;       // multi-register: per-register domain
+  int mr_k;        // multi-register: registers
+  int mr_pow[kMaxRegisters];  // Vr^k
+  const int32_t* pm_acq;      // permits: [n_clients + 1][S] source state
+  const int32_t* pm_rel;      // acquiring / releasing moves to s, -1: none
+  int pm_clients;
+};
 
 // bits of a 32-subset word whose subset index has bit j clear (j < 5)
 __device__ __forceinline__ uint32_t lo_mask(int j) {
@@ -61,32 +93,114 @@ __device__ __forceinline__ uint32_t lo_mask(int j) {
   }
 }
 
+__device__ __forceinline__ void add_source(uint32_t* mask, int s, int S) {
+  if (s >= 0 && s < S) mask[s >> 5] |= 1u << (s & 31);
+}
+
+// mask (MW words, owned by the calling thread) := the source states that
+// linearizing an op (f, a, b) moves to state sp.  In every family the move
+// is a partial function of the source, and its preimage of sp has a closed
+// form (one source, or all of them for a register write, or the Vr states
+// differing from sp in the written register).  Codes the family never
+// emits fall into its catch-all branch exactly as the reference's nested
+// selects do.
+template <int Family, int MW>
+__device__ __forceinline__ void source_mask(int f, int a, int b, int sp,
+                                            const Params& p, uint32_t* mask) {
+  const int S = p.S;
+#pragma unroll
+  for (int mw = 0; mw < MW; ++mw) mask[mw] = 0u;
+  if (Family == kFamilyReentrant) {
+    // acquire 0 -> 2a-1 -> 2a, release 2a -> 2a-1 -> 0
+    const int once = 2 * a - 1;
+    const int twice = 2 * a;
+    if (f == F_RACQUIRE) {
+      if (sp == once) add_source(mask, 0, S);
+      if (sp == twice) add_source(mask, once, S);
+    } else {
+      if (sp == once) add_source(mask, twice, S);
+      if (sp == 0) add_source(mask, once, S);
+    }
+  } else if (Family == kFamilyPermits) {
+    // the source tables invert dense.py:permits_tables (each client's
+    // acquire and release maps are one-to-one)
+    const int c = a < 0 ? 0 : (a > p.pm_clients ? p.pm_clients : a);
+    const int32_t* src = f == F_PACQUIRE ? p.pm_acq : p.pm_rel;
+    add_source(mask, src[c * S + sp], S);
+  } else if (Family == kFamilyMulti) {
+    const int reg = b < 0 ? 0 : (b >= p.mr_k ? p.mr_k - 1 : b);
+    const int pw = p.mr_pow[reg];
+    const int d = (sp / pw) % p.mr_vr;
+    if (f == F_WRITE) {  // every value of register reg, if sp holds a there
+      if (d == a) {
+        for (int x = 0; x < p.mr_vr; ++x) add_source(mask, sp + (x - d) * pw, S);
+      }
+    } else if (f == F_READ_ANY || d == a) {  // read-any, or a read of a
+      add_source(mask, sp, S);
+    }
+  } else {
+    const bool acq = f == F_ACQUIRE;
+    const bool rel = f == F_RELEASE;
+    const int a_eff = acq ? 0 : (rel ? 1 : a);
+    const int b_eff = acq ? 1 : (rel ? 0 : b);
+    if (f == F_WRITE) {  // every state moves to a
+      if (sp == a_eff) {
+#pragma unroll
+        for (int mw = 0; mw < MW; ++mw) {
+          const int n = S - 32 * mw;
+          mask[mw] = n >= 32 ? 0xFFFFFFFFu : (n > 0 ? (1u << n) - 1u : 0u);
+        }
+      }
+    } else if (f == F_READ_ANY) {
+      add_source(mask, sp, S);
+    } else if (f == F_CAS || acq || rel) {
+      if (sp == b_eff) add_source(mask, a_eff, S);
+    } else if (sp == a_eff) {  // read (and any code the family never emits)
+      add_source(mask, a_eff, S);
+    }
+  }
+}
+
+// MW: source-mask words per (slot, target), ceil(S / 32), a template
+// parameter so the closure's innermost loop unrolls (one word, as in the
+// register family, costs what a plain mask did)
+template <int Family, int MW>
 __global__ void dense_automaton_kernel(
     const int32_t* __restrict__ init_state, const int32_t* __restrict__ ev_slot,
     const int8_t* __restrict__ cand_slot, const int8_t* __restrict__ cand_f,
     const int16_t* __restrict__ cand_a, const int16_t* __restrict__ cand_b,
     uint8_t* __restrict__ ok, int32_t* __restrict__ failed_at,
-    uint8_t* __restrict__ overflow, int E, int C, int V) {
+    uint8_t* __restrict__ overflow, int E, int C, Params p) {
   extern __shared__ uint32_t smem[];
+  const int S = p.S;
   const int log_w = C > 5 ? C - 5 : 0;
   const int W = 1 << log_w;
-  const int VW = V * W;
-  uint32_t* cur = smem;                // D, [V][W]
-  uint32_t* nxt = smem + VW;           // the next D, [V][W]
-  uint32_t* src = smem + 2 * VW;       // source-value masks, [C][V]
-  int32_t* lane = reinterpret_cast<int32_t*>(src + C * V);  // [4][C]
+  const int SW = S * W;
+  uint32_t* cur = smem;                // D, [S][W]
+  uint32_t* nxt = smem + SW;           // the next D, [S][W]
+  uint32_t* src = smem + 2 * SW;       // source masks, [C][S][MW]
+  int32_t* lane = reinterpret_cast<int32_t*>(src + C * S * MW);  // [4][C]
 
   const int row = blockIdx.x;
   const int t = threadIdx.x;
   const int nt = blockDim.x;
   const int64_t ev_base = static_cast<int64_t>(row) * E;
-  const uint32_t all_v = V >= 32 ? 0xFFFFFFFFu : ((1u << V) - 1u);
 
-  // one config: the initial value (clamped into the domain, as the
-  // reference's dynamic_update_index_in_dim clamps), empty linset
+  // one config: the initial state (a multi-register init packs one byte
+  // per register; the id is placed as the reference's
+  // dynamic_update_index_in_dim places it: a negative id counts from the
+  // end, then it is clamped into [0, S)), empty linset
   int s0 = init_state[row];
-  s0 = s0 < 0 ? 0 : (s0 >= V ? V - 1 : s0);
-  for (int w = t; w < VW; w += nt) cur[w] = (w == s0 * W) ? 1u : 0u;
+  if (Family == kFamilyMulti) {
+    int id = 0;
+    for (int k = 0; k < p.mr_k; ++k) {
+      id += ((s0 >> (kValueBits * k)) & ((1 << kValueBits) - 1)) * p.mr_pow[k];
+    }
+    s0 = id;
+  }
+  if (s0 < 0) s0 += S;
+  s0 = s0 < 0 ? 0 : (s0 >= S ? S - 1 : s0);
+  for (int w = t; w < SW; w += nt) cur[w] = (w == s0 * W) ? 1u : 0u;
   __syncthreads();
 
   bool done = false;
@@ -104,10 +218,11 @@ __global__ void dense_automaton_kernel(
     }
     __syncthreads();
 
-    // T[j][v'][v] as a V-bit mask over v, per (j, v')
-    for (int i = t; i < C * V; i += nt) {
-      const int j = i / V;
-      const int vp = i - j * V;
+    // per (slot j, target sp): regroup the lanes holding slot j (summed,
+    // as the reference sums them) and build the mask of source states
+    for (int i = t; i < C * S; i += nt) {
+      const int j = i / S;
+      const int sp = i - j * S;
       bool active = false;
       int f = 0, a = 0, b = 0;
       for (int l = 0; l < C; ++l) {
@@ -118,37 +233,34 @@ __global__ void dense_automaton_kernel(
           b += lane[3 * C + l];
         }
       }
-      uint32_t m = 0;
+      uint32_t* mask = src + i * MW;
       if (active) {
-        const bool acq = f == F_ACQUIRE;
-        const bool rel = f == F_RELEASE;
-        const int a_eff = acq ? 0 : (rel ? 1 : a);
-        const int b_eff = acq ? 1 : (rel ? 0 : b);
-        const bool a_in = a_eff >= 0 && a_eff < V;
-        if (f == F_WRITE) {
-          m = vp == a_eff ? all_v : 0u;
-        } else if (f == F_READ_ANY) {
-          m = 1u << vp;
-        } else if (f == F_CAS || acq || rel) {
-          m = (vp == b_eff && a_in) ? (1u << a_eff) : 0u;
-        } else {  // read (and any code the register family never emits)
-          m = (vp == a_eff && a_in) ? (1u << a_eff) : 0u;
-        }
+        source_mask<Family, MW>(f, a, b, sp, p, mask);
+      } else {
+#pragma unroll
+        for (int mw = 0; mw < MW; ++mw) mask[mw] = 0u;
       }
-      src[i] = m;
     }
     __syncthreads();
 
     // closure to fixpoint, Jacobi passes capped at C + 2
     for (int pass = 0; pass < C + 2; ++pass) {
       int changed = 0;
-      for (int w = t; w < VW; w += nt) {
-        const int vp = w >> log_w;
+      for (int w = t; w < SW; w += nt) {
+        const int sp = w >> log_w;
         const int k = w & (W - 1);
         uint32_t add = 0;
         for (int j = 0; j < C; ++j) {
-          uint32_t m = src[j * V + vp];
-          if (m == 0u) continue;
+          // most (slot, target) pairs have no source: skip them first
+          const uint32_t* mask = src + (j * S + sp) * MW;
+          uint32_t m[MW];
+          uint32_t sources = 0u;
+#pragma unroll
+          for (int mw = 0; mw < MW; ++mw) {
+            m[mw] = mask[mw];
+            sources |= m[mw];
+          }
+          if (sources == 0u) continue;
           int kk = k;
           uint32_t um;
           int shl;
@@ -157,16 +269,20 @@ __global__ void dense_automaton_kernel(
             shl = 1 << j;
           } else {
             const int wb = 1 << (j - 5);
+            if (!(k & wb)) continue;  // the image holds only subsets with j
             kk = k ^ wb;
-            um = (k & wb) ? 0xFFFFFFFFu : 0u;
+            um = 0xFFFFFFFFu;
             shl = 0;
-            if (um == 0u) continue;
           }
           uint32_t x = 0;
-          while (m) {
-            const int v = __ffs(m) - 1;
-            m &= m - 1;
-            x |= cur[v * W + kk];
+#pragma unroll
+          for (int mw = 0; mw < MW; ++mw) {
+            uint32_t mm = m[mw];
+            while (mm) {
+              const int v = mw * 32 + __ffs(mm) - 1;
+              mm &= mm - 1;
+              x |= cur[v * W + kk];
+            }
           }
           add |= (x & um) << shl;
         }
@@ -184,7 +300,7 @@ __global__ void dense_automaton_kernel(
 
     // completion of slot es: keep configs that linearized it, drop its bit
     int nonzero = 0;
-    for (int w = t; w < VW; w += nt) {
+    for (int w = t; w < SW; w += nt) {
       uint32_t df = 0;
       if (es < C) {
         if (es < 5) {
@@ -216,31 +332,24 @@ __global__ void dense_automaton_kernel(
   }
 }
 
-}  // namespace
-
-// Launch over B histories on `stream`; returns cudaGetLastError() after the
-// launch (0 on success).  Shapes: init_state [B] int32, ev_slot [B, E] int32,
-// cand_slot/cand_f [B, E, C] int8, cand_a/cand_b [B, E, C] int16, all
-// contiguous; ok/overflow [B] uint8 (torch.bool), failed_at [B] int32.
-extern "C" int dense_automaton_launch(
-    const void* init_state, const void* ev_slot, const void* cand_slot,
-    const void* cand_f, const void* cand_a, const void* cand_b, void* ok,
-    void* failed_at, void* overflow, int B, int E, int C, int V,
-    void* stream) {
-  if (B == 0) return 0;
-  if (B < 0 || E < 0 || C < 1 || C > kMaxC || V < 1 || V > kMaxV) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int Family, int MW>
+int launch(const void* init_state, const void* ev_slot, const void* cand_slot,
+           const void* cand_f, const void* cand_a, const void* cand_b,
+           void* ok, void* failed_at, void* overflow, int B, int E, int C,
+           const Params& p, cudaStream_t stream) {
   const int W = C > 5 ? 1 << (C - 5) : 1;
-  const int VW = V * W;
-  int threads = ((VW + 31) / 32) * 32;
+  const int SW = p.S * W;
+  int threads = ((SW + 31) / 32) * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
   const size_t shmem =
-      (2 * static_cast<size_t>(VW) + static_cast<size_t>(C) * V) *
+      (2 * static_cast<size_t>(SW) + static_cast<size_t>(C) * p.S * MW) *
           sizeof(uint32_t) +
       4 * static_cast<size_t>(C) * sizeof(int32_t);
-  dense_automaton_kernel<<<B, threads, shmem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  cudaError_t err = cudaFuncSetAttribute(
+      dense_automaton_kernel<Family, MW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dense_automaton_kernel<Family, MW><<<B, threads, shmem, stream>>>(
       static_cast<const int32_t*>(init_state),
       static_cast<const int32_t*>(ev_slot),
       static_cast<const int8_t*>(cand_slot),
@@ -248,6 +357,99 @@ extern "C" int dense_automaton_launch(
       static_cast<const int16_t*>(cand_a),
       static_cast<const int16_t*>(cand_b), static_cast<uint8_t*>(ok),
       static_cast<int32_t*>(failed_at), static_cast<uint8_t*>(overflow), E, C,
-      V);
+      p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instantiation for the family and the mask width ceil(S / 32)
+template <int Family>
+int launch_family(const void* init_state, const void* ev_slot,
+                  const void* cand_slot, const void* cand_f,
+                  const void* cand_a, const void* cand_b, void* ok,
+                  void* failed_at, void* overflow, int B, int E, int C,
+                  const Params& p, cudaStream_t stream) {
+  switch ((p.S + 31) / 32) {
+    case 1:
+      return launch<Family, 1>(init_state, ev_slot, cand_slot, cand_f,
+                               cand_a, cand_b, ok, failed_at, overflow, B, E,
+                               C, p, stream);
+    case 2:
+      return launch<Family, 2>(init_state, ev_slot, cand_slot, cand_f,
+                               cand_a, cand_b, ok, failed_at, overflow, B, E,
+                               C, p, stream);
+    case 3:
+      return launch<Family, 3>(init_state, ev_slot, cand_slot, cand_f,
+                               cand_a, cand_b, ok, failed_at, overflow, B, E,
+                               C, p, stream);
+    default:
+      return launch<Family, 4>(init_state, ev_slot, cand_slot, cand_f,
+                               cand_a, cand_b, ok, failed_at, overflow, B, E,
+                               C, p, stream);
+  }
+}
+
+}  // namespace
+
+// Launch over B histories on `stream`; returns the CUDA error of the
+// shared-memory attribute or of the launch (0 on success).  Shapes:
+// init_state [B] int32, ev_slot [B, E] int32, cand_slot/cand_f [B, E, C]
+// int8, cand_a/cand_b [B, E, C] int16, all contiguous; ok/overflow [B] uint8
+// (torch.bool), failed_at [B] int32.  `family` is one of kFamily*; S is the
+// state count (1..128).  Multi-register passes (mr_vr, mr_k) with
+// mr_vr^mr_k == S; permits pass the int32 [pm_clients + 1, S] source tables
+// of dense.py:permit_sources (the state acquiring / releasing client c moves
+// to state t, or -1).
+extern "C" int dense_automaton_launch(
+    const void* init_state, const void* ev_slot, const void* cand_slot,
+    const void* cand_f, const void* cand_a, const void* cand_b, void* ok,
+    void* failed_at, void* overflow, int B, int E, int C, int S, int family,
+    int mr_vr, int mr_k, const void* pm_acq, const void* pm_rel,
+    int pm_clients, void* stream) {
+  if (B == 0) return 0;
+  if (B < 0 || E < 0 || C < 1 || C > kMaxC || S < 1 || S > kMaxS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p{};
+  p.S = S;
+  if (family == kFamilyMulti) {
+    if (mr_vr < 1 || mr_k < 1 || mr_k > kMaxRegisters) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    int pw = 1;
+    for (int k = 0; k < mr_k; ++k) {
+      p.mr_pow[k] = pw;
+      pw *= mr_vr;
+    }
+    if (pw != S) return static_cast<int>(cudaErrorInvalidValue);
+    p.mr_vr = mr_vr;
+    p.mr_k = mr_k;
+  } else if (family == kFamilyPermits) {
+    if (pm_acq == nullptr || pm_rel == nullptr || pm_clients < 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    p.pm_acq = static_cast<const int32_t*>(pm_acq);
+    p.pm_rel = static_cast<const int32_t*>(pm_rel);
+    p.pm_clients = pm_clients;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (family) {
+    case kFamilyRegister:
+      return launch_family<kFamilyRegister>(
+          init_state, ev_slot, cand_slot, cand_f, cand_a, cand_b, ok,
+          failed_at, overflow, B, E, C, p, st);
+    case kFamilyReentrant:
+      return launch_family<kFamilyReentrant>(
+          init_state, ev_slot, cand_slot, cand_f, cand_a, cand_b, ok,
+          failed_at, overflow, B, E, C, p, st);
+    case kFamilyPermits:
+      return launch_family<kFamilyPermits>(
+          init_state, ev_slot, cand_slot, cand_f, cand_a, cand_b, ok,
+          failed_at, overflow, B, E, C, p, st);
+    case kFamilyMulti:
+      return launch_family<kFamilyMulti>(
+          init_state, ev_slot, cand_slot, cand_f, cand_a, cand_b, ok,
+          failed_at, overflow, B, E, C, p, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

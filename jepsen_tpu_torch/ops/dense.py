@@ -1,22 +1,37 @@
-"""Dense subset-automaton linearizability checker for register-family
-models — the port of :mod:`jepsen_tpu.ops.dense` (register, cas-register
-and mutex transitions).
+"""Dense subset-automaton linearizability checker — the port of
+:mod:`jepsen_tpu.ops.dense` (``build_dense``: the register, cas-register,
+mutex and owner-mutex transitions, and the reentrant-mutex,
+acquired-permits and multi-register branches).
 
 For models whose state enumerates to a small integer domain there is a
 representation with no frontier to overflow:
 
-    D[v, s] = 1  iff some linearization order of the ops in subset ``s``
-              (of the ≤C currently-open slots) takes the register from
-              the promoted prefix to value id ``v``.
+    D[s, k] = 1  iff some linearization order of the ops in subset ``k``
+              (of the ≤C currently-open slots) takes the model from the
+              promoted prefix to state ``s``.
 
-``D`` is bit-packed along the subset axis into 32-bit words.  Per event a
-[C, V, V] transition is built from the candidate op codes (read keeps one
-value row, write folds every row into one, cas moves row a to row b,
-mutex ops are cas in disguise); the closure linearizes every open slot in
-one pass — the subset map ``s → s | bit_j`` is a masked word shift for
-j < 5 and a word permutation for j ≥ 5 — until fixpoint (≤ C + 2 passes);
-completion of slot e applies ``s → s \\ bit_e``.  An empty D at a
-completion fails the history at that event.
+``D`` is bit-packed along the subset axis into 32-bit words.  Per event
+every open slot's transition is built from its op codes; in every family
+it is a partial function of the source state (each source has at most
+one target), so it is kept as ``tgt[j, s]`` (−1: no move):
+
+- register family (register, cas-register; mutex ops are cas(0 → 1) and
+  cas(1 → 0), owner-mutex ops arrive as cas codes): read keeps state a,
+  write sends every state to a, cas moves a to b, read-any is the
+  identity;
+- reentrant mutex (K1r): over {0 free, 2c−1 once, 2c twice}, acquire
+  0 → 2c−1 → 2c, release 2c → 2c−1 → 0 (a = client c);
+- acquired permits (K1p): S = 1 + N + N(N+1)/2 multisets of ≤ 2 client
+  ids, target = acq[c, s] or rel[c, s] from :func:`permits_tables`;
+- multi-register (K1m): composite S = Vr^K states, one digit per
+  register; write replaces digit b with a, read keeps s when digit b is
+  a, read-any is the identity.
+
+The closure linearizes every open slot in one pass — the subset map
+``k → k | bit_j`` is a masked word shift for j < 5 and a word permutation
+for j ≥ 5 — until fixpoint (≤ C + 2 passes); completion of slot e applies
+``k → k \\ bit_e``.  An empty D at a completion fails the history at that
+event.
 
 Three forms of the one function live here:
 
@@ -25,9 +40,10 @@ Three forms of the one function live here:
   carry the 32-bit words (``uint32`` has no shifts or comparisons in
   PyTorch on the CPU, and ``int32 >>`` is arithmetic).  The CPU tests
   hold it byte for byte against the JAX kernel.
-- :data:`DENSE_AUTOMATON`, the wrapper of the hand-written CUDA kernel
+- :data:`DENSE_KERNELS`, the wrappers of the hand-written CUDA kernel
   ``csrc/dense_automaton.cu`` (one thread block per history, D in shared
-  memory), with its launch counter.
+  memory, templated on the transition family), one per family, each with
+  its launch counter.
 - :class:`DenseChecker`, the module the engine calls: the kernel for CUDA
   tensors, the plain version for CPU tensors, nothing else.
 """
@@ -36,31 +52,156 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from . import _build
-from .step_kernels import F_ACQUIRE, F_CAS, F_READ_ANY, F_RELEASE, F_WRITE
+from .step_kernels import (
+    F_ACQUIRE, F_CAS, F_PACQUIRE, F_RACQUIRE, F_READ_ANY, F_RELEASE,
+    F_WRITE, MR_REGISTERS, MR_VALUE_BITS)
 
-#: specs whose state is exactly "current value id" and whose op codes the
-#: kernel's transitions cover (mutex: 0 = free, 1 = held, ops as cas)
-DENSE_SPECS = ("register", "cas-register", "mutex")
+#: specs whose state is exactly "current value id" (mutex: 0 = free,
+#: 1 = held; owner-mutex: 0 = free, else the holder's client id, its ops
+#: arrive as cas codes; reentrant-mutex: 0 = free, 2c-1/2c = client c
+#: holding once/twice)
+DENSE_SPECS = (
+    "register", "cas-register", "mutex", "owner-mutex", "reentrant-mutex"
+)
 
-#: dense envelope: beyond these the generic frontier search takes over
+#: dense envelope: beyond these the generic frontier search (or, for the
+#: lock family and dense-only specs, the oracle) takes over
 MAX_C = 12   # 2^12 subsets = 128 packed words
 MAX_V = 32
+
+#: composite-state cap of the multi-register and permit automata (per
+#: event cost grows with the states; past it the frontier search or the
+#: oracle takes the batch)
+MR_MAX_STATES = 128
+
+#: the transition family of each dense spec: the CUDA kernel's template
+#: parameter (``kFamily*`` in ``csrc/dense_automaton.cu``)
+FAMILY_IDS = {
+    "register": 0, "reentrant-mutex": 1, "acquired-permits": 2,
+    "multi-register": 3,
+}
 
 #: word mask of the 32-bit lanes the int64 words carry
 _U32 = 0xFFFFFFFF
 
+Shape = Union[int, Tuple[int, int]]
 
-def applicable(spec_name: str, C: int, V: int) -> bool:
-    """True when a ``(C, V)`` bucket of ``spec_name`` fits the dense
-    automaton (``V`` is the value-domain size, rounded up to 4)."""
+
+def family(spec_name: str) -> str:
+    """The transition family a dense spec runs: its own for reentrant
+    mutex, permits and multi-register, ``"register"`` for the rest."""
+    return spec_name if spec_name in FAMILY_IDS else "register"
+
+
+def mr_shape_probe(init_state, cand_a, cand_b) -> tuple:
+    """(Vr, K) composite shape of an encoded multi-register batch:
+    a = per-register value id, b = register index, init packs one
+    byte-wide value id per register.  A raw max over the PACKED init
+    would wildly overestimate the domain."""
+    init = np.asarray(init_state)
+    mask = (1 << MR_VALUE_BITS) - 1
+    dig_max = [
+        int(((init >> (MR_VALUE_BITS * k)) & mask).max())
+        for k in range(MR_REGISTERS)
+    ]
+    kreg = max(
+        int(np.asarray(cand_b).max()) + 1,
+        max((k + 1 for k in range(MR_REGISTERS) if dig_max[k] > 0),
+            default=1),
+    )
+    vr = 1 + max(int(np.asarray(cand_a).max()), max(dig_max))
+    return vr, kreg
+
+
+def permits_tables(N: int, P: int):
+    """Host-side state enumeration + transition tables for the permit
+    (semaphore) automaton: states are multisets of ≤ P client ids
+    (1-based, N clients).  Returns (S, acq, rel) with acq/rel of shape
+    [N+1, S] mapping (client, state) → state' (or -1 = invalid move:
+    acquiring past P total permits, releasing a permit not held)."""
+    states = [()]
+    if P >= 1:
+        states += [(c,) for c in range(1, N + 1)]
+    if P >= 2:
+        states += [
+            (c, d) for c in range(1, N + 1) for d in range(c, N + 1)
+        ]
+    if P > 2:
+        raise ValueError("permit tables support n_permits <= 2")
+    index = {st: i for i, st in enumerate(states)}
+    S = len(states)
+    acq = np.full((N + 1, S), -1, np.int32)
+    rel = np.full((N + 1, S), -1, np.int32)
+    for i, st in enumerate(states):
+        for c in range(1, N + 1):
+            if len(st) < P:
+                acq[c, i] = index[tuple(sorted(st + (c,)))]
+            if c in st:
+                out = list(st)
+                out.remove(c)
+                rel[c, i] = index[tuple(out)]
+    return S, acq, rel
+
+
+def permit_sources(tbl: np.ndarray) -> np.ndarray:
+    """The inverse of one of :func:`permits_tables`' maps, as the CUDA
+    kernel reads it: ``src[c, t]`` is the state that client c's move takes
+    to state t, or -1.  Each client's acquire (add c) and release (remove
+    one c) is one-to-one, so the inverse is a table too."""
+    src = np.full_like(tbl, -1)
+    c, s = np.nonzero(tbl >= 0)
+    if len(np.unique(c * tbl.shape[1] + tbl[c, s])) != len(c):
+        raise ValueError("a permit move is not one-to-one")
+    src[c, tbl[c, s]] = s.astype(tbl.dtype)
+    return src
+
+
+def _permit_states(n_clients: int, p: int) -> int:
+    return 1 + n_clients + (n_clients * (n_clients + 1) // 2 if p >= 2
+                            else 0)
+
+
+def applicable(spec_name: str, C: int, V) -> bool:
+    """``V`` is the value-domain size for the register family (rounded up
+    to 4), or a pair: ``(Vr, K)`` (per-register domain, register count)
+    for multi-register, ``(N, P)`` (clients, permits) for
+    acquired-permits.  The unordered queue has its own dense kernel in
+    the reference (K2), which the engine never routes to: the direct
+    checker takes the queue first."""
+    if spec_name == "unordered-queue":
+        return C <= MAX_C
+    if spec_name == "multi-register":
+        if not isinstance(V, tuple):
+            return False
+        vr, k = V
+        return C <= MAX_C and vr ** k <= MR_MAX_STATES
+    if spec_name == "acquired-permits":
+        if not isinstance(V, tuple):
+            return False
+        n_clients, p = V
+        if p > 2:
+            return False
+        return C <= MAX_C and _permit_states(n_clients, p) <= MR_MAX_STATES
     return spec_name in DENSE_SPECS and C <= MAX_C and V <= MAX_V
+
+
+def n_states(spec_name: str, V: Shape) -> int:
+    """The automaton's state count S for a dense shape."""
+    fam = family(spec_name)
+    if fam == "multi-register":
+        vr, k = V
+        return int(vr) ** int(k)
+    if fam == "acquired-permits":
+        n_clients, p = V
+        return _permit_states(int(n_clients), int(p))
+    return int(V)
 
 
 #: _LOMASK[j]: bits of a 32-subset word whose subset index has bit j clear
@@ -178,33 +319,62 @@ def subset_tables(C: int, device=None) -> Tables:
     )
 
 
-def _transitions(f_s, a_s, b_s, active, V: int) -> torch.Tensor:
-    """Per-slot transition ``T[b, j, v', v]``: does linearizing slot j move
-    value v to v'?  (mutex ops are cas in disguise: acquire = cas(0, 1),
-    release = cas(1, 0))."""
-    dev = f_s.device
-    is_acq = f_s == F_ACQUIRE
-    is_rel = f_s == F_RELEASE
-    a_eff = torch.where(is_acq, 0, torch.where(is_rel, 1, a_s))
-    b_eff = torch.where(is_acq, 1, torch.where(is_rel, 0, b_s))
-    is_write = (f_s == F_WRITE)[..., None, None]
-    is_ra = (f_s == F_READ_ANY)[..., None, None]
-    cas_like = ((f_s == F_CAS) | is_acq | is_rel)[..., None, None]
-    vp = torch.arange(V, device=dev)[None, None, :, None]  # v'
-    vv = torch.arange(V, device=dev)[None, None, None, :]  # v
-    am = a_eff[..., None, None]
-    bm = b_eff[..., None, None]
-    T = torch.where(
-        is_write,
-        vp == am,
-        torch.where(
-            is_ra,
-            vp == vv,
-            torch.where(cas_like, (vp == bm) & (vv == am),
-                        (vp == am) & (vv == am)),  # read
-        ),
-    )
-    return T & active[..., None, None]
+def _targets(fam: str, f_s, a_s, b_s, active, S: int, params=None):
+    """Per-slot transition as a partial function of the source state:
+    ``tgt[b, j, s]`` is the state linearizing slot j moves state s to, or
+    −1 (no move; also every target outside [0, S) and every inactive
+    slot).  ``f_s``/``a_s``/``b_s`` [n, C] int64 are the slot-regrouped
+    op codes.  ``params``: the permit tables ``(acq, rel)`` as int64
+    tensors [N+1, S], or the multi-register ``(Vr, K)``."""
+    s = torch.arange(S, device=f_s.device)[None, None, :]
+    f, a, b = f_s[..., None], a_s[..., None], b_s[..., None]
+    none = torch.full_like(s, -1)
+    if fam == "reentrant-mutex":
+        once, twice = 2 * a - 1, 2 * a
+        acq = torch.where(s == 0, once, torch.where(s == once, twice, none))
+        rel = torch.where(s == twice, once, torch.where(s == once, 0, none))
+        tgt = torch.where(f == F_RACQUIRE, acq, rel)
+    elif fam == "acquired-permits":
+        acq_t, rel_t = params
+        idx = a_s.clamp(0, acq_t.shape[0] - 1)
+        tgt = torch.where(f == F_PACQUIRE, acq_t[idx], rel_t[idx])
+    elif fam == "multi-register":
+        vr, kreg = params
+        pw = (vr ** b.clamp(0, kreg - 1))
+        d = (s // pw) % vr
+        written = torch.where((a >= 0) & (a < vr), s + (a - d) * pw, none)
+        tgt = torch.where(f == F_WRITE, written,
+                          torch.where(f == F_READ_ANY, s,
+                                      torch.where(d == a, s, none)))
+    else:
+        is_acq = f == F_ACQUIRE
+        is_rel = f == F_RELEASE
+        a_eff = torch.where(is_acq, 0, torch.where(is_rel, 1, a))
+        b_eff = torch.where(is_acq, 1, torch.where(is_rel, 0, b))
+        cas_like = (f == F_CAS) | is_acq | is_rel
+        tgt = torch.where(
+            f == F_WRITE, a_eff,
+            torch.where(f == F_READ_ANY, s,
+                        torch.where(s == a_eff,
+                                    torch.where(cas_like, b_eff, a_eff),
+                                    none)))
+    tgt = torch.where((tgt >= 0) & (tgt < S), tgt, -1)
+    return torch.where(active[..., None], tgt, -1)
+
+
+def _init_states(fam: str, init_state, S: int, params=None):
+    """Initial state id per row, placed as the reference's
+    ``dynamic_update_index_in_dim`` places it: a negative id counts from
+    the end (id + S), then the id is clamped into [0, S).  A
+    multi-register init packs one byte-wide value id per register and
+    becomes the composite id Σ digit_k · Vr^k."""
+    init = init_state.long()
+    if fam == "multi-register":
+        vr, kreg = params
+        mask = (1 << MR_VALUE_BITS) - 1
+        init = sum(((init >> (MR_VALUE_BITS * k)) & mask) * vr ** k
+                   for k in range(kreg))
+    return torch.where(init < 0, init + S, init).clamp(0, S - 1)
 
 
 def dense_check_reference(
@@ -214,25 +384,29 @@ def dense_check_reference(
     cand_f: torch.Tensor,
     cand_a: torch.Tensor,
     cand_b: torch.Tensor,
-    V: int,
+    S: int,
     tables: Optional[Tables] = None,
     work: Optional[dict] = None,
+    *,
+    fam: str = "register",
+    params=None,
 ):
     """The plain PyTorch version of the dense automaton, on any device:
     ``(ok [B] bool, failed_at [B] int32, overflow [B] bool)`` for the
     encoded batch (the :class:`~jepsen_tpu_torch.ops.encode.EncodedBatch`
-    arrays as tensors).  Same Jacobi closure passes, same C + 2 cap and a
-    per-row "changed" mask, so every row stops exactly where the
-    reference's vmapped ``while_loop`` stops it; each event works on the
-    rows still searching only.  ``tables`` are
-    :func:`subset_tables` for ``C`` on the inputs' device (built when
-    omitted).
+    arrays as tensors), over ``S`` states of transition family ``fam``
+    (:func:`family`; ``params`` as :func:`_targets` takes them).  Same
+    Jacobi closure passes, same C + 2 cap and a per-row "changed" mask,
+    so every row stops exactly where the reference's vmapped
+    ``while_loop`` stops it; each event works on the rows still
+    searching only.  ``tables`` are :func:`subset_tables` for ``C`` on
+    the inputs' device (built when omitted).
 
     ``work``, when given, gains ``"int_ops"``: the 32-bit ALU operations
     the function needs for these inputs — the count ``chip_smoke.py``
     prices the kernel's bound with.  Per row still searching and per
-    closure pass that changes its D: one OR per source bit of each live
-    (slot, target, word), then the word's AND, shift and OR into the
+    closure pass that changes its D: one OR per source state of each
+    live (slot, target, word), then the word's AND, shift and OR into the
     pass's update (slot j < 5), or that OR alone (j ≥ 5: the mask and
     shift are the identity and half the words are zero); then D | update
     and the fixpoint compare per word.  Per completion: shift, AND and
@@ -253,17 +427,20 @@ def dense_check_reference(
     ushl_b = ushl[None, :, None, None]
     dmask_b = dmask[None, :, None, :]
     dshr_b = dshr[None, :, None, None]
+    # slot j's targets live in rows j·(S+1) .. j·(S+1)+S of the closure's
+    # scratch; row S of each block takes the moves that go nowhere
+    block = (slots * (S + 1))[None, :, None]
 
-    D = torch.zeros((B, V, W), dtype=torch.int64, device=dev)
-    init = init_state.long().clamp(0, V - 1)
+    D = torch.zeros((B, S, W), dtype=torch.int64, device=dev)
+    init = _init_states(fam, init_state, S, params)
     D[torch.arange(B, device=dev), init, 0] = 1
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     failed_at = torch.full((B,), -1, dtype=torch.int32, device=dev)
     int_ops = 0
     if work is not None:  # live words per slot, and ops to fold one in
-        low = slots[None, :, None] < 5
-        live_w = torch.where(low, W, W // 2)
-        fold_w = torch.where(low, 3 * W, W // 2)
+        low = slots < 5
+        live_w = torch.where(low, W, W // 2)[None, :]
+        fold_w = torch.where(low, 3 * W, W // 2)[None, :]
 
     for e in range(E):
         # only rows still searching do work: a padding event keeps D and
@@ -280,20 +457,32 @@ def dense_check_reference(
         f_s = torch.where(eq, cand_f[rows, e].long()[:, None, :], zero).sum(2)
         a_s = torch.where(eq, cand_a[rows, e].long()[:, None, :], zero).sum(2)
         b_s = torch.where(eq, cand_b[rows, e].long()[:, None, :], zero).sum(2)
-        T = _transitions(f_s, a_s, b_s, active, V)
-        T64 = T.long()  # 0/1 factors: T64 * word == (word if T else 0)
+        tgt = _targets(fam, f_s, a_s, b_s, active, S, params)
+        moves = tgt >= 0
+        dst = torch.where(moves, tgt, S) + block  # [n, C, S] scratch rows
+        sources = moves.any(1).any(0).nonzero().flatten().tolist()
         if work is not None:
-            per_pass = ((T.sum(3) * live_w).sum((1, 2))
-                        + (T.any(3) * fold_w).sum((1, 2)) + 2 * V * W)
+            hit = torch.zeros((n, C * (S + 1)), dtype=torch.int64, device=dev)
+            hit.scatter_(1, dst.flatten(1), 1)
+            n_tgt = hit.view(n, C, S + 1)[:, :, :S].sum(2)
+            per_pass = ((moves.sum(2) * live_w).sum(1)
+                        + (n_tgt * fold_w).sum(1) + 2 * S * W)
 
         # --- closure: Jacobi passes to fixpoint, capped, per-row stop ---
-        uidx_b = uidx[None, :, None, :].expand(n, C, V, W)
+        uidx_b = uidx[None, :, None, :].expand(n, C, S, W)
         Dc = D[rows]
         on = torch.ones((n,), dtype=torch.bool, device=dev)
         for _ in range(max_closure):
-            X = torch.zeros((n, C, V, W), dtype=torch.int64, device=dev)
-            for v in range(V):
-                X |= T64[:, :, :, v, None] * Dc[:, None, None, v, :]
+            # X[j, s'] = OR of D[s] over the sources s that slot j moves
+            # to s'; one source at a time, so no scratch row is written
+            # twice in one scatter, and only sources some row holds
+            X = torch.zeros((n, C * (S + 1), W), dtype=torch.int64,
+                            device=dev)
+            held = Dc.any(2).any(0).tolist()
+            for v in (v for v in sources if held[v]):
+                idx = dst[:, :, v, None].expand(n, C, W)
+                X.scatter_(1, idx, X.gather(1, idx) | Dc[:, v, None, :])
+            X = X.view(n, C, S + 1, W)[:, :, :S]
             U = (torch.gather(X, 3, uidx_b) & umask_b) << ushl_b
             add = U[:, 0]
             for j in range(1, C):
@@ -309,15 +498,15 @@ def dense_check_reference(
 
         # --- completion: keep configs that linearized e_slot, then
         # promote it out of the linset ---
-        Ds = torch.gather(Dc[:, None].expand(n, C, V, W), 3,
-                          didx[None, :, None, :].expand(n, C, V, W))
+        Ds = torch.gather(Dc[:, None].expand(n, C, S, W), 3,
+                          didx[None, :, None, :].expand(n, C, S, W))
         Dvar = (Ds >> dshr_b) & dmask_b
         onehot = es[:, None] == slots[None, :]
         # at most one slot selected per row, so the sum is the OR
         Df = torch.where(onehot[:, :, None, None], Dvar, zero).sum(1)
         empty = ~(Df != 0).flatten(1).any(1)
         if work is not None:
-            int_ops += int(torch.where(es < 5, 3 * V * W, V * (W // 2)).sum())
+            int_ops += int(torch.where(es < 5, 3 * S * W, S * (W // 2)).sum())
         D[rows] = Df  # an emptied row parks on D = 0
         failed = rows[empty]
         done[failed] = True
@@ -361,106 +550,159 @@ def batch_shape(arrays) -> Tuple[int, int, int]:
     return B, E, C
 
 
-def check_inputs(arrays, V: int) -> Tuple[int, int, int]:
-    """:func:`batch_shape`, plus the dense envelope; ``(B, E, C)``."""
+def check_inputs(arrays, S: int) -> Tuple[int, int, int]:
+    """:func:`batch_shape`, plus the kernel's envelope (C ≤ 12 slots,
+    S ≤ 128 states); ``(B, E, C)``."""
     B, E, C = batch_shape(arrays)
-    if not 1 <= C <= MAX_C or not 1 <= V <= MAX_V:
-        raise ValueError(f"(C={C}, V={V}) is outside the dense envelope "
-                         f"(C ≤ {MAX_C}, V ≤ {MAX_V})")
+    if not 1 <= C <= MAX_C or not 1 <= S <= MR_MAX_STATES:
+        raise ValueError(f"(C={C}, S={S}) is outside the dense envelope "
+                         f"(C ≤ {MAX_C}, S ≤ {MR_MAX_STATES})")
     return B, E, C
 
 
 class DenseAutomatonKernel:
     """Wrapper of the hand-written CUDA kernel ``csrc/dense_automaton.cu``
-    (replaces ``jepsen_tpu/ops/dense.py:build_dense``).  Takes CUDA
-    tensors only, launches on the current stream without synchronising,
-    and counts its launches in :attr:`launches`."""
+    for one transition family (replaces ``jepsen_tpu/ops/dense.py:
+    build_dense``, that family's branch).  Takes CUDA tensors only,
+    launches on the current stream without synchronising, and counts its
+    launches in :attr:`launches`."""
 
-    name = "dense_automaton"
-
-    def __init__(self):
+    def __init__(self, fam: str):
+        #: the transition family (a key of :data:`FAMILY_IDS`)
+        self.family = fam
+        self.name = ("dense_automaton" if fam == "register"
+                     else f"dense_automaton[{fam}]")
         #: kernel launches so far (a plain counter; callers reset it)
         self.launches = 0
         self._fn = None
 
     def _entry(self):
         if self._fn is None:
-            fn = _build.load(self.name).dense_automaton_launch
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p
-            ]
+            fn = _build.load("dense_automaton").dense_automaton_launch
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                           + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
     def __call__(self, init_state, ev_slot, cand_slot, cand_f, cand_a,
-                 cand_b, V: int):
+                 cand_b, *, S: int, mr_shape=(0, 0), permit_sources=None):
+        """``mr_shape`` is ``(Vr, K)`` for multi-register;
+        ``permit_sources`` the int32 :func:`permit_sources` of the acquire
+        and release tables, [N+1, S] tensors on the inputs' device, for
+        acquired-permits."""
         arrays = (init_state, ev_slot, cand_slot, cand_f, cand_a, cand_b)
-        B, E, C = check_inputs(arrays, V)
+        B, E, C = check_inputs(arrays, S)
         dev = init_state.device
         if dev.type != "cuda":
             raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
+        acq_ptr = rel_ptr = None
+        n_clients = 0
+        if self.family == "acquired-permits":
+            acq, rel = permit_sources
+            if (acq.dtype != torch.int32 or rel.dtype != torch.int32
+                    or acq.device != dev or rel.device != dev
+                    or acq.shape != rel.shape or acq.shape[1] != S
+                    or not acq.is_contiguous() or not rel.is_contiguous()):
+                raise ValueError("permit source tables must be contiguous "
+                                 f"int32 [N+1, {S}] tensors on {dev}")
+            acq_ptr, rel_ptr = acq.data_ptr(), rel.data_ptr()
+            n_clients = acq.shape[0] - 1
         ok = torch.empty((B,), dtype=torch.bool, device=dev)
         failed_at = torch.empty((B,), dtype=torch.int32, device=dev)
         overflow = torch.empty((B,), dtype=torch.bool, device=dev)
         if B == 0:
             return ok, failed_at, overflow
         fn = self._entry()
+        vr, kreg = mr_shape
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(*(t.data_ptr() for t in arrays), ok.data_ptr(),
-                     failed_at.data_ptr(), overflow.data_ptr(), B, E, C, V,
-                     stream)
+                     failed_at.data_ptr(), overflow.data_ptr(), B, E, C, S,
+                     FAMILY_IDS[self.family], vr, kreg, acq_ptr, rel_ptr,
+                     n_clients, stream)
         if err != 0:
-            raise RuntimeError(f"dense_automaton launch failed: CUDA error "
-                               f"{err} (B={B}, E={E}, C={C}, V={V})")
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {err} "
+                               f"(B={B}, E={E}, C={C}, S={S})")
         self.launches += 1
         return ok, failed_at, overflow
 
 
-#: the one wrapper of the dense-automaton kernel (its launch count is
-#: what shows that a run went through the kernel)
-DENSE_AUTOMATON = DenseAutomatonKernel()
+#: one wrapper of the dense-automaton kernel per transition family (their
+#: launch counts are what show that a run went through each family)
+DENSE_KERNELS = {fam: DenseAutomatonKernel(fam) for fam in FAMILY_IDS}
+
+#: the register family's wrapper (register, cas-register, mutex and
+#: owner-mutex codes)
+DENSE_AUTOMATON = DENSE_KERNELS["register"]
 
 
 class DenseChecker(nn.Module):
-    """The dense checker for one ``(spec, E, C, V)`` shape:
-    ``forward(init_state, ev_slot, cand_slot, cand_f, cand_a, cand_b) ->
-    (ok, failed_at, overflow)``.  CUDA tensors go to the CUDA kernel, CPU
-    tensors to the plain version; there is no fallback between the two.
-    The subset-map tables are buffers, so they follow the module's
-    device."""
+    """The dense checker for one ``(spec, E, C, V)`` shape (``V`` a
+    scalar domain, or the ``(Vr, K)``/``(N, P)`` pair of multi-register
+    and acquired-permits): ``forward(init_state, ev_slot, cand_slot,
+    cand_f, cand_a, cand_b) -> (ok, failed_at, overflow)``.  CUDA tensors
+    go to the CUDA kernel, CPU tensors to the plain version; there is no
+    fallback between the two.  The subset-map tables and the permit
+    tables are buffers, so they follow the module's device."""
 
-    def __init__(self, spec_name: str, E: int, C: int, V: int):
+    def __init__(self, spec_name: str, E: int, C: int, V: Shape):
         super().__init__()
-        if not applicable(spec_name, C, V):
+        if not applicable(spec_name, C, V) or spec_name == "unordered-queue":
             raise ValueError(f"no dense kernel for {spec_name!r} at C={C}, "
                              f"V={V}")
         self.spec_name, self.E, self.C, self.V = spec_name, E, C, V
+        self.family = family(spec_name)
+        self.S = n_states(spec_name, V)
         for name, t in zip(("uidx", "umask", "ushl", "didx", "dmask", "dshr"),
                            subset_tables(C)):
             self.register_buffer(name, t, persistent=False)
+        self.mr_shape = (0, 0)
+        if self.family == "multi-register":
+            self.mr_shape = (int(V[0]), int(V[1]))
+        if self.family == "acquired-permits":
+            _, acq, rel = permits_tables(int(V[0]), int(V[1]))
+            for name, t in (("pm_acq", acq), ("pm_rel", rel),
+                            ("pm_acq_src", permit_sources(acq)),
+                            ("pm_rel_src", permit_sources(rel))):
+                self.register_buffer(name, torch.from_numpy(t),
+                                     persistent=False)
 
     def tables(self) -> Tables:
         return (self.uidx, self.umask, self.ushl, self.didx, self.dmask,
                 self.dshr)
 
+    def _params(self):
+        if self.family == "acquired-permits":
+            return self.pm_acq.long(), self.pm_rel.long()
+        if self.family == "multi-register":
+            return self.mr_shape
+        return None
+
     def reference(self, *arrays, work: Optional[dict] = None):
         """The plain PyTorch version on the arrays' device."""
-        check_inputs(arrays, self.V)
-        return dense_check_reference(*arrays, V=self.V, tables=self.tables(),
-                                     work=work)
+        check_inputs(arrays, self.S)
+        return dense_check_reference(*arrays, S=self.S, tables=self.tables(),
+                                     work=work, fam=self.family,
+                                     params=self._params())
 
     def forward(self, *arrays):
         if arrays[0].is_cuda:
-            return DENSE_AUTOMATON(*arrays, V=self.V)
+            kernel = DENSE_KERNELS[self.family]
+            if self.family == "acquired-permits":
+                return kernel(*arrays, S=self.S,
+                              permit_sources=(self.pm_acq_src,
+                                              self.pm_rel_src))
+            return kernel(*arrays, S=self.S, mr_shape=self.mr_shape)
         return self.reference(*arrays)
 
 
 @lru_cache(maxsize=64)
-def make_dense_fn(spec_name: str, E: int, C: int, V: int,
+def make_dense_fn(spec_name: str, E: int, C: int, V: Shape,
                   device: torch.device) -> DenseChecker:
     """The cached :class:`DenseChecker` for a shape, its buffers on
     ``device`` (one module per ``(spec, E, C, V, device)``, like the
-    reference's per-shape jit cache)."""
+    reference's per-shape jit cache; the engine rounds a scalar V and the
+    permit client count up to 4, so drifting batches reuse a few)."""
     return DenseChecker(spec_name, E, C, V).to(device)

@@ -8,9 +8,13 @@ onto the device encoding — the port of :mod:`jepsen_tpu.ops.step_kernels`.
   kernel ``csrc/frontier_search.cu`` carries the same six as
   ``__device__`` functions; :mod:`.wgl`'s plain frontier version calls
   these.
-- The per-model op encoders and initial states, and ``SPECS``, for the
-  register, cas-register and mutex models (the others come with their
-  ``check_batch`` support, ROADMAP.md queue A, item 5).
+- The per-model op encoders and initial states, and ``SPECS``, the
+  model table ``check_batch`` takes: register, cas-register, mutex,
+  multi-register, unordered queue, owner-aware and reentrant mutexes
+  and the permit semaphore (the last dense-only: its transitions are
+  host tables, :func:`jepsen_tpu_torch.ops.dense.permits_tables`, and it
+  has no step).  Models without a spec (the fenced mutexes, the FIFO
+  queue, the multi-mutex) ride the CPU oracle.
 
 The steps keep XLA's integer semantics, which the reference runs under:
 every step computes in int64 on sign-extended values and wraps to the
@@ -180,7 +184,9 @@ STEP_IDS: Dict[str, int] = {
 
 @dataclass(frozen=True)
 class ModelSpec:
-    """Host-side description of how a model maps onto the kernel."""
+    """Host-side description of how a model maps onto the kernels.  The
+    frontier search's step is not a field: :data:`STEPS` is the one
+    table of steps, keyed by :attr:`name`."""
 
     name: str
     #: encode an op (with completion value already propagated) into
@@ -190,10 +196,12 @@ class ModelSpec:
     init_state: Callable[[m.Model, Dict[Any, int]], int]
     #: fs that never change state — indeterminate ones are stripped
     pure_fs: Tuple[str, ...]
-    #: the branchless (state, f, a, b) -> (state', ok) step of the
-    #: frontier search, as the reference's spec carries it (its entry in
-    #: :data:`STEPS`, which the frontier search reads)
-    step: Optional[Callable] = None
+    #: True when only the dense automaton exists for this spec (its
+    #: state enumeration is built from host tables no step function
+    #: expresses, so it has no entry in :data:`STEPS`); outside the
+    #: dense envelope such batches go to the oracle, never the frontier
+    #: search
+    dense_only: bool = False
 
 
 def _value_id(value, valmap: Dict[Any, int]) -> int:
@@ -233,8 +241,219 @@ def _encode_mutex_op(op, valmap) -> Tuple[int, int, int]:
     raise ValueError(f"mutex cannot encode op f={op.f!r}")
 
 
+def _owner_client(op):
+    # the oracle's identity extraction (models.locks._client) is the
+    # single source of truth: encoder and oracle MUST agree on WHO
+    # acted or device and oracle verdicts diverge
+    from ..models.locks import _client
+
+    client = _client(op)
+    if client is None:
+        # an op that never reported WHO acted (e.g. a crashed acquire
+        # whose client died before stamping) cannot ride the value
+        # automaton; the whole history falls back to the oracle
+        raise ValueError("owner-mutex op without client identity")
+    return client
+
+
+def _rm_client_id(client, valmap: Dict[Any, int]) -> int:
+    """1-based client index (the reentrant encoder interns nothing
+    else, so _value_id stays contiguous over clients); the state
+    domain is 2·N+1 ids for N clients (see reentrant_mutex_step)."""
+    return _value_id(("rm-client", client), valmap)
+
+
+def _encode_reentrant_mutex_op(op, valmap) -> Tuple[int, int, int]:
+    """Reentrant mutex ops: a = client index; the step function owns
+    the (free / once / twice) state algebra.  Only the reference's
+    hold bound of 2 has a kernel; other bounds ride the oracle (the
+    spec's init_state raises)."""
+    client = _owner_client(op)
+    cid = _rm_client_id(client, valmap)
+    if op.f == "acquire":
+        return F_RACQUIRE, cid, 0
+    if op.f == "release":
+        return F_RRELEASE, cid, 0
+    raise ValueError(f"reentrant-mutex cannot encode op f={op.f!r}")
+
+
+def _reentrant_mutex_init(model, valmap) -> int:
+    from ..models.locks import REENTRANT_ACQUIRE_COUNT
+
+    if model.max_count != REENTRANT_ACQUIRE_COUNT:
+        raise ValueError(
+            "reentrant-mutex kernel supports the hold bound of "
+            f"{REENTRANT_ACQUIRE_COUNT} only"
+        )
+    if model.owner is None:
+        return 0
+    if model.count not in (1, 2):
+        # a held owner with a count outside the algebra (count=0 is
+        # constructible) has no state id — oracle fallback, not a
+        # silently-diverging kernel verdict
+        raise ValueError("reentrant-mutex init outside the kernel algebra")
+    cid = _rm_client_id(model.owner, valmap)
+    return 2 * cid - 1 if model.count == 1 else 2 * cid
+
+
+def _pm_client_id(client, valmap: Dict[Any, int]) -> int:
+    """1-based client index for the permit automaton (the permits
+    encoder interns nothing else, so _value_id stays contiguous)."""
+    return _value_id(("pm-client", client), valmap)
+
+
+def _encode_permits_op(op, valmap) -> Tuple[int, int, int]:
+    """Semaphore permit ops: a = client index.  The state enumeration
+    (multisets of ≤ n_permits client ids) lives in host tables built by
+    the dense kernel (ops/dense.py permits_tables); no branchless step
+    function exists, so the spec is dense_only."""
+    client = _owner_client(op)
+    cid = _pm_client_id(client, valmap)
+    if op.f == "acquire":
+        return F_PACQUIRE, cid, 0
+    if op.f == "release":
+        return F_PRELEASE, cid, 0
+    raise ValueError(f"acquired-permits cannot encode op f={op.f!r}")
+
+
+def _permits_init(model, valmap) -> int:
+    if model.acquired:
+        # a non-empty initial multiset needs the global state
+        # enumeration, which depends on the final client count the
+        # encoder can't know yet — oracle fallback
+        raise ValueError("acquired-permits kernel needs an empty start")
+    return 0
+
+
+def _encode_owner_mutex_op(op, valmap) -> Tuple[int, int, int]:
+    """The owner-aware mutex IS a cas-register in disguise: state =
+    holder ("free" is its own value id), acquire(c) = cas(free → c),
+    release(c) = cas(c → free) — so the whole cas-register kernel
+    family (dense subset automaton included) applies unchanged.  Client
+    identities ride the value-id map like register values."""
+    client = _owner_client(op)
+    free = _value_id("__free__", valmap)
+    cid = _value_id(("client", client), valmap)
+    if op.f == "acquire":
+        return F_CAS, free, cid
+    if op.f == "release":
+        return F_CAS, cid, free
+    raise ValueError(f"owner-mutex cannot encode op f={op.f!r}")
+
+
+def _owner_mutex_init(model, valmap) -> int:
+    if model.owner is None:
+        return _value_id("__free__", valmap)
+    return _value_id(("client", model.owner), valmap)
+
+
 def _register_init(model, valmap) -> int:
     return _value_id(model.value, valmap)
+
+
+def _mr_reg_id(k, valmap: Dict[Any, int]) -> int:
+    """Register index for key k; at most MR_REGISTERS distinct keys."""
+    key = ("mrreg", k)
+    r = valmap.get(key)
+    if r is None:
+        r = valmap.get("__mr_nreg__", 0)
+        if r >= MR_REGISTERS:
+            raise ValueError("too many registers for the packed kernel")
+        valmap[key] = r
+        valmap["__mr_nreg__"] = r + 1
+    return r
+
+
+def _mr_value_id(reg: int, v, valmap: Dict[Any, int]) -> int:
+    """Per-register value ids so each stays within MR_VALUE_BITS."""
+    if v is None:
+        return V_UNKNOWN
+    key = ("mrval", reg, v)
+    vid = valmap.get(key)
+    if vid is None:
+        nkey = ("mrn", reg)
+        vid = valmap.get(nkey, 0) + 1
+        if vid > MR_MAX_VALUE_ID:
+            raise ValueError("too many distinct values for one register")
+        valmap[key] = vid
+        valmap[nkey] = vid
+    return vid
+
+
+def _encode_multi_register_op(op, valmap) -> Tuple[int, int, int]:
+    """Single-mop [(f, k, v)] transactions; multi-mop ones fall back to
+    the oracle (models.MultiRegister handles arbitrary mop lists)."""
+    mops = list(op.value or [])
+    if not mops:
+        return F_READ_ANY, 0, 0
+    if len(mops) != 1:
+        raise ValueError("multi-mop transactions ride the oracle")
+    mf, k, v = mops[0]
+    reg = _mr_reg_id(k, valmap)
+    if mf in ("w", "write"):
+        if v is None:
+            raise ValueError("write of nil is never linearizable")
+        return F_WRITE, _mr_value_id(reg, v, valmap), reg
+    if mf in ("r", "read"):
+        if v is None:
+            return F_READ_ANY, 0, reg
+        return F_READ, _mr_value_id(reg, v, valmap), reg
+    raise ValueError(f"multi-register cannot encode mop f={mf!r}")
+
+
+def _mr_init(model, valmap) -> int:
+    state = 0
+    for k, v in dict(model.values).items():
+        reg = _mr_reg_id(k, valmap)
+        vid = _mr_value_id(reg, v, valmap)
+        state |= vid << (reg * MR_VALUE_BITS)
+    return state
+
+
+def _uq_value_id(v, valmap: Dict[Any, int]) -> int:
+    """Namespaced ids with their own counter (like _mr_value_id) —
+    sharing _value_id's len(valmap)-based counter would double-count
+    the bookkeeping keys below and halve the usable envelope."""
+    if v is None:
+        raise ValueError("queue op with unknown value rides the oracle")
+    key = ("uqval", v)
+    vid = valmap.get(key)
+    if vid is None:
+        vid = valmap.get("__uq_n__", 0) + 1
+        if vid > UQ_MAX_VALUES:
+            raise ValueError(
+                "too many distinct values for the bitset kernel"
+            )
+        valmap[key] = vid
+        valmap["__uq_n__"] = vid
+    return vid
+
+
+def _encode_unordered_queue_op(op, valmap) -> Tuple[int, int, int]:
+    if op.f == "enqueue":
+        vid = _uq_value_id(op.value, valmap)
+        key = ("uq-enq", vid)
+        if valmap.get(key):
+            raise ValueError(
+                "value enqueued more than once; multiset histories ride "
+                "the oracle"
+            )
+        valmap[key] = 1
+        return F_ENQUEUE, vid, 0
+    if op.f == "dequeue":
+        return F_DEQUEUE, _uq_value_id(op.value, valmap), 0
+    raise ValueError(f"unordered-queue cannot encode op f={op.f!r}")
+
+
+def _uq_init(model, valmap) -> int:
+    state = 0
+    for v, count in dict(model.items).items():
+        if count != 1:
+            raise ValueError("initial multiplicities >1 ride the oracle")
+        vid = _uq_value_id(v, valmap)
+        valmap[("uq-enq", vid)] = 1  # counts against the once-only rule
+        state |= 1 << (vid - 1)
+    return state
 
 
 SPECS: Dict[type, ModelSpec] = {
@@ -243,21 +462,56 @@ SPECS: Dict[type, ModelSpec] = {
         encode_op=_encode_register_op,
         init_state=_register_init,
         pure_fs=("read",),
-        step=STEPS["register"],
     ),
     m.CASRegister: ModelSpec(
         name="cas-register",
         encode_op=_encode_cas_op,
         init_state=_register_init,
         pure_fs=("read",),
-        step=STEPS["cas-register"],
     ),
     m.Mutex: ModelSpec(
         name="mutex",
         encode_op=_encode_mutex_op,
         init_state=lambda model, valmap: 1 if model.locked else 0,
         pure_fs=(),
-        step=STEPS["mutex"],
+    ),
+    m.MultiRegister: ModelSpec(
+        name="multi-register",
+        encode_op=_encode_multi_register_op,
+        init_state=_mr_init,
+        pure_fs=(),
+    ),
+    m.UnorderedQueue: ModelSpec(
+        name="unordered-queue",
+        encode_op=_encode_unordered_queue_op,
+        init_state=_uq_init,
+        pure_fs=(),
+    ),
+    # the owner-aware mutex reduces to cas-register ops at encode time
+    # and shares that step (its entry in STEPS) and the register-family
+    # dense transitions
+    m.OwnerMutex: ModelSpec(
+        name="owner-mutex",
+        encode_op=_encode_owner_mutex_op,
+        init_state=_owner_mutex_init,
+        pure_fs=(),
+    ),
+    # reentrant owner-aware mutex (hold bound 2): state ids {0, 2c-1,
+    # 2c}, a domain of 2·N+1 for N clients (wgl.value_domain widens it)
+    m.ReentrantMutex: ModelSpec(
+        name="reentrant-mutex",
+        encode_op=_encode_reentrant_mutex_op,
+        init_state=_reentrant_mutex_init,
+        pure_fs=(),
+    ),
+    # semaphore permits: multisets of ≤ n_permits client ids, enumerated
+    # by host tables — only the dense automaton exists
+    m.AcquiredPermits: ModelSpec(
+        name="acquired-permits",
+        encode_op=_encode_permits_op,
+        init_state=_permits_init,
+        pure_fs=(),
+        dense_only=True,
     ),
 }
 

@@ -1,11 +1,18 @@
 """Batched linearizability checking on the GPU — the port's entry point,
 :func:`check_batch` (the counterpart of :mod:`jepsen_tpu.ops.wgl`).
 
-Routing follows the reference's :func:`kernel_choice` for the specs this
-slice takes (register, cas-register):
+It takes the reference's whole model table (:data:`.step_kernels.SPECS`)
+and routes each encoded bucket as the reference's :func:`kernel_choice`
+does:
 
-- a bucket inside the dense envelope (C ≤ 12, V ≤ 32) runs the dense
-  subset automaton (:mod:`.dense`);
+- the unordered queue (:data:`DIRECT_FIRST_SPECS`) goes to the CPU
+  oracle, whose direct checker beats every device kernel on it;
+- a bucket inside the dense envelope (C ≤ 12 and a value domain ≤ 32,
+  or S ≤ 128 composite states for multi-register and the permit
+  semaphore) runs the dense subset automaton (:mod:`.dense`);
+- the lock family outside the envelope (:data:`LINEAR_FRONTIER_SPECS`)
+  goes to the oracle (``"oracle-routed"``), as does a dense-only spec
+  (the permits) outside it;
 - every other bucket runs the generic frontier search: per history a scan
   over events of a frontier of at most F configs ``(state, linset
   words)``; each completing event closes the frontier under linearizing
@@ -20,8 +27,14 @@ slice takes (register, cas-register):
   ``escalation`` factor, then once at the provably sufficient capacity
   when affordable); rows still overflowed go to the CPU oracle, tagged
   ``"oracle-overflow"``;
-- unencodable histories go to the CPU oracle, tagged
+- unencodable histories, and every history of a model without a spec
+  (the fenced mutexes, the FIFO queue), go to the CPU oracle, tagged
   ``"oracle-fallback"``, as in the reference.
+
+Models that declare a partition (multi-register per key, multi-mutex
+per lock name) are split into per-partition sub-histories ahead of all
+of this (:mod:`jepsen_tpu_torch.engine.decompose`), unless the caller
+passes ``decomposed=False``.
 
 The port has one compaction, the reference's exact ``allpairs``
 semantics: every duplicate config is removed, the lowest lane of each
@@ -45,7 +58,7 @@ from ..history import History
 from . import _build
 from . import dense as dense_mod
 from . import encode as encode_mod
-from .step_kernels import STEP_IDS, STEPS, spec_for
+from .step_kernels import STEP_IDS, STEPS
 
 #: largest row count per device dispatch — bounds device memory for huge
 #: keyspaces; the flagship shape (16384 × 1000-op histories) is one chunk
@@ -55,9 +68,6 @@ DEFAULT_MAX_DISPATCH = 16384
 #: "padding", so a padded row is an all-padding history (ok, never
 #: failed) and every chunk of a bucket launches at one shape
 _PAD_FILLS = (0, -1, -1, 0, 0, 0)
-
-#: the specs :func:`check_batch` takes in this slice of the port
-CHECK_BATCH_SPECS = ("register", "cas-register")
 
 #: frontier capacity of the base pass
 DEFAULT_FRONTIER = 128
@@ -79,37 +89,79 @@ MAX_SUFFICIENT_FRONTIER = 8192
 FRONTIER_DISPATCH_BUDGET = 4 << 30
 
 
-def kernel_choice(spec_name: str, C: int, n_values: Optional[int]) -> str:
-    """Which engine the reference routes a register-family shape to:
-    "dense" (subset automaton, no overflow) or "frontier" (the generic
-    device search).  The reference's third answer, "oracle" for the lock
-    family outside the envelope, comes with that family (ROADMAP A5)."""
-    if n_values is not None:
-        V = encode_mod.round_up(n_values, 4)
-        if dense_mod.applicable(spec_name, C, V):
-            return "dense"
+#: single-lock model family whose frontier grows linearly in C — one
+#: lock means at most one blocked acquire can linearize before the next
+#: release completes, so past the dense envelope the CPU oracle (the
+#: search-free direct checkers of checker/locks_direct.py) takes these
+#: batches, as the reference routes them.  Not in the set: the permit
+#: semaphore, which admits n_permits concurrent holders and, dense-only,
+#: goes to the oracle outside its envelope anyway.
+LINEAR_FRONTIER_SPECS = frozenset(
+    {"mutex", "owner-mutex", "reentrant-mutex"}
+)
+
+#: specs the CPU direct checker takes even inside the dense envelope:
+#: the unordered queue factors per value into a greedy matching
+#: (checker/locks_direct.py), so the reference never dispatches it
+DIRECT_FIRST_SPECS = frozenset({"unordered-queue"})
+
+
+def _dense_domain(n_values):
+    """The dense envelope's ``V``: a pair as it is, a scalar domain
+    rounded up to 4."""
+    if isinstance(n_values, (tuple, list)):
+        return tuple(n_values)
+    return encode_mod.round_up(n_values, 4)
+
+
+def kernel_choice(spec_name: str, C: int, n_values) -> str:
+    """Which engine the reference routes a shape to: "oracle" (a CPU
+    direct algorithm takes it: :data:`DIRECT_FIRST_SPECS`, or the lock
+    family outside the dense envelope), "dense" (subset automaton, no
+    overflow) or "frontier" (the generic device search).  ``n_values`` is
+    the value-domain bound, or a (Vr, K) / (N, P) pair."""
+    if spec_name in DIRECT_FIRST_SPECS:
+        return "oracle"
+    if n_values is not None and dense_mod.applicable(
+            spec_name, C, _dense_domain(n_values)):
+        return "dense"
+    if spec_name in LINEAR_FRONTIER_SPECS:
+        return "oracle"
     return "frontier"
 
 
 def make_best_check_fn(spec_name: str, E: int, C: int, F: int,
-                       max_closure: int, n_values: Optional[int], device):
+                       max_closure: int, n_values, device):
     """The device checker for a shape: the dense automaton inside its
-    envelope, else the frontier search at capacity ``F``."""
-    if kernel_choice(spec_name, C, n_values) == "dense":
-        V = encode_mod.round_up(n_values, 4)
-        return dense_mod.make_dense_fn(spec_name, E, C, V, device)
+    envelope, else the frontier search at capacity ``F``.  ``None`` when
+    :func:`kernel_choice` routes the shape to the oracle, or for a
+    dense-only spec outside its envelope (it has no frontier step): the
+    caller sends those batches to the oracle with no dispatch."""
+    choice = kernel_choice(spec_name, C, n_values)
+    if choice == "oracle":
+        return None
+    if choice == "dense":
+        return dense_mod.make_dense_fn(spec_name, E, C,
+                                       _dense_domain(n_values), device)
+    if spec_name not in STEPS:
+        return None
     return make_check_fn(spec_name, E, C, F, max_closure, device)
 
 
-def value_domain(init_state, cand_a, cand_b) -> int:
-    """Exclusive upper bound of the value-id domain of a batch."""
-    return 1 + int(
+def value_domain(spec_name: str, init_state, cand_a, cand_b) -> int:
+    """Exclusive upper bound of the kernel state/value-id domain of a
+    batch — the reentrant-mutex automaton runs over {0, 2c-1, 2c}, wider
+    than the raw client-id bound, so its domain widens to 2N + 1."""
+    n_values = 1 + int(
         max(
             np.asarray(init_state).max(),
             np.asarray(cand_a).max(),
             np.asarray(cand_b).max(),
         )
     )
+    if spec_name == "reentrant-mutex":
+        n_values = max(n_values, 2 * (n_values - 1) + 1)
+    return n_values
 
 
 # ---------------------------------------------------------------------------
@@ -495,18 +547,23 @@ def make_check_fn(spec_name: str, E: int, C: int, F: int, max_closure: int,
 # ---------------------------------------------------------------------------
 
 
-def sufficient_frontier(n_values: int, C: int,
+def sufficient_frontier(n_values, C: int,
                         spec_name: Optional[str] = None) -> Optional[int]:
     """A frontier capacity that can never overflow, when affordable.
 
     A register-family config is (value id < n_values, linset ⊆ C slots),
-    so at most n_values·2^C distinct configs exist; for the unordered
-    queue a config's state is a function of its linset, so 2^C.  With
-    exact dedup a frontier that large cannot overflow, so one rerun at it
-    settles every overflowed row on the device.  Rounded up to a power of
-    two; None above :data:`MAX_SUFFICIENT_FRONTIER` (or C ≥ 31)."""
+    so at most n_values·2^C distinct configs exist (a multi-register
+    ``(Vr, K)`` pair counts Vr^K states); for the unordered queue a
+    config's state is a function of its linset, so 2^C.  With exact dedup
+    a frontier that large cannot overflow, so one rerun at it settles
+    every overflowed row on the device.  For states that outgrow value
+    ids (the mutex, the packed multi-register) the bound is a heuristic:
+    the rerun still tracks overflow.  Rounded up to a power of two; None
+    above :data:`MAX_SUFFICIENT_FRONTIER` (or C ≥ 31)."""
     if C >= 31:
         return None
+    if isinstance(n_values, (tuple, list)):  # multi-register (Vr, K)
+        n_values = int(n_values[0]) ** int(n_values[1])
     bound = (1 << C) if spec_name == "unordered-queue" else n_values << C
     if bound <= 0 or bound > MAX_SUFFICIENT_FRONTIER:
         return None
@@ -523,14 +580,26 @@ class BucketPlan:
     __slots__ = ("spec", "E", "C", "mc", "n_values", "kernel", "fn", "disp",
                  "frontier")
 
+    def overflow_engine(self) -> str:
+        """The engine tag of a row the device leaves unresolved: routed to
+        the oracle by choice, or landed there off the device."""
+        return ("oracle-routed" if self.kernel == "oracle"
+                else "oracle-overflow")
 
-def plan_bucket(spec, arrays, *, device, frontier: int = DEFAULT_FRONTIER,
+
+def plan_bucket(model, spec, arrays, *, device,
+                frontier: int = DEFAULT_FRONTIER,
                 max_closure: Optional[int] = None,
                 max_dispatch: int = DEFAULT_MAX_DISPATCH) -> BucketPlan:
     """Pick the kernel for one encoded bucket's arrays (the 6-tuple
     ``(init_state, ev_slot, cand_slot, cand_f, cand_a, cand_b)`` with at
-    least one row).  An explicit ``max_closure`` asks for the frontier
-    search's truncation semantics and forces it, as in the reference."""
+    least one row).  The permit automaton's shape is ``(N, P)``, clients
+    rounded up to 4 and the model's permit count; multi-register's is
+    ``(Vr, K)`` (:func:`.dense.mr_shape_probe`); every other spec's is
+    :func:`value_domain`.  An explicit ``max_closure`` asks for the
+    frontier search's truncation semantics and forces it, as in the
+    reference; a dense-only spec has none, so the oracle takes such a
+    bucket.  ``plan.fn is None`` sends the bucket to the oracle."""
     init_state, ev_slot, cand_slot, _cand_f, cand_a, cand_b = arrays
     plan = BucketPlan()
     plan.spec = spec
@@ -540,16 +609,27 @@ def plan_bucket(spec, arrays, *, device, frontier: int = DEFAULT_FRONTIER,
     # closure depth is bounded by the open-op count (≤ C), +1 for the
     # fixpoint-confirming pass
     plan.mc = mc = max_closure if max_closure is not None else C + 1
-    plan.n_values = n_values = value_domain(init_state, cand_a, cand_b)
+    if spec.name == "acquired-permits":
+        # client ids are contiguous 1..N; N rounds up to 4 so drifting
+        # client counts share a few shapes (a larger table is a superset)
+        n_values = (encode_mod.round_up(int(max(cand_a.max(), 0)), 4),
+                    int(getattr(model, "n_permits", 2)))
+    elif spec.name == "multi-register":
+        n_values = dense_mod.mr_shape_probe(init_state, cand_a, cand_b)
+    else:
+        n_values = value_domain(spec.name, init_state, cand_a, cand_b)
+    plan.n_values = n_values
     if max_closure is None:
         plan.kernel = kernel_choice(spec.name, C, n_values)
         plan.fn = make_best_check_fn(spec.name, E, C, frontier, mc,
                                      n_values, device)
     else:
         plan.kernel = "frontier"
-        plan.fn = make_check_fn(spec.name, E, C, frontier, mc, device)
-    plan.disp = min(max_dispatch,
-                    getattr(plan.fn, "safe_dispatch", max_dispatch))
+        plan.fn = (None if spec.dense_only
+                   else make_check_fn(spec.name, E, C, frontier, mc, device))
+    plan.disp = (0 if plan.fn is None else
+                 min(max_dispatch,
+                     getattr(plan.fn, "safe_dispatch", max_dispatch)))
     return plan
 
 
@@ -595,7 +675,10 @@ def escalate_overflows(plan: BucketPlan, arrays, ok: np.ndarray,
     once at ``max(sufficient, F)``.  Each rerun is padded to a multiple of
     8 rows with neutral all-padding rows; a rung that cannot dispatch
     even one row is skipped.  Rows still overflowed afterwards are the
-    oracle's."""
+    oracle's.  A plan with no device checker (oracle-routed, or a
+    dense-only spec) has no rungs."""
+    if plan.fn is None or plan.spec.dense_only:
+        return
     capacities = [plan.frontier * factor for factor in escalation]
     suff = (sufficient_frontier(plan.n_values, plan.C, plan.spec.name)
             if sufficient_rung else None)
@@ -632,6 +715,7 @@ def check_batch(
     max_dispatch: int = DEFAULT_MAX_DISPATCH,
     window: Optional[int] = None,
     bucketed: bool = True,
+    decomposed: bool = True,
     device=None,
 ) -> List[dict]:
     """Check a batch of histories; per-history result dicts in input
@@ -655,19 +739,14 @@ def check_batch(
     device cannot settle report ``"unknown"``.  Batches larger than
     ``max_dispatch`` rows run as chunks.
 
-    Models other than register and cas-register raise
-    ``NotImplementedError``: the rest of the model table is ROADMAP.md
-    queue A, item A5."""
+    Models that declare a partition (multi-register per key, multi-mutex
+    per lock name) are split into per-partition sub-histories ahead of
+    planning when ``decomposed`` (the default, as in the reference); the
+    sub-verdicts AND back into one result per history, a failing one
+    naming its ``failed-partition``.  Decomposition never moves a
+    verdict."""
     from ..engine import pipeline
 
-    dev = device_mod.resolve(device)
-    spec = spec_for(model)
-    if spec is None or spec.name not in CHECK_BATCH_SPECS:
-        raise NotImplementedError(
-            f"check_batch does not take {type(model).__name__} models yet: "
-            "the port covers register and cas-register; the other model "
-            "specs come with ROADMAP.md queue A, item A5"
-        )
     return pipeline.run(
         model,
         histories,
@@ -680,7 +759,8 @@ def check_batch(
         max_dispatch=max_dispatch,
         window=window,
         bucketed=bucketed,
-        device=dev,
+        decomposed=decomposed,
+        device=device_mod.resolve(device),
     )
 
 

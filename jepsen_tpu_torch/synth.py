@@ -1,6 +1,7 @@
 """Synthetic history generation — for differential tests and benchmarks.
 
-A copy of :mod:`jepsen_tpu.synth`'s CAS-register and lock generators:
+A copy of :mod:`jepsen_tpu.synth`'s CAS-register, multi-register, lock
+and permit generators:
 for the same seed they produce the same histories as the reference
 (``tests/test_torch_encode.py`` pins it), so the port and the JAX
 package can be fed identical corpora.
@@ -224,6 +225,147 @@ def generate_lock_history(
     # change ever strands a waiter, it must leave as an IDENTITY-BEARING
     # info op — an identity-less open invoke would push the whole
     # history onto the oracle, which is exponential at contended shapes.
+    for p in waiting:
+        hist.append(info_op(p, "acquire", {"client": f"c{p}"}))
+    h = History(hist)
+    for i, op in enumerate(h):
+        op.index = i
+        op.time = i
+    return h.index_ops()
+
+
+def generate_mr_history(
+    rng: random.Random,
+    n_procs: int = 4,
+    n_ops: int = 40,
+    n_keys: int = 3,
+    n_values: int = 4,
+    crash_p: float = 0.1,
+    corrupt: bool = False,
+) -> History:
+    """One simulated concurrent execution over a multi-register: ops are
+    single-mop transactions ``[("r"|"w", key, value)]`` against keys
+    0..n_keys-1, each initially 0 (pair with models.multi_register({k: 0
+    for k in range(n_keys)})).  Valid by construction unless corrupt."""
+    state = {k: 0 for k in range(n_keys)}
+    hist = []
+    pending = {}
+    idle = list(range(n_procs))
+    values = list(range(1, n_values + 1))
+    ops_done = 0
+    while ops_done < n_ops or pending:
+        do_invoke = idle and (ops_done < n_ops) and (not pending or rng.random() < 0.6)
+        if do_invoke:
+            p = rng.choice(idle)
+            idle.remove(p)
+            k = rng.randrange(n_keys)
+            if rng.random() < 0.5:
+                hist.append(invoke_op(p, "txn", [("r", k, None)]))
+                pending[p] = ("r", k, None)
+            else:
+                v = rng.choice(values)
+                hist.append(invoke_op(p, "txn", [("w", k, v)]))
+                pending[p] = ("w", k, v)
+            ops_done += 1
+        else:
+            p = rng.choice(list(pending.keys()))
+            mf, k, v = pending.pop(p)
+            if rng.random() < crash_p:
+                if mf == "w" and rng.random() < 0.5:
+                    state[k] = v
+                hist.append(info_op(p, "txn", [(mf, k, v)]))
+            else:
+                if mf == "r":
+                    v = state[k]
+                else:
+                    state[k] = v
+                hist.append(ok_op(p, "txn", [(mf, k, v)]))
+                idle.append(p)
+        if not idle and not pending:
+            break  # every process crashed
+    out = History(hist)
+    if corrupt and len(out) > 2:
+        reads = [
+            i
+            for i, op in enumerate(out)
+            if op.type == "ok" and op.value and op.value[0][0] == "r"
+        ]
+        if reads:
+            i = rng.choice(reads)
+            op = out[i]
+            _mf, k, _v = op.value[0]
+            out[i] = op.copy(value=[("r", k, rng.choice([7, 8, 9]))])
+    for i, op in enumerate(out):
+        op.index = i
+        op.time = i
+    return out
+
+
+def generate_permits_history(
+    rng,
+    n_procs: int = 5,
+    n_ops: int = 40,
+    n_permits: int = 2,
+    corrupt: bool = False,
+):
+    """Simulated semaphore: each process is one client holding at most
+    one permit at a time; waiters block until a permit frees (a
+    release's linearization point sits anywhere in its invoke window).
+    Completions carry {"client": name}.  corrupt=True fabricates one
+    definite over-issue: a grant past n_permits with no open release
+    that could linearize first."""
+    hist = []
+    idle = list(range(n_procs))
+    waiting: list = []
+    holds = {p: 0 for p in range(n_procs)}
+    releasing: list = []
+    eff = 0  # permits outstanding after in-flight releases linearize
+    corrupted = False
+    done = 0
+    while done < n_ops or waiting or releasing:
+        can_acq = [p for p in idle if holds[p] == 0]
+        can_rel = [p for p in idle if holds[p] > 0]
+        grantable = eff < n_permits
+        moves = []
+        if done < n_ops and can_acq:
+            moves.append("inv_acq")
+        if can_rel and (done < n_ops or waiting):
+            moves.append("inv_rel")
+        if waiting and grantable:
+            moves.append("grant")
+        elif waiting and corrupt and not corrupted and not releasing:
+            moves.append("bad_grant")
+        if releasing:
+            moves.append("ok_rel")
+        if not moves:
+            break  # stranded waiters become open info ops below
+        mv = rng.choice(moves)
+        if mv == "inv_acq":
+            p = can_acq[rng.randrange(len(can_acq))]
+            idle.remove(p)
+            hist.append(invoke_op(p, "acquire", None))
+            waiting.append(p)
+            done += 1
+        elif mv == "inv_rel":
+            p = can_rel[rng.randrange(len(can_rel))]
+            idle.remove(p)
+            hist.append(invoke_op(p, "release", None))
+            releasing.append(p)
+            eff -= 1
+            done += 1
+        elif mv in ("grant", "bad_grant"):
+            p = waiting.pop(rng.randrange(len(waiting)))
+            holds[p] += 1
+            eff += 1
+            hist.append(ok_op(p, "acquire", {"client": f"c{p}"}))
+            idle.append(p)
+            if mv == "bad_grant":
+                corrupted = True
+        else:  # ok_rel
+            p = releasing.pop(rng.randrange(len(releasing)))
+            holds[p] -= 1
+            hist.append(ok_op(p, "release", {"client": f"c{p}"}))
+            idle.append(p)
     for p in waiting:
         hist.append(info_op(p, "acquire", {"client": f"c{p}"}))
     h = History(hist)

@@ -134,8 +134,18 @@ def test_without_oracle_fallback_rows_are_unknown():
 
 
 def test_models_outside_the_slice_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        wgl.check_batch(models.mutex(), [], device="cpu")
+    """No model of the reference's table is refused any more: models with
+    a kernel spec check on the device, spec-less ones (the fenced
+    mutexes, the FIFO queue) go to the oracle as unencodable."""
+    h = synth.generate_lock_history(random.Random(1), n_procs=2, n_ops=6)
+    for model in (models.mutex(), models.owner_mutex(),
+                  models.reentrant_mutex(), models.acquired_permits(2),
+                  models.multi_register({}), models.multi_mutex(),
+                  models.unordered_queue(), models.fifo_queue(),
+                  models.fenced_mutex(), models.reentrant_fenced_mutex()):
+        assert wgl.check_batch(model, [], device="cpu") == []
+    r = wgl.check_batch(models.fenced_mutex(), [h], device="cpu")[0]
+    assert r["engine"] == "oracle-fallback"
 
 
 def test_chunked_dispatch_gives_the_same_results(port_results):
@@ -180,3 +190,205 @@ def test_dispatch_window_is_owner_thread_confined():
     t.join(timeout=30)
     assert not t.is_alive()
     assert errors and "owner-thread" in str(errors[0])
+
+
+# ---------------------------------------------------------------------------
+# the rest of the model table: lock family, permits, multi-register,
+# multi-mutex, the queues — every route, decomposed and not
+# ---------------------------------------------------------------------------
+
+
+def _lock_dicts(seed, reentrant=False, permits=False):
+    """Lock (or permit) histories as op dicts: dense-envelope ones (half
+    corrupted), one 15-process history (C = 16: past the envelope, still
+    under the slot cap) and one 20-process history (past the slot cap)."""
+    rng = random.Random(seed)
+
+    def gen(n_procs, n_ops, corrupt):
+        if permits:
+            return synth.generate_permits_history(rng, n_procs=n_procs,
+                                                  n_ops=n_ops,
+                                                  corrupt=corrupt)
+        return synth.generate_lock_history(rng, n_procs=n_procs, n_ops=n_ops,
+                                           reentrant=reentrant,
+                                           corrupt=corrupt)
+
+    hs = [gen(3 + i % 3, 40, i % 2 == 0) for i in range(5)]
+    hs += [gen(15, 60, False), gen(20, 60, False)]
+    return [h.to_dicts() for h in hs]
+
+
+def _mr_dicts(seed):
+    """Multi-register histories: two keys (dense), three keys of 4 values
+    (216 composite states: the frontier search when undecomposed), five
+    keys (more registers than the packed kernel holds: unencodable when
+    undecomposed; keys 3 and 4 start unset in the model), and a cross-key
+    txn (never decomposed)."""
+    rng = random.Random(seed)
+    hs = [synth.generate_mr_history(rng, n_procs=4, n_ops=40, n_keys=2,
+                                    n_values=3, corrupt=i % 2 == 0)
+          for i in range(4)]
+    hs.append(synth.generate_mr_history(rng, n_procs=3, n_ops=30, n_keys=3,
+                                        n_values=4, crash_p=0.0))
+    hs.append(synth.generate_mr_history(rng, n_procs=4, n_ops=40, n_keys=5,
+                                        n_values=2, corrupt=True))
+    dicts = [h.to_dicts() for h in hs]
+    txn = [["w", 0, 1], ["w", 1, 1]]
+    dicts.append([
+        {"type": "invoke", "f": "txn", "value": txn, "process": 0},
+        {"type": "ok", "f": "txn", "value": txn, "process": 0},
+        {"type": "invoke", "f": "txn", "value": [["r", 1, None]],
+         "process": 1},
+        {"type": "ok", "f": "txn", "value": [["r", 1, 1]], "process": 1},
+    ])
+    return dicts
+
+
+def _multi_mutex_dicts(seed):
+    """Named-lock histories: lock histories whose ops name one of three
+    locks, and one 14-process single-lock history (C past the envelope
+    once decomposed: the direct mutex checker takes it)."""
+    rng = random.Random(seed)
+    out = []
+    for i in range(4):
+        h = synth.generate_lock_history(rng, n_procs=4, n_ops=30,
+                                        corrupt=i % 2 == 0)
+        out.append([dict(d, value=f"l{d['process'] % 3}")
+                    for d in h.to_dicts()])
+    h = synth.generate_lock_history(rng, n_procs=14, n_ops=60)
+    out.append([dict(d, value="l0") for d in h.to_dicts()])
+    return out
+
+
+def _queue_dicts(seed):
+    """Unordered-queue histories with unique values, one past the
+    bitset's 31 values, and one with a repeated value."""
+    rng = random.Random(seed)
+    out = []
+    for n_vals in (6, 8, 40, 5):
+        ops, open_q, pending, nxt = [], {}, [], 0
+        for _ in range(3 * n_vals):
+            p = rng.randrange(3)
+            if p in open_q:
+                f, v = open_q.pop(p)
+                if f == "dequeue":
+                    v = pending.pop(0) if pending else None
+                    if v is None:
+                        continue
+                else:
+                    pending.append(v)
+                ops.append({"type": "ok", "f": f, "value": v, "process": p})
+            elif nxt < n_vals and rng.random() < 0.6:
+                open_q[p] = ("enqueue", nxt if n_vals != 5 else nxt % 3)
+                ops.append({"type": "invoke", "f": "enqueue",
+                            "value": open_q[p][1], "process": p})
+                nxt += 1
+            else:
+                open_q[p] = ("dequeue", None)
+                ops.append({"type": "invoke", "f": "dequeue", "value": None,
+                            "process": p})
+        out.append(ops)
+    out[0][-1] = dict(out[0][-1], value=99) if out[0][-1]["f"] == \
+        "dequeue" else out[0][-1]
+    return out
+
+
+#: model name -> (port model, reference model, op-dict corpus)
+TABLE = {
+    "owner-mutex": (models.owner_mutex(), ref_models.owner_mutex(),
+                    _lock_dicts(31)),
+    "reentrant-mutex": (models.reentrant_mutex(),
+                        ref_models.reentrant_mutex(),
+                        _lock_dicts(32, reentrant=True)),
+    "acquired-permits": (models.acquired_permits(2),
+                         ref_models.acquired_permits(2),
+                         _lock_dicts(33, permits=True)),
+    "multi-register": (models.multi_register({k: 0 for k in range(3)}),
+                       ref_models.multi_register({k: 0 for k in range(3)}),
+                       _mr_dicts(34)),
+    "multi-mutex": (models.multi_mutex(["l2"]),
+                    ref_models.multi_mutex(["l2"]), _multi_mutex_dicts(35)),
+    "unordered-queue": (models.unordered_queue(),
+                        ref_models.unordered_queue(), _queue_dicts(36)),
+    "fenced-mutex": (models.fenced_mutex(), ref_models.fenced_mutex(),
+                     _lock_dicts(37)[:3]),
+    "reentrant-fenced-mutex": (models.reentrant_fenced_mutex(),
+                               ref_models.reentrant_fenced_mutex(),
+                               _lock_dicts(38, reentrant=True)[:3]),
+    "fifo-queue": (models.fifo_queue(), ref_models.fifo_queue(),
+                   _queue_dicts(39)[:2]),
+}
+
+TABLE_SLOT_CAP = 16
+
+
+@pytest.fixture(scope="module")
+def table_results():
+    """{(name, decomposed): (reference results, {window: port results})}"""
+    from jepsen_tpu import history as ref_history
+    from jepsen_tpu_torch import history
+
+    torch.set_num_threads(1)
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("JEPSEN_TPU_FRONTIER_COMPACTION", "sort")
+        for name, (ours, ref, dicts) in TABLE.items():
+            for decomposed in (True, False):
+                ref_res = ref_wgl.check_batch(
+                    ref, [ref_history.History.from_dicts(d) for d in dicts],
+                    slot_cap=TABLE_SLOT_CAP, decomposed=decomposed)
+                port = {
+                    window: wgl.check_batch(
+                        ours, [history.History.from_dicts(d) for d in dicts],
+                        slot_cap=TABLE_SLOT_CAP, decomposed=decomposed,
+                        window=window, device="cpu")
+                    for window in (1, 4)
+                }
+                out[name, decomposed] = (ref_res, port)
+    return out
+
+
+def _as_port(r):
+    return dict(r, engine="gpu") if r.get("engine") == "tpu" else r
+
+
+@pytest.mark.parametrize("decomposed", [True, False],
+                         ids=["decomposed", "whole"])
+@pytest.mark.parametrize("name", sorted(TABLE))
+def test_model_table_equals_reference(table_results, name, decomposed):
+    ref, port = table_results[name, decomposed]
+    assert port[1] == port[4]
+    assert len(port[4]) == len(ref)
+    for i, (o, r) in enumerate(zip(port[4], ref)):
+        assert o == _as_port(r), (name, decomposed, i)
+
+
+def test_model_table_reaches_every_route(table_results):
+    """Across the table: dense and frontier device rows, oracle-routed,
+    oracle-overflow (a dense-only spec past its envelope) and
+    oracle-fallback rows, and decomposed rows."""
+    engines, kernels, partitioned = set(), set(), 0
+    for (_name, _dec), (_ref, port) in table_results.items():
+        for r in port[4]:
+            engines.add(r["engine"])
+            kernels.add(r.get("kernel"))
+            partitioned += "partitions" in r
+    assert {"gpu", "oracle-routed", "oracle-overflow",
+            "oracle-fallback"} <= engines
+    assert {"dense", "frontier"} <= kernels
+    assert partitioned > 0
+    mr_whole = table_results["multi-register", False][1][4]
+    assert mr_whole[4]["kernel"] == "frontier"
+    assert mr_whole[5]["engine"] == "oracle-fallback"
+    assert "oracle-routed" in {
+        r["engine"] for r in table_results["unordered-queue", True][1][4]}
+    assert all(r["engine"] == "oracle-fallback"
+               for r in table_results["fifo-queue", True][1][4])
+
+
+def test_decomposition_does_not_move_a_verdict(table_results):
+    for name in TABLE:
+        dec = table_results[name, True][1][4]
+        whole = table_results[name, False][1][4]
+        assert [r["valid?"] for r in dec] == [r["valid?"] for r in whole], \
+            name

@@ -95,7 +95,7 @@ def test_plain_version_equals_jax_kernel(spec, C, V, corpus):
     encs = _encoded(spec, n_procs, n_ops, n_values, seed=C * 100 + V)
     assert max(e.max_open for e in encs) <= C
     arrays = _stack(encs, C)
-    vdom = wgl.value_domain(arrays[0], arrays[4], arrays[5])
+    vdom = wgl.value_domain(spec, arrays[0], arrays[4], arrays[5])
     assert vdom <= V
     ok, failed_at, _ = _assert_matches_reference(spec, arrays, C, V)
     assert ok[-2:].all() and (failed_at[-2:] == -1).all()  # padding rows
@@ -180,7 +180,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     tensors = carry.batch_from_reference(*arrays, device="cpu")
     launches = dense.DENSE_AUTOMATON.launches
     with pytest.raises(ValueError, match="CUDA tensors"):
-        dense.DENSE_AUTOMATON(*tensors, V=4)
+        dense.DENSE_AUTOMATON(*tensors, S=4)
     assert dense.DENSE_AUTOMATON.launches == launches
 
 
@@ -208,7 +208,7 @@ def test_work_counts_the_operations_the_function_needs():
            np.array([[[2, 0, 0, 0]]], np.int16), np.zeros((1, 1, 4), np.int16))
     work = {}
     ok, failed_at, _ = dense.dense_check_reference(
-        *carry.batch_from_reference(*one, device="cpu"), V=4, work=work)
+        *carry.batch_from_reference(*one, device="cpu"), S=4, work=work)
     assert bool(ok[0]) and int(failed_at[0]) == -1
     assert work == {"int_ops": 27}
     fills = wgl._PAD_FILLS
@@ -216,5 +216,191 @@ def test_work_counts_the_operations_the_function_needs():
              for a, f in zip(one, fills)]
     work = {}
     dense.dense_check_reference(
-        *carry.batch_from_reference(*three, device="cpu"), V=4, work=work)
+        *carry.batch_from_reference(*three, device="cpu"), S=4, work=work)
     assert work == {"int_ops": 54}
+
+
+# ---------------------------------------------------------------------------
+# the reentrant-mutex (K1r), permit (K1p) and multi-register (K1m) families
+# ---------------------------------------------------------------------------
+
+
+def _family_encoded(spec, n_procs, n_ops, seed, n=5, **kw):
+    """Encoded synth histories of ``spec`` (a quarter of the generator's
+    seeds corrupted), slot cap 12."""
+    rng = random.Random(seed)
+    if spec == "reentrant-mutex":
+        model = models.reentrant_mutex()
+        hs = [synth.generate_lock_history(rng, n_procs=n_procs, n_ops=n_ops,
+                                          reentrant=True, corrupt=i % 2 == 0)
+              for i in range(n)]
+    elif spec == "acquired-permits":
+        model = models.acquired_permits(2)
+        hs = [synth.generate_permits_history(rng, n_procs=n_procs,
+                                             n_ops=n_ops, corrupt=i % 2 == 0)
+              for i in range(n)]
+    else:
+        n_keys = kw["n_keys"]
+        model = models.multi_register({k: 0 for k in range(n_keys)})
+        hs = [synth.generate_mr_history(rng, n_procs=n_procs, n_ops=n_ops,
+                                        n_keys=n_keys,
+                                        n_values=kw["n_values"],
+                                        corrupt=i % 2 == 0)
+              for i in range(n)]
+    encs = [encode.encode_history(h, model, slot_cap=12) for h in hs]
+    return [e for e in encs if e is not None]
+
+
+def _family_shape(spec, arrays):
+    """The shape plan_bucket gives the batch: (Vr, K), (N rounded to 4,
+    2), or the reentrant domain rounded to 4."""
+    if spec == "multi-register":
+        return dense.mr_shape_probe(arrays[0], arrays[4], arrays[5])
+    if spec == "acquired-permits":
+        return (encode.round_up(int(arrays[4].max()), 4), 2)
+    return encode.round_up(
+        wgl.value_domain(spec, arrays[0], arrays[4], arrays[5]), 4)
+
+
+# (spec, C, corpus: n_procs, n_ops, generator keywords, shape override or
+# None) — C in {4, 8, 12} per family, S up to 128, K up to 4
+FAMILY_CASES = [
+    ("reentrant-mutex", 4, (3, 60, {}), None),
+    ("reentrant-mutex", 8, (6, 60, {}), None),
+    ("reentrant-mutex", 12, (10, 40, {}), None),
+    ("reentrant-mutex", 8, (6, 40, {}), 32),
+    ("acquired-permits", 4, (3, 60, {}), None),
+    ("acquired-permits", 8, (6, 60, {}), None),
+    ("acquired-permits", 12, (10, 30, {}), (12, 2)),
+    ("multi-register", 4, (3, 60, dict(n_keys=2, n_values=4)), None),
+    ("multi-register", 8, (6, 60, dict(n_keys=3, n_values=2)), None),
+    ("multi-register", 8, (6, 60, dict(n_keys=2, n_values=8)), (11, 2)),
+    ("multi-register", 12, (10, 30, dict(n_keys=1, n_values=6)), (128, 1)),
+]
+
+
+@pytest.mark.parametrize(
+    "spec,C,corpus,shape", FAMILY_CASES,
+    ids=[f"{s}-C{c}-{v or 'planned'}" for s, c, _, v in FAMILY_CASES])
+def test_family_plain_version_equals_jax_kernel(spec, C, corpus, shape):
+    n_procs, n_ops, kw = corpus
+    encs = _family_encoded(spec, n_procs, n_ops, seed=C * 10 + n_procs,
+                           **kw)
+    assert max(e.max_open for e in encs) <= C
+    arrays = _stack(encs, C)
+    planned = _family_shape(spec, arrays)
+    V = shape or planned
+    if isinstance(V, tuple) and spec == "multi-register":
+        assert planned[0] <= V[0] and planned[1] <= V[1]
+    assert dense.applicable(spec, C, V)
+    ok, failed_at, _ = _assert_matches_reference(spec, arrays, C, V)
+    assert ok[-2:].all() and (failed_at[-2:] == -1).all()  # padding rows
+    assert not ok.all(), "the corpus must hold invalid histories"
+
+
+#: (spec, C, shape, init bound) of the random-code batches: every op code,
+#: values and registers past the shape's range, initial states past S
+RANDOM_FAMILIES = [
+    ("reentrant-mutex", 8, 12, 14),
+    ("acquired-permits", 4, (4, 2), 20),
+    ("acquired-permits", 8, (8, 1), 12),
+    ("multi-register", 8, (4, 2), 1 << 12),
+    ("multi-register", 4, (2, 4), 1 << 30),
+    ("multi-register", 8, (3, 4), 1 << 30),
+    ("multi-register", 12, (128, 1), 1 << 9),
+    ("cas-register", 8, 8, 12),
+]
+
+
+@pytest.mark.parametrize("spec,C,V,init_hi", RANDOM_FAMILIES,
+                         ids=[f"{s}-{v}" for s, _, v, _ in RANDOM_FAMILIES])
+def test_family_plain_version_equals_jax_kernel_random_codes(spec, C, V,
+                                                              init_hi):
+    """Random lanes, all twelve op codes, a/b past the clients, values and
+    registers (clipped as the reference clips them), initial states past
+    S (clamped), and padding events."""
+    rs = np.random.default_rng(C)
+    B, E = 6, 24
+    cand_slot = np.full((B, E, C), -1, np.int8)
+    for b in range(B):
+        for e in range(E):
+            k = rs.integers(0, C + 1)
+            cand_slot[b, e, :k] = rs.permutation(C)[:k]
+    ev_slot = np.where(rs.random((B, E)) < 0.2, -1,
+                       rs.integers(0, C, (B, E))).astype(np.int32)
+    arrays = [
+        rs.integers(-2, init_hi, B).astype(np.int32), ev_slot, cand_slot,
+        rs.integers(0, 12, (B, E, C)).astype(np.int8),
+        rs.integers(-2, 10, (B, E, C)).astype(np.int16),
+        rs.integers(-2, 6, (B, E, C)).astype(np.int16),
+    ]
+    _assert_matches_reference(spec, arrays, C, V)
+
+
+def test_permits_tables_equal_reference():
+    for N, P in ((1, 1), (4, 2), (12, 2), (16, 2)):
+        S, acq, rel = dense.permits_tables(N, P)
+        rS, racq, rrel = ref_dense.permits_tables(N, P)
+        assert S == rS
+        np.testing.assert_array_equal(acq, racq)
+        np.testing.assert_array_equal(rel, rrel)
+        assert acq.dtype == racq.dtype and rel.dtype == rrel.dtype
+    with pytest.raises(ValueError):
+        dense.permits_tables(4, 3)
+
+
+@pytest.mark.parametrize("N,P", [(1, 1), (4, 2), (12, 2), (8, 1)])
+def test_permit_sources_invert_the_tables(N, P):
+    """The kernel's source tables: src[c, t] = s exactly where
+    tbl[c, s] = t, -1 elsewhere."""
+    S, acq, rel = dense.permits_tables(N, P)
+    for tbl in (acq, rel):
+        src = dense.permit_sources(tbl)
+        assert src.dtype == tbl.dtype and src.shape == tbl.shape
+        for c in range(N + 1):
+            for t in range(S):
+                want = [s for s in range(S) if tbl[c, s] == t]
+                assert src[c, t] == (want[0] if want else -1)
+    bad = acq.copy()
+    bad[1, :2] = 0
+    with pytest.raises(ValueError, match="one-to-one"):
+        dense.permit_sources(bad)
+
+
+def test_mr_shape_probe_and_envelope_equal_reference():
+    rs = np.random.default_rng(5)
+    for _ in range(20):
+        init = rs.integers(0, 1 << 16, 7).astype(np.int32)
+        a = rs.integers(0, 9, (7, 5, 4)).astype(np.int16)
+        b = rs.integers(0, 4, (7, 5, 4)).astype(np.int16)
+        assert dense.mr_shape_probe(init, a, b) == \
+            ref_dense.mr_shape_probe(init, a, b)
+    pairs = ((11, 2), (12, 2), (3, 4), (4, 4), (16, 2), (128, 1), (129, 1),
+             (5, 3), (4, 3))
+    for spec in ("register", "mutex", "owner-mutex", "reentrant-mutex",
+                 "multi-register", "acquired-permits", "unordered-queue"):
+        paired = spec in ("multi-register", "acquired-permits")
+        for C in (4, 12, 13):
+            for V in (4, 32, 36) + (pairs if paired else ()):
+                assert dense.applicable(spec, C, V) == \
+                    ref_dense.applicable(spec, C, V), (spec, C, V)
+    assert dense.MR_MAX_STATES == ref_dense.MR_MAX_STATES
+
+
+def test_family_wrappers_count_apart_and_refuse_cpu_tensors():
+    arrays = _stack(_family_encoded("acquired-permits", 3, 30, seed=4), 4)
+    tensors = carry.batch_from_reference(*arrays, device="cpu")
+    checker = dense.make_dense_fn("acquired-permits", arrays[1].shape[1], 4,
+                                  (4, 2), torch.device("cpu"))
+    before = {f: k.launches for f, k in dense.DENSE_KERNELS.items()}
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dense.DENSE_KERNELS["acquired-permits"](
+            *tensors, S=checker.S,
+            permit_sources=(checker.pm_acq_src, checker.pm_rel_src))
+    checker(*tensors)  # CPU tensors: the plain version, no launch
+    assert {f: k.launches for f, k in dense.DENSE_KERNELS.items()} == before
+    assert {k.name for k in dense.DENSE_KERNELS.values()} == {
+        "dense_automaton", "dense_automaton[reentrant-mutex]",
+        "dense_automaton[acquired-permits]",
+        "dense_automaton[multi-register]"}
+    assert dense.DENSE_AUTOMATON is dense.DENSE_KERNELS["register"]

@@ -63,12 +63,33 @@ def _corpus(pkg, kind):
     """A corpus with invalid histories and at least one history past a
     slot cap of 8 (12 processes), generated by ``pkg``'s synth."""
     rng = random.Random(11)
-    if kind == "mutex":
+    if kind in ("mutex", "owner-mutex", "reentrant-mutex"):
+        reentrant = kind == "reentrant-mutex"
         hs = [pkg.generate_lock_history(rng, n_procs=4,
                                         n_ops=30 if i % 2 else 150,
+                                        reentrant=reentrant,
                                         corrupt=i % 3 == 0)
               for i in range(8)]
-        hs.append(pkg.generate_lock_history(rng, n_procs=12, n_ops=60))
+        hs.append(pkg.generate_lock_history(rng, n_procs=12, n_ops=60,
+                                            reentrant=reentrant))
+        return hs
+    if kind == "acquired-permits":
+        hs = [pkg.generate_permits_history(rng, n_procs=4,
+                                           n_ops=30 if i % 2 else 150,
+                                           corrupt=i % 3 == 0)
+              for i in range(8)]
+        hs.append(pkg.generate_permits_history(rng, n_procs=12, n_ops=60))
+        return hs
+    if kind == "multi-register":
+        hs = [pkg.generate_mr_history(rng, n_procs=4,
+                                      n_ops=30 if i % 2 else 150,
+                                      n_keys=1 + i % 4, n_values=5,
+                                      crash_p=0.01, corrupt=i % 3 == 0)
+              for i in range(8)]
+        hs.append(pkg.generate_mr_history(rng, n_procs=12, n_ops=60,
+                                          crash_p=0.0))
+        hs.append(pkg.generate_mr_history(rng, n_procs=3, n_ops=30,
+                                          n_keys=6))  # past 4 registers
         return hs
     weights = (1, 1, 0) if kind == "register" else None
     hs = [pkg.generate_history(rng, n_procs=p, n_ops=n, corrupt=i % 3 == 0,
@@ -84,6 +105,13 @@ MODELS = {
     "register": (models.register(0), ref_models.register(0)),
     "cas-register": (models.cas_register(0), ref_models.cas_register(0)),
     "mutex": (models.mutex(), ref_models.mutex()),
+    "owner-mutex": (models.owner_mutex(), ref_models.owner_mutex()),
+    "reentrant-mutex": (models.reentrant_mutex(),
+                        ref_models.reentrant_mutex()),
+    "acquired-permits": (models.acquired_permits(2),
+                         ref_models.acquired_permits(2)),
+    "multi-register": (models.multi_register({0: 0, 1: 0}),
+                       ref_models.multi_register({0: 0, 1: 0})),
 }
 
 
@@ -140,3 +168,37 @@ def test_oracle_results_equal_reference(witness):
         ref = ref_linear.analysis(ref_models.cas_register(0), rh,
                                   pure_fs=("read",), witness=witness)
         assert ours == ref
+
+
+def test_generate_reentrant_lock_history_same_histories():
+    kw = dict(n_procs=5, n_ops=50, corrupt=True, reentrant=True)
+    ours = [synth.generate_lock_history(random.Random(s), **kw)
+            for s in range(4)]
+    ref = [ref_synth.generate_lock_history(random.Random(s), **kw)
+           for s in range(4)]
+    assert _dicts(ours) == _dicts(ref)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_procs=4, n_ops=60, n_keys=3, n_values=4, crash_p=0.1,
+         corrupt=True),
+    dict(n_procs=8, n_ops=300, n_keys=64, n_values=4, crash_p=0.002),
+])
+def test_generate_mr_history_same_histories(kw):
+    ours = [synth.generate_mr_history(random.Random(s), **kw)
+            for s in range(3)]
+    ref = [ref_synth.generate_mr_history(random.Random(s), **kw)
+           for s in range(3)]
+    assert _dicts(ours) == _dicts(ref)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_procs=5, n_ops=60, n_permits=2, corrupt=True),
+    dict(n_procs=10, n_ops=200, n_permits=1),
+])
+def test_generate_permits_history_same_histories(kw):
+    ours = [synth.generate_permits_history(random.Random(s), **kw)
+            for s in range(3)]
+    ref = [ref_synth.generate_permits_history(random.Random(s), **kw)
+           for s in range(3)]
+    assert _dicts(ours) == _dicts(ref)

@@ -451,16 +451,17 @@ def test_frontier_plan_and_cost():
     b = encode.batch_encode(ours, models.cas_register(0))
     arrays = (b.init_state, b.ev_slot, b.cand_slot, b.cand_f, b.cand_a,
               b.cand_b)
-    spec = step_kernels.spec_for(models.cas_register(0))
-    plan = wgl.plan_bucket(spec, arrays, device=torch.device("cpu"))
+    model = models.cas_register(0)
+    spec = step_kernels.spec_for(model)
+    plan = wgl.plan_bucket(model, spec, arrays, device=torch.device("cpu"))
     E, C = b.ev_slot.shape[1], b.cand_slot.shape[2]
     assert plan.kernel == "frontier" and plan.mc == C + 1
     assert plan.frontier == 128 and plan.n_values > 32
     assert plan.fn is wgl.make_check_fn("cas-register", E, C, 128, C + 1,
                                         torch.device("cpu"))
     assert plan.disp == plan.fn.safe_dispatch
-    forced = wgl.plan_bucket(spec, arrays, device=torch.device("cpu"),
-                             max_closure=0)
+    forced = wgl.plan_bucket(model, spec, arrays,
+                             device=torch.device("cpu"), max_closure=0)
     assert forced.kernel == "frontier" and forced.mc == 0
 
 

@@ -31,6 +31,10 @@ _IMPORT_ALL = textwrap.dedent("""
         m.name for m in pkgutil.walk_packages(
             jepsen_tpu_torch.__path__, "jepsen_tpu_torch.")
     ]
+    for required in ("jepsen_tpu_torch.models.locks",
+                     "jepsen_tpu_torch.checker.locks_direct",
+                     "jepsen_tpu_torch.engine.decompose"):
+        assert required in names, required
     for name in names:
         importlib.import_module(name)
     import chip_smoke
@@ -48,7 +52,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15  # every module of the slice
+    # every module of the port, the lock checkers and the decomposition
+    # front-end included
+    assert int(out.stdout.split()[-1]) >= 21
 
 
 def test_the_refusal_matches_names_exactly():

@@ -79,8 +79,21 @@ def test_steps_table_matches_the_reference_specs():
 
 
 def test_port_specs_carry_their_step():
-    for model, step in ((models.register(0), step_kernels.register_step),
-                        (models.cas_register(0),
-                         step_kernels.cas_register_step),
-                        (models.mutex(), step_kernels.mutex_step)):
-        assert step_kernels.spec_for(model).step is step
+    """A spec's frontier step is its entry in the one table of steps,
+    ``STEPS``; the dense-only permit spec has none."""
+    sk = step_kernels
+    for model, step in ((models.register(0), sk.register_step),
+                        (models.cas_register(0), sk.cas_register_step),
+                        (models.mutex(), sk.mutex_step),
+                        (models.owner_mutex(), sk.cas_register_step),
+                        (models.reentrant_mutex(), sk.reentrant_mutex_step),
+                        (models.multi_register({}), sk.multi_register_step),
+                        (models.unordered_queue(),
+                         sk.unordered_queue_step)):
+        spec = sk.spec_for(model)
+        assert not spec.dense_only and sk.STEPS[spec.name] is step
+    permits = sk.spec_for(models.acquired_permits(2))
+    assert permits.dense_only and permits.name not in sk.STEPS
+    assert set(sk.STEPS) == {s.name for s in sk.SPECS.values()
+                             if not s.dense_only}
+    assert not hasattr(permits, "step")
