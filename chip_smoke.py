@@ -75,6 +75,29 @@ without its last line.
     Verdicts held against the CPU oracle on a sample; the multi-register
     batches decomposed and undecomposed must agree.
 14. family times — as in 5, for each family at its phase-10/11 shape.
+15. Elle kernels — the has-cycle (K6) and screen (K7, with the K8 bit
+    packing fused) entry points of ``cycles_closure.cu`` against their
+    plain PyTorch versions on the card, byte-equal (tolerance: exact), in
+    both closure modes: has-cycle on the rw-register per-key version
+    graphs of the phase-16 corpus (n = 16, one word per row) and on
+    random stacks at n = 32 … 1024; the screen at the list-append
+    strict-serializable profile (n = 512, 6 filter masks, 2 lifted
+    queries) on the corpus's 64 graphs tiled to 1024 rows; edges: a
+    512-vertex ring (the most rounds), all-zero rows, graphs of exactly
+    512 vertices, has-cycle rings at 512 and 1024.
+16. Elle end to end — ``elle.check_batch`` at bench.py:1282's shape (64
+    histories × 400 transactions × 32 keys from ``synth``, the injected
+    G1c in every 4th): list-append strict-serializable and rw-register
+    serializable with ``screen-route: "device"``, launch counters reset
+    just before and read just after (the screen must launch on the
+    list-append phase, has-cycle on the rw-register phase); results
+    equal to the ``"cpu"`` route's and the self-calibrating ``"auto"``
+    route's; histories/s for both routes and the route counts.
+17. Elle times — each kernel at a 1024-row stack (has-cycle on the
+    version graphs, the screen on phase 15's stack): median of 7 with
+    CUDA events, its bound (the plain version's operations, or the
+    bytes), the plain version's time, and ``library_ms``: the same fixed
+    squaring ladder as one thresholded bf16 ``torch.bmm`` per round.
 
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -91,10 +114,16 @@ import time
 import numpy as np
 import torch
 
-from jepsen_tpu_torch import models, synth
+from jepsen_tpu_torch import elle, models, synth
 from jepsen_tpu_torch.checker import linear
+from jepsen_tpu_torch.elle import core as elle_core
+from jepsen_tpu_torch.elle import cycles as elle_cycles
+from jepsen_tpu_torch.elle import encode as elle_encode
+from jepsen_tpu_torch.elle import graph as elle_graph
+from jepsen_tpu_torch.elle import rw_register as elle_rw
 from jepsen_tpu_torch.engine import decompose
-from jepsen_tpu_torch.ops import _build, dense, encode, step_kernels, wgl
+from jepsen_tpu_torch.ops import (_build, cycles, dense, encode,
+                                  step_kernels, wgl)
 from jepsen_tpu_torch.ops.step_kernels import (
     F_ACQUIRE, F_CAS, F_DEQUEUE, F_ENQUEUE, F_RACQUIRE, F_READ, F_READ_ANY,
     F_RELEASE, F_RRELEASE, F_WRITE)
@@ -659,6 +688,351 @@ def family_phases(device, card, pick):
     return entries, measured["non-reentrant-cp-lock"][4]
 
 
+# ---------------------------------------------------------------------------
+# the Elle screens (phases 15-17)
+# ---------------------------------------------------------------------------
+
+#: bench.py:1282's accelerator shape: histories × transactions × keys
+ELLE_HISTORIES, ELLE_TXNS, ELLE_KEYS = 64, 400, 32
+ELLE_STACK_ROWS = 1024
+#: the list-append strict-serializable profile at its bucket
+ELLE_N, ELLE_MASKS, ELLE_NONADJ = 512, (1, 3, 7, 25, 27, 31), ((4, 3),
+                                                               (4, 27))
+HAS_CYCLE_SIZES = (32, 64, 128, 256, 512, 1024)
+#: rows of the all-zero edge batches
+ELLE_EDGE_ROWS = 64
+
+
+def elle_histories(mode: str, seed: int):
+    """64 × 400-txn histories over 32 active keys from the port's synth,
+    the injected G1c in every 4th."""
+    return synth.generate_txn_batch(seed, ELLE_HISTORIES, mode,
+                                    n_txns=ELLE_TXNS, key_count=ELLE_KEYS)
+
+
+def version_graph_stack(hs):
+    """The rw-register per-key version graphs of ``hs`` (serializable: no
+    realtime order), padded as has_cycle_batch pads them: (B, 16, 16)."""
+    mats = []
+    for h in hs:
+        graphs, _ = elle_rw.version_graphs(elle_core.transactions(h), (),
+                                           use_device=False)
+        mats += [g.adjacency()[1] for g in graphs.values()]
+    n = cycles._bucket(max(m.shape[0] for m in mats))
+    require(n == 16, f"version graphs bucket at n={n}, not 16")
+    stack = np.zeros((len(mats), n, n), np.uint8)
+    for i, m in enumerate(mats):
+        stack[i, :m.shape[0], :m.shape[1]] = m
+    return stack
+
+
+def list_append_stack(hs):
+    """The list-append strict-serializable graphs of ``hs`` at their
+    bucket, tiled to :data:`ELLE_STACK_ROWS`; every graph must share one
+    profile."""
+    opts = {"workload": "list-append",
+            "consistency-models": ["strict-serializable"]}
+    encs = [elle_encode.encode_graph(elle.list_append.prepare(h, opts)[0])
+            for h in hs]
+    keys = {elle_encode.bucket_key(e) for e in encs}
+    require(keys == {(ELLE_N, ELLE_MASKS, ELLE_NONADJ)},
+            f"list-append profiles {sorted(keys)}")
+    rel = elle_encode.stack_rel(encs, ELLE_N)
+    reps = -(-ELLE_STACK_ROWS // len(encs))
+    return (np.concatenate([rel] * reps)[:ELLE_STACK_ROWS],
+            max(e.n for e in encs))
+
+
+def cycles_compare(case, kernel, plain, x, **fields):
+    """A cycles kernel against its plain version on the same device
+    tensor; every output byte-equal.  Emits one line and returns (plain
+    seconds, max error, the plain version's operation count)."""
+    kern = kernel(x)
+    torch.cuda.synchronize()
+    work: dict = {}
+    t0 = time.perf_counter()
+    ref = plain(x, work)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = 0
+    for i, (k, p) in enumerate(zip(kern, ref)):
+        k, p = k.cpu().numpy(), p.cpu().numpy()
+        require(k.dtype == p.dtype and k.shape == p.shape
+                and k.tobytes() == p.tobytes(),
+                f"{case}: kernel and plain version differ in output {i}")
+        err = max(err, int(np.abs(k.astype(np.int64) - p.astype(
+            np.int64)).max(initial=0)))
+    emit(phase="elle_kernel", case=case, rows=int(x.shape[0]),
+         n=int(x.shape[-1]), max_abs_err=err, plain_s=plain_s,
+         rounds=int(kern[-1][0]) if len(kern[-1]) else None,
+         tolerance="exact (byte-equal)", **fields)
+    return plain_s, err, work.get("int_ops", 0)
+
+
+def has_cycle_pair(mode):
+    return (lambda x: cycles.HAS_CYCLE(x, mode),
+            lambda x, work: cycles.has_cycle_reference(x, mode, work))
+
+
+def screen_pair(mode, masks=ELLE_MASKS, nonadj=ELLE_NONADJ):
+    return (lambda x: cycles.SCREEN(x, masks, nonadj, mode),
+            lambda x, work: cycles.screen_reference(x, masks, nonadj, mode,
+                                                    work))
+
+
+def ring_relation(n, rows):
+    """Row 0: a ring through all n vertices, every edge ww and every other
+    one also rw (nonadjacent rw edges: each vertex has a walk); the other
+    rows are all-zero."""
+    rel = np.zeros((rows, n, n), np.uint8)
+    for i in range(n):
+        rel[0, i, (i + 1) % n] = 1 | (4 if i % 2 else 0)
+    return rel
+
+
+def graph_of_512(seed):
+    """A dependency graph of exactly 512 vertices: a realtime chain through
+    all of them and random ww/wr/rw/process edges."""
+    rng = np.random.default_rng(seed)
+    g = elle_graph.Graph()
+    for v in range(511):
+        g.add_edge(v, v + 1, elle_graph.REALTIME)
+    rels = (elle_graph.WW, elle_graph.WR, elle_graph.RW, elle_graph.PROCESS)
+    for _ in range(1500):
+        a, b = (int(x) for x in rng.integers(0, 512, size=2))
+        g.add_edge(a, b, rels[int(rng.integers(0, 4))])
+    enc = elle_encode.encode_graph(g)
+    require(enc.n == 512 and elle_encode.graph_bucket(enc.n) == 512,
+            "the 512-vertex graph does not fill its bucket")
+    return enc
+
+
+def library_ladder(planes, R):
+    """The reference's uint8 arithmetic as PyTorch calls: R rounds of
+    r ← min(1, r + r·r), one bf16 torch.bmm each."""
+    r = planes.to(torch.bfloat16)
+    for _ in range(R):
+        r = torch.clamp(r + torch.bmm(r, r), max=1.0)
+    return r > 0
+
+
+def library_has_cycle(adj):
+    n = adj.shape[-1]
+    c = library_ladder(adj > 0, cycles.closure_rounds(n))
+    return c.diagonal(dim1=-2, dim2=-1).any(-1)
+
+
+def library_screen(rel, masks=ELLE_MASKS, nonadj=ELLE_NONADJ):
+    B, n = rel.shape[0], rel.shape[-1]
+    marr = torch.tensor(masks, dtype=torch.uint8, device=rel.device)
+    planes = ((rel[:, None] & marr[None, :, None, None]) > 0).reshape(
+        B * len(masks), n, n)
+    c = library_ladder(planes, cycles.closure_rounds(n)).reshape(
+        B, len(masks), n, n)
+    members = (c & c.transpose(-1, -2)).any(-1)
+    del c, planes
+    lift = torch.stack([cycles.lifted(rel, w, r) for w, r in nonadj], 1)
+    c = library_ladder(lift.reshape(B * len(nonadj), 2 * n, 2 * n),
+                       cycles.closure_rounds(2 * n)).reshape(
+        B, len(nonadj), 2 * n, 2 * n)
+    aw = torch.stack([(rel & w) > 0 for w, _ in nonadj], 1)
+    walks = (aw & c[:, :, n:, :n].transpose(-1, -2)).any(-1)
+    return members, walks
+
+
+def cycles_bound(nbytes, int_ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = int_ops / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def elle_end_to_end(name, workload, models, hs, card):
+    """``elle.check_batch`` with screen-route "device", both kernels'
+    launch counters reset just before and read just after; its results
+    must equal the "cpu" route's and the "auto" route's (whose first call
+    at each bucket calibrates on the card), and exactly the histories with
+    the injected G1c must be invalid.  Returns (launches, seconds)."""
+    opts = {"workload": workload, "consistency-models": models}
+    mod = elle._workload_module(opts)
+    graphs = [mod.prepare(h, {**opts, "screen-route": "cpu"})[0] for h in hs]
+    screenable = sum(2 <= len(g.vertices)
+                     <= elle_cycles.DEVICE_SCREEN_MAX_VERTICES
+                     for g in graphs)
+    cycles.HAS_CYCLE.launches = cycles.SCREEN.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = elle.check_batch({**opts, "screen-route": "device"}, hs)
+    dev_s = time.perf_counter() - t0
+    launches = {"has_cycle": cycles.HAS_CYCLE.launches,
+                "screen": cycles.SCREEN.launches}
+    t0 = time.perf_counter()
+    cpu = elle.check_batch({**opts, "screen-route": "cpu"}, hs)
+    cpu_s = time.perf_counter() - t0
+    require(json.dumps(dev, sort_keys=True, default=repr)
+            == json.dumps(cpu, sort_keys=True, default=repr),
+            f"{name}: device and cpu routes differ")
+    elle_cycles._SCREEN_CHOICE.clear()
+    elle_cycles._CLASSIFY_CHOICE.clear()
+    auto = elle.check_batch(opts, hs)
+    require(json.dumps(auto, sort_keys=True, default=repr)
+            == json.dumps(cpu, sort_keys=True, default=repr),
+            f"{name}: auto and cpu routes differ")
+    valid = [r["valid?"] for r in dev]
+    require(valid == [i % 4 != 0 for i in range(len(hs))],
+            f"{name}: verdicts {valid} are not the injected G1c pattern")
+    emit(phase="elle_end_to_end", case=name, histories=len(hs),
+         txns=ELLE_TXNS, keys=ELLE_KEYS, device_s=dev_s, cpu_s=cpu_s,
+         device_histories_per_s=len(hs) / dev_s,
+         cpu_histories_per_s=len(hs) / cpu_s, launches=launches,
+         route_counts={"screened": screenable,
+                       "cpu": len(graphs) - screenable},
+         auto_choices={"classify": {str(k): v for k, v in
+                                    elle_cycles._CLASSIFY_CHOICE.items()},
+                       "version_screen": {str(k): v for k, v in
+                                          elle_cycles._SCREEN_CHOICE.items()}},
+         invalid=valid.count(False), card=card)
+    return launches, dev_s
+
+
+def elle_phases(device, card):
+    """Phases 15-17; returns the ``{"kernels": [...]}`` entries of the
+    has-cycle and screen kernels."""
+    la_hs = elle_histories("append", 47100)
+    rw_hs = elle_histories("wr", 47200)
+
+    # -- 15. kernels against their plain versions -----------------------
+    vg = version_graph_stack(rw_hs)
+    vg_dev = torch.from_numpy(vg).to(device)
+    hc_err = 0
+    for mode in ("fixed", "earlyexit"):
+        _, err, _ = cycles_compare("version-graphs", *has_cycle_pair(mode),
+                                   vg_dev, entry="has_cycle", mode=mode)
+        hc_err = max(hc_err, err)
+    rng = np.random.default_rng(47300)
+    for n in HAS_CYCLE_SIZES:
+        rows = 256 if n <= 256 else 64
+        dens = rng.choice([0.5, 1.0, 1.5, 4.0], size=rows) / n
+        adj = (rng.random((rows, n, n)) < dens[:, None, None]).astype(
+            np.uint8)
+        for mode in ("fixed", "earlyexit"):
+            _, err, _ = cycles_compare(f"random-n{n}", *has_cycle_pair(mode),
+                                       torch.from_numpy(adj).to(device),
+                                       entry="has_cycle", mode=mode)
+            hc_err = max(hc_err, err)
+    rel_np, n_max = list_append_stack(la_hs)
+    rel = torch.from_numpy(rel_np).to(device)
+    sc_err, sc_plain = 0, {}
+    for mode in ("fixed", "earlyexit"):
+        plain_s, err, ops = cycles_compare(
+            "list-append-1024", *screen_pair(mode), rel, entry="screen",
+            mode=mode, largest_graph=n_max)
+        sc_plain[mode] = (plain_s, ops)
+        sc_err = max(sc_err, err)
+    edge_cases = [
+        ("screen", "ring-512", torch.from_numpy(ring_relation(512, 8))),
+        ("screen", "zeros-512", torch.zeros((ELLE_EDGE_ROWS, 512, 512),
+                                            dtype=torch.uint8)),
+        ("screen", "graph-of-512", torch.from_numpy(elle_encode.stack_rel(
+            [graph_of_512(47400 + i) for i in range(4)], 512))),
+        ("has_cycle", "ring-512", torch.from_numpy(
+            (ring_relation(512, 8) > 0).astype(np.uint8))),
+        ("has_cycle", "ring-1024", torch.from_numpy(
+            (ring_relation(1024, 4) > 0).astype(np.uint8))),
+        ("has_cycle", "zeros-W1-n16", torch.zeros((ELLE_EDGE_ROWS, 16, 16),
+                                                  dtype=torch.uint8)),
+    ]
+    for kind, case, x in edge_cases:
+        for mode in ("fixed", "earlyexit"):
+            pair = screen_pair(mode) if kind == "screen" else \
+                has_cycle_pair(mode)
+            _, err, _ = cycles_compare(case, *pair, x.to(device),
+                                       entry=kind, mode=mode)
+            if kind == "screen":
+                sc_err = max(sc_err, err)
+            else:
+                hc_err = max(hc_err, err)
+
+    # -- 16. end to end through elle.check_batch -------------------------
+    la_launches, la_s = elle_end_to_end(
+        "list-append", "list-append", ["strict-serializable"], la_hs, card)
+    require(la_launches["screen"] > 0,
+            "list-append: check_batch never launched the screen kernel")
+    rw_launches, rw_s = elle_end_to_end(
+        "rw-register", "rw-register", ["serializable"], rw_hs, card)
+    require(rw_launches["has_cycle"] > 0,
+            "rw-register: check_batch never launched the has-cycle kernel")
+
+    # -- 17. times at the 1024-row stacks --------------------------------
+    vg_rows = vg[np.arange(ELLE_STACK_ROWS) % len(vg)]
+    vg_t = torch.from_numpy(vg_rows).to(device)
+    hc_work: dict = {}
+    t0 = time.perf_counter()
+    cycles.has_cycle_reference(vg_t, "fixed", hc_work)
+    torch.cuda.synchronize()
+    hc_plain_s = time.perf_counter() - t0
+    hc_ms, hc_all = time_kernel(cycles.HAS_CYCLE, (vg_t,))
+    hc_lib_ms, _ = time_kernel(library_has_cycle, (vg_t,))
+    require(np.array_equal(library_has_cycle(vg_t).cpu().numpy(),
+                           cycles.HAS_CYCLE(vg_t)[0].cpu().numpy()),
+            "the bmm ladder disagrees with the has-cycle kernel")
+    B, n = vg_rows.shape[0], vg_rows.shape[-1]
+    hc_bytes = B * n * n + B + 4 * B
+    hc_bound, hc_by = cycles_bound(hc_bytes, hc_work["int_ops"])
+    sc_ms, sc_all = time_kernel(
+        lambda t: cycles.SCREEN(t, ELLE_MASKS, ELLE_NONADJ), (rel,))
+    sc_lib_ms, _ = time_kernel(library_screen, (rel,), reps=3, warmup=1)
+    lib_m, lib_w = library_screen(rel)
+    k_m, k_w, _ = cycles.SCREEN(rel, ELLE_MASKS, ELLE_NONADJ)
+    require(torch.equal(lib_m, k_m) and torch.equal(lib_w, k_w),
+            "the bmm ladder disagrees with the screen kernel")
+    del lib_m, lib_w
+    B, n = rel.shape[0], rel.shape[-1]
+    sc_bytes = B * n * n + B * (len(ELLE_MASKS) + len(ELLE_NONADJ)) * n \
+        + 4 * B
+    sc_plain_s, sc_ops = sc_plain["fixed"]
+    sc_bound, sc_by = cycles_bound(sc_bytes, sc_ops)
+    emit(phase="elle_times", kernel=cycles.HAS_CYCLE.name,
+         case="version-graphs", rows=ELLE_STACK_ROWS, n=16, ms=hc_ms,
+         runs_ms=hc_all, bound_ms=hc_bound, bound_by=hc_by, bytes=hc_bytes,
+         int_ops=hc_work["int_ops"], plain_ms=hc_plain_s * 1e3,
+         library_ms=hc_lib_ms,
+         library="bf16 torch.bmm per round, thresholded (fixed ladder)",
+         e2e_histories_per_s=len(rw_hs) / rw_s, card=card)
+    emit(phase="elle_times", kernel=cycles.SCREEN.name,
+         case="list-append-strict-serializable", rows=ELLE_STACK_ROWS,
+         n=ELLE_N, F=len(ELLE_MASKS), Q=len(ELLE_NONADJ), ms=sc_ms,
+         runs_ms=sc_all, bound_ms=sc_bound, bound_by=sc_by, bytes=sc_bytes,
+         int_ops=sc_ops, plain_ms=sc_plain_s * 1e3, library_ms=sc_lib_ms,
+         library="bf16 torch.bmm per round, thresholded (fixed ladder)",
+         e2e_histories_per_s=len(la_hs) / la_s, card=card)
+    return [{
+        "name": cycles.HAS_CYCLE.name,
+        "route": "cuda",
+        "source": "jepsen_tpu_torch/ops/csrc/cycles_closure.cu",
+        "replaces": "jepsen_tpu/ops/cycles.py:376",
+        "launches": rw_launches["has_cycle"],
+        "max_abs_err": hc_err,
+        "ms": hc_ms,
+        "plain_ms": hc_plain_s * 1e3,
+        "bound_ms": hc_bound,
+        "bound_by": hc_by,
+        "library_ms": hc_lib_ms,
+    }, {
+        "name": cycles.SCREEN.name,
+        "route": "cuda",
+        "source": "jepsen_tpu_torch/ops/csrc/cycles_closure.cu",
+        "replaces": "jepsen_tpu/ops/cycles.py:400",
+        "launches": la_launches["screen"],
+        "max_abs_err": sc_err,
+        "ms": sc_ms,
+        "plain_ms": sc_plain_s * 1e3,
+        "bound_ms": sc_bound,
+        "bound_by": sc_by,
+        "library_ms": sc_lib_ms,
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -850,6 +1224,9 @@ def main() -> int:
     family_entries, owner_err = family_phases(device, card, pick)
     err = max(err, owner_err)
 
+    # -- 15-17. the Elle screens -------------------------------------------
+    elle_entries = elle_phases(device, card)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "dense_automaton",
@@ -875,7 +1252,7 @@ def main() -> int:
         "bound_ms": f_bound_ms,
         "bound_by": f_bound_by,
         "library_ms": None,
-    }]}), flush=True)
+    }] + elle_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

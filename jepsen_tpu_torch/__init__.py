@@ -9,7 +9,8 @@ is ported by ``jepsen_tpu_torch/ops/dense.py`` and so on.
 Entry points (:func:`jepsen_tpu_torch.ops.wgl.check_batch`) run on the
 CUDA device unless the caller passes ``device="cpu"``; with no device
 argument and no CUDA present they raise (:mod:`.device`).  On the card
-the dense subset automaton runs as a hand-written CUDA kernel
-(``ops/csrc/dense_automaton.cu``); on the CPU the same function runs as
-its plain PyTorch version.
+the dense subset automaton, the frontier search and the Elle closure
+screens (:func:`jepsen_tpu_torch.elle.check_batch`) run as hand-written
+CUDA kernels (``ops/csrc/``); on the CPU the same functions run as their
+plain PyTorch versions.
 """

@@ -139,6 +139,13 @@ class Executor:
     row's ``(ctx, idx)`` token back to its
     :class:`~jepsen_tpu_torch.engine.planning.RunContext`.
 
+    A plan may settle itself (the Elle screens' :class:`~jepsen_tpu_torch.
+    ops.cycles.CyclePlan` / ``ScreenPlan``): it carries its own input
+    arrays and neutral ``pad_fills``, and ``settle_rows(rows, mat,
+    n_live)`` takes its chunk's outputs — no escalation ladder, no
+    verdict unpack.  History plans keep the six-array tuple, its pad
+    fills and the ``(ok, failed_at, overflow)`` outputs.
+
     A frontier chunk gets 1/window of the plan's row cap, so the chunks
     in flight together hold at most one cap's worth of device memory;
     when the cap is below the window, the bucket dispatches serially at
@@ -175,6 +182,10 @@ class Executor:
 
     def _settle_chunk(self, chunk_id, mat):
         plan, arrays, rows, n_live = self._chunks.pop(chunk_id)
+        settle = getattr(plan, "settle_rows", None)
+        if settle is not None:
+            settle(rows, mat, n_live)
+            return
         # np.array, not asarray: the escalation pass writes into these
         ok, failed_at, overflow = (np.array(x)[:n_live] for x in mat)
         if overflow.any():
@@ -257,6 +268,9 @@ class Executor:
 
         plan, arrays, rows = pb.plan, pb.arrays, pb.rows
         B = arrays[0].shape[0]
+        if hasattr(plan, "settle_rows") and plan.disp == 0:
+            raise ValueError("no row of this bucket fits one dispatch: its "
+                             "graphs belong on the host path")
         if plan.fn is None or plan.disp == 0:
             # no device checker (an oracle-routed shape, a dense-only spec
             # outside its envelope) or not even one row fits: every
@@ -277,11 +291,12 @@ class Executor:
         # -two row bucket, a long one to full cap-row chunks (the tail
         # too), so a bucket never launches at a per-tail-size shape
         target = min(cap, row_bucket_target(B))
+        pad_fills = getattr(plan, "pad_fills", wgl._PAD_FILLS)
         for lo in range(0, B, cap):
             hi = min(lo + cap, B)
             chunk = tuple(
                 _pad_rows(np.asarray(a[lo:hi]), target, fill)
-                for a, fill in zip(arrays, wgl._PAD_FILLS)
+                for a, fill in zip(arrays, pad_fills)
             )
             if serialize:
                 self._win.drain()

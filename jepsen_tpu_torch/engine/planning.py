@@ -106,8 +106,10 @@ class RunContext:
 
 class PlannedBucket:
     """One stacked-and-routed bucket, ready for the execution layer: the
-    :class:`~jepsen_tpu_torch.ops.wgl.BucketPlan`, the padded 6-tuple of
-    arrays, and one ``(ctx, idx)`` row token per array row."""
+    plan (a :class:`~jepsen_tpu_torch.ops.wgl.BucketPlan`, or an Elle
+    screen's self-settling plan), its arrays (the padded 6-tuple of a
+    history bucket, the one relation batch of a screen) and one row token
+    per array row (``(ctx, idx)``, or a screen's ``(sink, idx)``)."""
 
     __slots__ = ("key", "plan", "arrays", "rows")
 
@@ -261,14 +263,17 @@ def estimated_cost(pb: PlannedBucket) -> float:
     """Per-bucket device-cost proxy the dispatch order ranks by: rows × E
     for the dense automaton (a fixed-width scan), rows × F·(C+1)·⌈E/32⌉
     for the frontier search (its closure's candidate lanes over the
-    event scan), 0 for a bucket the oracle takes.  It reads no value
-    domain, so the pairs of the composite automata pass through.  It
-    only ranks buckets; it never changes a verdict."""
+    event scan), rows × E²·F for the Elle screens (the n × n closure over
+    the profile's plane weight F), 0 for a bucket the oracle takes.  It
+    reads no value domain, so the pairs of the composite automata pass
+    through.  It only ranks buckets; it never changes a verdict."""
     plan = pb.plan
     rows = len(pb.rows)
     if plan.fn is None or plan.disp == 0:
         return 0.0
     if plan.kernel == "dense":
         return float(rows * plan.E)
+    if plan.kernel == "cycles":
+        return float(rows) * plan.E * plan.E * max(1, plan.frontier)
     words = max(1, -(-plan.E // 32))
     return float(rows * plan.frontier * (plan.C + 1) * words)

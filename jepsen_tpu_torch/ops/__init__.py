@@ -1,3 +1,4 @@
 """Device-facing code of the port: host encoding (:mod:`.encode`), model
 specs (:mod:`.step_kernels`), the dense automaton and its CUDA kernel
-(:mod:`.dense`, ``csrc/``), and the batched entry point (:mod:`.wgl`)."""
+(:mod:`.dense`, ``csrc/``), the batched entry point (:mod:`.wgl`), and
+the Elle cycle screens (:mod:`.cycles`)."""

@@ -30,6 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES: Dict[str, Path] = {
     "dense_automaton": CSRC / "dense_automaton.cu",
     "frontier_search": CSRC / "frontier_search.cu",
+    "cycles_closure": CSRC / "cycles_closure.cu",
 }
 
 #: sm_90a keeps Hopper-only instructions (wgmma, setmaxnreg) available;

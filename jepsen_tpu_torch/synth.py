@@ -11,13 +11,18 @@ concurrency (ops linearize at completion; crashes secretly apply or not),
 plus an optional corruption pass that produces likely-invalid histories.
 This is the batch feeder for BASELINE config 3 (batched 1000-op
 CAS-register suites).
+
+:func:`generate_txn_history` is the port's own transaction generator for
+the Elle screens (it does not reproduce the reference's random stream):
+the reference's ``TxnGenerator`` rules run against a serializable
+in-memory store, with an optional committed G1c pair injected.
 """
 
 from __future__ import annotations
 
 import random
 
-from .history import History, invoke_op, ok_op, fail_op, info_op
+from .history import History, Op, invoke_op, ok_op, fail_op, info_op
 
 
 def generate_history(
@@ -373,3 +378,97 @@ def generate_permits_history(
         op.index = i
         op.time = i
     return h.index_ops()
+
+
+def generate_txn_history(
+    rng: random.Random,
+    mode: str = "append",
+    n_txns: int = 400,
+    key_count: int = 32,
+    max_writes_per_key: int = 8,
+    min_len: int = 1,
+    max_len: int = 4,
+    n_procs: int = 3,
+    latency=(5, 15),
+    g1c: bool = False,
+) -> History:
+    """One transactional history, ``mode`` "append" (list-append) or "wr"
+    (rw-register).  Transactions follow the reference's ``TxnGenerator``
+    rules (``workloads/cycle/__init__.py:198-253``): ``key_count`` keys
+    active at once, each retired for a fresh key after
+    ``max_writes_per_key`` writes, ``min_len..max_len`` micro-ops, each a
+    read with probability 0.5, else a write/append of a globally unique
+    value.  ``n_procs`` processes run them back to back, each taking a
+    latency drawn from ``latency``; a transaction applies atomically at
+    its invocation (the reference's ``TxnAtomClient``: a serializable
+    store whose order also respects real time), so the history is valid
+    unless ``g1c`` appends the reference's injected committed
+    wr-dependency cycle on two fresh keys (``bench.py:1221-1237``)."""
+    if mode not in ("append", "wr"):
+        raise ValueError(f"unknown txn mode {mode!r}")
+    active = list(range(key_count))
+    writes = {k: 0 for k in active}
+    next_key, counter = key_count, 0
+    store: dict = {}
+    free_at = [0] * n_procs
+    events = []
+    for _ in range(n_txns):
+        p = min(range(n_procs), key=lambda q: (free_at[q], q))
+        t = free_at[p]
+        txn, done = [], []
+        for _m in range(min_len + rng.randrange(max_len - min_len + 1)):
+            k = active[rng.randrange(len(active))]
+            if rng.random() < 0.5:
+                txn.append(["r", k, None])
+                cur = store.get(k)
+                done.append(["r", k, list(cur) if isinstance(cur, list)
+                             else cur])
+                continue
+            counter += 1
+            if mode == "append":
+                txn.append(["append", k, counter])
+                store.setdefault(k, []).append(counter)
+            else:
+                txn.append(["w", k, counter])
+                store[k] = counter
+            done.append(list(txn[-1]))
+            writes[k] += 1
+            if writes[k] >= max_writes_per_key:
+                active[active.index(k)] = next_key
+                writes[next_key] = 0
+                next_key += 1
+        end = t + rng.randint(*latency)
+        free_at[p] = end
+        events.append((t, 1, p, {"process": p, "type": "invoke", "f": "txn",
+                                 "value": txn, "time": t}))
+        events.append((end, 0, p, {"process": p, "type": "ok", "f": "txn",
+                                   "value": done, "time": end}))
+    events.sort(key=lambda e: e[:3])
+    dicts = [e[3] for e in events]
+    if g1c:
+        t0 = max(d["time"] for d in dicts) + 100 if dicts else 0
+        kx, ky = "__bx", "__by"
+        if mode == "append":
+            t1 = [["append", kx, 1], ["r", ky, [2]]]
+            t2 = [["append", ky, 2], ["r", kx, [1]]]
+        else:
+            t1 = [["w", kx, 1], ["r", ky, 2]]
+            t2 = [["w", ky, 2], ["r", kx, 1]]
+        for p, txn, dt in ((91, t1, 0), (92, t2, 1)):
+            dicts.append({"process": p, "type": "invoke", "f": "txn",
+                          "value": txn, "time": t0 + dt})
+            dicts.append({"process": p, "type": "ok", "f": "txn",
+                          "value": txn, "time": t0 + 10 + dt})
+    return History([Op.from_dict(d) for d in dicts]).index_ops()
+
+
+def generate_txn_batch(seed: int, n_histories: int, mode: str = "append",
+                       n_txns: int = 400, key_count: int = 32,
+                       anomaly_every: int = 4, **kw):
+    """``n_histories`` transactional histories from one seed, the injected
+    G1c in every ``anomaly_every``-th (the first included), as the
+    reference's ``bench.py:_elle_corpus`` shapes its corpus."""
+    rng = random.Random(seed)
+    return [generate_txn_history(rng, mode, n_txns, key_count,
+                                 g1c=i % anomaly_every == 0, **kw)
+            for i in range(n_histories)]
