@@ -99,6 +99,32 @@ without its last line.
     bytes), the plain version's time, and ``library_ms``: the same fixed
     squaring ladder as one thresholded bf16 ``torch.bmm`` per round.
 
+18. queue — the unordered-queue automaton (K2, ``dense_queue_launch`` in
+    ``dense_automaton.cu``) against its plain version at
+    ``linearizable_queue_workload``'s shape (suites/common.py:207-228):
+    32 templates of ``synth.generate_queue_history`` (8 processes, 40
+    ops, a quarter corrupted, every third with three values queued
+    initially) relabelled to 16384 rows by per-row permutations of the
+    value ids 1..31; edges at C = 1, 6 and 12, at the 31-value cap,
+    all-padding rows and random op codes.  Byte-equal (tolerance:
+    exact).  End to end: the dense entry point
+    (``dense.make_dense_fn("unordered-queue", ...)``, K2 counter reset
+    around it) on 1024 fresh histories must agree with ``check_batch``'s
+    direct checker and the frontier search at F = 256; then its times as
+    in 5.
+19. mesh — a two-shard mesh (two cards when there are, else the one card
+    named twice; the line says which): ``check_batch(mesh=...)`` on the
+    histories of 4 and on 264 of 8's with ``frontier=32`` (escalation
+    reruns must run), and ``elle.check_batch`` on the list-append corpus
+    of 16 through an Executor on the mesh, each equal to its unsharded
+    run, with the padding and live rows per device.
+20. verdict stats — K9 (``verdict_stats.cu``) against its plain version
+    at 16384 rows, then summed over the shards of ``sharded_check`` on
+    the mesh (the dense flagship and the frontier slice at F = 32),
+    equal to the unsharded counts; median of 7 with CUDA events, the
+    bound by bytes (2B + 24), the plain time and ``library_ms`` (three
+    ``torch.count_nonzero`` calls).
+
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
 """
@@ -121,9 +147,10 @@ from jepsen_tpu_torch.elle import cycles as elle_cycles
 from jepsen_tpu_torch.elle import encode as elle_encode
 from jepsen_tpu_torch.elle import graph as elle_graph
 from jepsen_tpu_torch.elle import rw_register as elle_rw
-from jepsen_tpu_torch.engine import decompose
+from jepsen_tpu_torch.engine import decompose, execution
 from jepsen_tpu_torch.ops import (_build, cycles, dense, encode,
                                   step_kernels, wgl)
+from jepsen_tpu_torch.parallel import mesh as mesh_mod
 from jepsen_tpu_torch.ops.step_kernels import (
     F_ACQUIRE, F_CAS, F_DEQUEUE, F_ENQUEUE, F_RACQUIRE, F_READ, F_READ_ANY,
     F_RELEASE, F_RRELEASE, F_WRITE)
@@ -216,12 +243,12 @@ def flagship_batch():
     return arrays, reps, encode.round_up(vmax + 1, 4)
 
 
-def kernel_bound(arrays, failed_at, int_ops, table_bytes=0):
+def kernel_bound(arrays, failed_at, int_ops, table_bytes=0, lane_bytes=6):
     """Least time for the function on these inputs: each input byte the
-    run needs read once (a row's events up to its failing one, candidate
-    lanes of non-padding events only, and ``table_bytes`` of transition
-    tables), each output written once, and the integer operations the
-    run's data needs; the larger of the two."""
+    run needs read once (a row's events up to its failing one, the
+    ``lane_bytes`` of each candidate lane of non-padding events only, and
+    ``table_bytes`` of transition tables), each output written once, and
+    the integer operations the run's data needs; the larger of the two."""
     ev_slot = arrays[1]
     B, E = ev_slot.shape
     C = arrays[2].shape[2]
@@ -229,7 +256,7 @@ def kernel_bound(arrays, failed_at, int_ops, table_bytes=0):
     needed = np.arange(E)[None, :] < n_ev[:, None]
     live = needed & (ev_slot >= 0)
     nbytes = (B * (4 + 6) + 4 * int(needed.sum())
-              + (1 + 1 + 2 + 2) * C * int(live.sum()) + table_bytes)
+              + lane_bytes * C * int(live.sum()) + table_bytes)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = int_ops / INT32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -1033,6 +1060,380 @@ def elle_phases(device, card):
     }]
 
 
+# ---------------------------------------------------------------------------
+# the unordered queue (phase 18), the mesh (19) and verdict stats (20)
+# ---------------------------------------------------------------------------
+
+#: suites/common.py:207-228 linearizable_queue_workload: unique elements,
+#: 8 client processes, op-limit 40 per key
+QUEUE_PROCS, QUEUE_OPS, QUEUE_TEMPLATES = 8, 40, 32
+QUEUE_E2E_HISTORIES = 1024
+#: initial contents of every third queue history
+QUEUE_INITIAL = (1, 2, 3)
+#: the value-id bitset's width (step_kernels.UQ_MAX_VALUES)
+QUEUE_VALUES = step_kernels.UQ_MAX_VALUES
+
+
+def queue_histories(seed: int, n: int, n_procs=QUEUE_PROCS,
+                    n_ops=QUEUE_OPS):
+    """(histories, models): the unique-element queue generator, a quarter
+    corrupted, every third starting with :data:`QUEUE_INITIAL` queued."""
+    rng = random.Random(seed)
+    hs, ms = [], []
+    for i in range(n):
+        init = QUEUE_INITIAL if i % 3 == 1 else ()
+        hs.append(synth.generate_queue_history(
+            rng, n_procs, n_ops, corrupt=i % 4 == 0, initial=init))
+        ms.append(models.UnorderedQueue(init))
+    return hs, ms
+
+
+def queue_arrays(hs, ms, C, pad_rows=0):
+    """The encodable histories (at most 31 values) stacked at ``C`` lanes,
+    plus ``pad_rows`` all-padding rows: (arrays, indices kept)."""
+    encs, keep = [], []
+    for i, (h, m) in enumerate(zip(hs, ms)):
+        e = encode.encode_history(h, m, slot_cap=C)
+        if e is not None:
+            encs.append(e)
+            keep.append(i)
+    require(encs, "no queue history encoded")
+    E = encode.round_up(max(e.ev_slot.shape[0] for e in encs))
+    b = encode.stack_encoded(encs, list(range(len(encs))), E, C)
+    arrays = tuple(np.concatenate([a, np.full((pad_rows,) + a.shape[1:], f,
+                                              a.dtype)])
+                   for a, f in zip(batch_arrays(b), wgl._PAD_FILLS))
+    return arrays, keep
+
+
+def queue_flagship():
+    """32 queue templates relabelled to :data:`FLAGSHIP_ROWS` rows: each
+    row permutes the value ids 1..31 (initial bitset included), which
+    keeps its template's verdict."""
+    hs, ms = queue_histories(48100, QUEUE_TEMPLATES)
+    t_arrays, _ = queue_arrays(hs, ms, QUEUE_PROCS)
+    K = t_arrays[0].shape[0]
+    B = FLAGSHIP_ROWS
+    reps = np.random.default_rng(48100).integers(0, K, size=B)
+    r = np.random.default_rng(1)
+    perm = np.argsort(r.random((B, QUEUE_VALUES)), axis=1) + 1
+    table = np.concatenate([np.zeros((B, 1), np.int64), perm], axis=1)
+    init0 = t_arrays[0][reps].astype(np.int64) & 0xFFFFFFFF
+    init = np.zeros(B, np.int64)
+    for v in range(1, QUEUE_VALUES + 1):
+        init |= ((init0 >> (v - 1)) & 1) << (table[:, v] - 1)
+    init = np.where(init >= 1 << 31, init - (1 << 32), init)
+    E, C = t_arrays[1].shape[1], t_arrays[2].shape[2]
+    a = np.take_along_axis(table, t_arrays[4][reps].reshape(B, -1).astype(
+        np.int64), axis=1).astype(np.int16).reshape(B, E, C)
+    arrays = (init.astype(np.int32), t_arrays[1][reps], t_arrays[2][reps],
+              t_arrays[3][reps], a, t_arrays[5][reps])
+    return arrays, reps
+
+
+def queue_at_value_cap(seed: int, n: int):
+    """Queue histories whose value ids reach the bitset's 31: each history
+    of the generator, beside initial contents of fresh values that make
+    up the difference (queued, never dequeued, so the verdict stays)."""
+    rng = random.Random(seed)
+    hs, ms = [], []
+    while len(hs) < n:
+        h = synth.generate_queue_history(rng, 4, 40,
+                                         corrupt=len(hs) % 2 == 0)
+        values = {op.value for op in h if op.value is not None}
+        extra = QUEUE_VALUES - len(values)
+        if extra < 1:
+            continue
+        hs.append(h)
+        ms.append(models.UnorderedQueue(tuple(range(1000, 1000 + extra))))
+    return hs, ms
+
+
+def random_queue_codes(seed: int, B=128, E=64, C=12):
+    """Random lanes: any slot ids and op codes, value ids past both ends
+    of 1..32, any 32-bit initial bitset, completing slots past C."""
+    r = np.random.default_rng(seed)
+    init = r.integers(-2 ** 31, 2 ** 31, B, dtype=np.int64).astype(np.int32)
+    ev = r.integers(-1, C + 2, (B, E)).astype(np.int32)
+    cs = r.integers(-1, C, (B, E, C)).astype(np.int8)
+    cf = r.choice([F_ENQUEUE, F_DEQUEUE, 0, 1, 13], (B, E, C),
+                  p=[0.4, 0.4, 0.1, 0.05, 0.05]).astype(np.int8)
+    ca = r.integers(-3, 41, (B, E, C)).astype(np.int16)
+    cb = r.integers(0, 4, (B, E, C)).astype(np.int16)
+    return init, ev, cs, cf, ca, cb
+
+
+def queue_compare(name, arrays, device, work=None):
+    """The queue automaton's kernel against its plain version on every
+    row of ``arrays``; emits one line and returns (outputs, plain seconds,
+    max error)."""
+    B, E, C = arrays[2].shape
+    checker = dense.make_dense_fn("unordered-queue", E, C, 0, device)
+    (ok, failed_at, ovf), plain_s, err = compare(
+        checker, to_device(arrays, device), work)
+    require(not ovf.any(), f"queue {name}: the dense automaton overflowed")
+    emit(phase="queue_edge" if name else "queue", case=name, rows=int(B),
+         E=int(E), C=int(C), compared_rows=int(B),
+         invalid=int((~ok).sum()), max_abs_err=err, plain_s=plain_s,
+         tolerance="exact (byte-equal)")
+    return (ok, failed_at, ovf), plain_s, err
+
+
+def queue_phase(device, card):
+    """Phase 18; returns the ``{"kernels": [...]}`` entry of K2."""
+    kernel = dense.DENSE_KERNELS["unordered-queue"]
+    arrays, reps = queue_flagship()
+    B, E, C = arrays[2].shape
+    work: dict = {}
+    (ok, failed_at, _), plain_s, err = queue_compare("", arrays, device,
+                                                     work)
+    for t in np.unique(reps):
+        rows = reps == t
+        require(len(set(ok[rows])) == 1 and len(set(failed_at[rows])) == 1,
+                f"queue rows of template {int(t)} disagree")
+    require((~ok).any() and ok.any(), "the queue batch is all one verdict")
+
+    # edges: C = 1, 6 and 12, the 31-value cap, padding, random codes
+    edges = []
+    for n_procs in (1, 6, 12):
+        hs, ms = queue_histories(48110 + n_procs, 64, n_procs=n_procs)
+        edges.append((f"C{n_procs}", queue_arrays(hs, ms, n_procs,
+                                                  pad_rows=2)[0]))
+    hs, ms = queue_at_value_cap(48120, 64)
+    cap_arrays, _ = queue_arrays(hs, ms, 4, pad_rows=2)
+    require(int((cap_arrays[0] != 0).sum()) > 0, "no initial contents")
+    edges.append(("31-values", cap_arrays))
+    edges.append(("random-ops", random_batch("unordered-queue", 48130,
+                                             C=8)))
+    edges.append(("random-codes", random_queue_codes(48140)))
+    for name, e_arrays in edges:
+        _, _, e_err = queue_compare(name, e_arrays, device)
+        err = max(err, e_err)
+
+    # end to end: the dense entry point (launch counter reset around it)
+    # against the direct checker through check_batch and the frontier
+    # search, on 1024 fresh histories of the same workload
+    hs, ms = queue_histories(48150, QUEUE_E2E_HISTORIES)
+    e_arrays, keep = queue_arrays(hs, ms, QUEUE_PROCS)
+    eB, eE, eC = e_arrays[2].shape
+    checker = dense.make_dense_fn("unordered-queue", eE, eC, 0, device)
+    e_dev = to_device(e_arrays, device)
+    kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q_ok = checker(*e_dev)[0].cpu().numpy()
+    dense_s = time.perf_counter() - t0
+    launches = kernel.launches
+    require(launches > 0, "the queue's dense entry point never launched K2")
+    t0 = time.perf_counter()
+    direct = {}
+    for init in ((), QUEUE_INITIAL):
+        idx = [i for i in range(len(hs))
+               if ms[i] == models.UnorderedQueue(init)]
+        for i, r in zip(idx, wgl.check_batch(models.UnorderedQueue(init),
+                                             [hs[i] for i in idx])):
+            direct[i] = r
+    direct_s = time.perf_counter() - t0
+    require(all(direct[i]["engine"] == "oracle-routed" for i in keep),
+            "check_batch did not route the queue to the direct checker")
+    want = [direct[i]["valid?"] for i in keep]
+    require(q_ok.tolist() == want,
+            "K2 and the direct checker disagree on the queue histories")
+    frontier = wgl.make_check_fn("unordered-queue", eE, eC, 256, eC + 1,
+                                 device)
+    f_ok, _, f_ovf = (x.cpu().numpy() for x in frontier(*e_dev))
+    require(not f_ovf.any(), "the queue's frontier search overflowed")
+    require(f_ok.tolist() == want,
+            "K2 and the frontier search disagree on the queue histories")
+    emit(phase="queue_end_to_end", histories=len(hs), encoded=len(keep),
+         E=int(eE), C=int(eC), invalid=int((~q_ok).sum()),
+         launches=launches, dense_s=dense_s, direct_s=direct_s,
+         direct_histories_per_s=len(hs) / direct_s,
+         agrees_with=["check_batch direct checker", "frontier search F=256"],
+         card=card)
+
+    ms_, all_ms = time_kernel(dense.make_dense_fn("unordered-queue", E, C,
+                                                  0, device),
+                              to_device(arrays, device))
+    # the queue automaton reads no cand_b: 4 bytes per lane
+    bound_ms, bound_by, nbytes = kernel_bound(arrays, failed_at,
+                                              work["int_ops"], lane_bytes=4)
+    emit(phase="queue_times", kernel=kernel.name, rows=int(B), E=int(E),
+         C=int(C), ms=ms_, runs_ms=all_ms, bound_ms=bound_ms,
+         bound_by=bound_by, bytes=nbytes, int_ops=work["int_ops"],
+         plain_ms=plain_s * 1e3, launches=launches, library_ms=None,
+         library="no single PyTorch call computes the queue automaton",
+         card=card)
+    return {
+        "name": kernel.name,
+        "route": "cuda",
+        "source": "jepsen_tpu_torch/ops/csrc/dense_automaton.cu",
+        "replaces": "jepsen_tpu/ops/dense.py:632",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms_,
+        "plain_ms": plain_s * 1e3,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def pick_mesh(device):
+    """A two-shard mesh: two distinct cards when there are, else the one
+    card named twice (the counterpart of the reference's virtual
+    devices)."""
+    if torch.cuda.device_count() >= 2:
+        return mesh_mod.Mesh([torch.device("cuda", 0),
+                              torch.device("cuda", 1)])
+    return mesh_mod.Mesh([device, device])
+
+
+def same_results(a, b) -> bool:
+    return (json.dumps(a, sort_keys=True, default=repr)
+            == json.dumps(b, sort_keys=True, default=repr))
+
+
+def mesh_phase(mesh, card, model, hs, results, f_hs):
+    """Phase 19: check_batch over the mesh on the dense and the frontier
+    (with escalation) paths, and Elle through an Executor on the mesh,
+    each equal to its unsharded run."""
+    emit(phase="mesh", mesh=mesh.describe(),
+         placement=("one card named twice" if mesh.repeated
+                    else "distinct cards"), card=card)
+    stats: dict = {}
+    reset_dense_launches()
+    t0 = time.perf_counter()
+    sharded = wgl.check_batch(model, hs, slot_cap=8, mesh=mesh, stats=stats)
+    seconds = time.perf_counter() - t0
+    require(same_results(sharded, results),
+            "sharded and unsharded check_batch differ on the dense path")
+    require(dense.DENSE_AUTOMATON.launches > 0,
+            "the sharded run never launched the dense kernel")
+    emit(phase="mesh_check_batch", case="cas-register dense",
+         histories=len(hs), seconds=seconds,
+         histories_per_s=len(hs) / seconds,
+         launches=dense.DENSE_AUTOMATON.launches, **stats, card=card)
+
+    sub = f_hs[:256] + f_hs[-8:]
+    wgl.ESCALATIONS.clear()
+    whole = wgl.check_batch(model, sub, frontier=32)
+    whole_rungs = dict(wgl.ESCALATIONS)
+    wgl.ESCALATIONS.clear()
+    wgl.FRONTIER_SEARCH.launches = 0
+    stats = {}
+    t0 = time.perf_counter()
+    sharded = wgl.check_batch(model, sub, frontier=32, mesh=mesh,
+                              stats=stats)
+    seconds = time.perf_counter() - t0
+    rungs = dict(wgl.ESCALATIONS)
+    require(rungs, "no escalation rung ran under the mesh")
+    require(rungs == whole_rungs, f"escalations {rungs} != {whole_rungs}")
+    require(same_results(sharded, whole),
+            "sharded and unsharded check_batch differ on the frontier path")
+    emit(phase="mesh_check_batch", case="cas-register 40 values, F=32",
+         histories=len(sub), seconds=seconds,
+         histories_per_s=len(sub) / seconds,
+         launches=wgl.FRONTIER_SEARCH.launches,
+         escalations={str(k): v for k, v in rungs.items()},
+         batch_stats=wgl.batch_stats(sharded), **stats, card=card)
+
+    la_hs = elle_histories("append", 47100)
+    opts = {"workload": "list-append",
+            "consistency-models": ["strict-serializable"],
+            "screen-route": "device"}
+    whole = elle.check_batch(opts, la_hs)
+    ex = execution.Executor(4, mesh=mesh)
+    cycles.SCREEN.launches = 0
+    t0 = time.perf_counter()
+    sharded = elle.check_batch(opts, la_hs, executor=ex)
+    seconds = time.perf_counter() - t0
+    require(same_results(sharded, whole),
+            "sharded and unsharded elle.check_batch differ")
+    require(cycles.SCREEN.launches >= mesh.size,
+            "the sharded Elle run did not launch the screen per shard")
+    emit(phase="mesh_elle", case="list-append strict-serializable",
+         histories=len(la_hs), seconds=seconds,
+         histories_per_s=len(la_hs) / seconds,
+         launches=cycles.SCREEN.launches, **ex.counters(), card=card)
+
+
+def stats_phase(mesh, device, card, flagship, f_arrays):
+    """Phase 20: K9 against its plain version at 16384 rows, then summed
+    over the shards of sharded_check runs (counts equal to the unsharded
+    ones); times.  ``flagship`` is (arrays, dense checker, its ok);
+    ``f_arrays`` the frontier slice.  Returns K9's kernels entry."""
+    f_np, checker, ok_np = flagship
+    B = ok_np.shape[0]
+    ovf_np = np.random.default_rng(48200).random(B) < 0.05
+    ok_t = torch.from_numpy(ok_np).to(device)
+    ovf_t = torch.from_numpy(ovf_np).to(device)
+    kern = mesh_mod.VERDICT_STATS(ok_t, ovf_t).cpu().numpy()
+    plain = mesh_mod.verdict_stats_reference(ok_t, ovf_t).cpu().numpy()
+    want = [int((ok_np & ~ovf_np).sum()), int((~ok_np & ~ovf_np).sum()),
+            int(ovf_np.sum())]
+    require(kern.tolist() == plain.tolist() == want,
+            f"K9 {kern.tolist()}, plain {plain.tolist()}, numpy {want}")
+    err = int(np.abs(kern - plain).max())
+
+    fB, fE, fC = f_arrays[2].shape
+    f_checker = wgl.make_check_fn("cas-register", fE, fC, 32, fC + 1,
+                                  device)
+    mesh_mod.VERDICT_STATS.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_ok, _, d_ovf = mesh_mod.sharded_check(checker, mesh, *f_np)
+    d_stats = mesh_mod.verdict_stats(d_ok, d_ovf, mesh)
+    s_ok, _, s_ovf = mesh_mod.sharded_check(f_checker, mesh, *f_arrays)
+    s_stats = mesh_mod.verdict_stats(s_ok, s_ovf, mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = mesh_mod.VERDICT_STATS.launches
+    require(launches > 0, "verdict_stats never launched K9")
+    w_ok, _, w_ovf = (x.cpu().numpy() for x in
+                      f_checker(*to_device(f_arrays, device)))
+    for name, st, (o, v) in (
+            ("dense", d_stats, (ok_np, np.zeros(B, bool))),
+            ("frontier F=32", s_stats, (w_ok, w_ovf))):
+        got = [int(st[k]) for k in ("valid", "invalid", "unknown")]
+        ref = [int((o & ~v).sum()), int((~o & ~v).sum()), int(v.sum())]
+        require(got == ref, f"{name}: sharded stats {got} != {ref}")
+        emit(phase="verdict_stats", case=name, shards=mesh.size,
+             rows=int(len(o)), counts=dict(zip(("valid", "invalid",
+                                                 "unknown"), got)),
+             equal_to_unsharded=True, card=card)
+    require(int(s_stats["unknown"]) > 0, "no frontier row overflowed at F=32")
+
+    ms, all_ms = time_kernel(mesh_mod.VERDICT_STATS, (ok_t, ovf_t))
+    plain_ms, _ = time_kernel(mesh_mod.verdict_stats_reference,
+                              (ok_t, ovf_t))
+    library_ms, _ = time_kernel(
+        lambda o, v: (torch.count_nonzero(o & ~v),
+                      torch.count_nonzero(~o & ~v), torch.count_nonzero(v)),
+        (ok_t, ovf_t))
+    nbytes = 2 * B + 24
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    emit(phase="verdict_stats_times", kernel=mesh_mod.VERDICT_STATS.name,
+         rows=int(B), ms=ms, runs_ms=all_ms, bound_ms=bound_ms,
+         bound_by="bytes", bytes=nbytes, plain_ms=plain_ms,
+         library_ms=library_ms,
+         library="three torch.count_nonzero calls", launches=launches,
+         sharded_seconds=seconds, card=card)
+    return {
+        "name": mesh_mod.VERDICT_STATS.name,
+        "route": "cuda",
+        "source": "jepsen_tpu_torch/ops/csrc/verdict_stats.cu",
+        "replaces": "jepsen_tpu/parallel/mesh.py:221",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -1227,6 +1628,17 @@ def main() -> int:
     # -- 15-17. the Elle screens -------------------------------------------
     elle_entries = elle_phases(device, card)
 
+    # -- 18. the unordered-queue automaton ----------------------------------
+    queue_entry = queue_phase(device, card)
+
+    # -- 19. sharded dispatch over a two-shard mesh --------------------------
+    mesh = pick_mesh(device)
+    mesh_phase(mesh, card, model, hs, results, f_hs)
+
+    # -- 20. verdict statistics over the shards ------------------------------
+    stats_entry = stats_phase(mesh, device, card,
+                              (arrays_np, checker, ok), f_arrays)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "dense_automaton",
@@ -1252,7 +1664,7 @@ def main() -> int:
         "bound_ms": f_bound_ms,
         "bound_by": f_bound_by,
         "library_ms": None,
-    }] + elle_entries}), flush=True)
+    }] + elle_entries + [queue_entry, stats_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -44,20 +44,27 @@ def check(opts: Optional[dict], history: History, device=None) -> dict:
     return _workload_module(opts).check(history, opts, device)
 
 
-def check_batch(opts: Optional[dict], histories, device=None) -> list:
+def check_batch(opts: Optional[dict], histories, device=None,
+                executor=None) -> list:
     """Batched Elle analysis: all histories' dependency graphs are built
     first, then screened together through
     :func:`jepsen_tpu_torch.elle.cycles.classify_graphs` — graphs from
     many histories stack into shared ``(B, n, n)`` dispatches through
-    the engine Executor on ``device``, and only graphs (and ladder rungs)
-    the screens proved cyclic pay the CPU Tarjan + witness search.
-    ``opts["screen-route"]`` forces ``"device"``/``"cpu"`` routing
-    (default: self-calibrating auto).  Per-history results are
+    the engine Executor (``executor``, sharded over its mesh when it has
+    one, else a local one on ``device``), and only graphs (and ladder
+    rungs) the screens proved cyclic pay the CPU Tarjan + witness
+    search.  ``opts["screen-route"]`` forces ``"device"``/``"cpu"``
+    routing (default: self-calibrating auto).  rw-register's per-key
+    version-graph screen runs in ``prepare`` on ``device`` (the
+    executor's device when one is given).  Per-history results are
     byte-identical to :func:`check` and to the reference's."""
     opts = opts or {}
     mod = _workload_module(opts)
+    if executor is not None:
+        device = executor.device
     preps = [mod.prepare(h, opts, device) for h in histories]
     cyc = cycles.classify_graphs(
-        [p[0] for p in preps], route=opts.get("screen-route"), device=device
+        [p[0] for p in preps], route=opts.get("screen-route"),
+        executor=executor, device=device,
     )
     return [mod.finish(p, c) for p, c in zip(preps, cyc)]

@@ -1,13 +1,15 @@
 """The device-owning **execution** half of the checker engine — the port
-of :mod:`jepsen_tpu.engine.execution` for one CUDA device (or the CPU).
+of :mod:`jepsen_tpu.engine.execution` for one CUDA device, a mesh of
+them (:mod:`jepsen_tpu_torch.parallel.mesh`), or the CPU.
 
 JAX dispatches asynchronously and syncs when a result is read; here a
-chunk dispatch is: inputs copied from pinned host memory onto the
-device with ``non_blocking=True``, the kernel launched on the current
+chunk dispatch is, per shard of the chunk's rows (one shard without a
+mesh): inputs copied from pinned host memory onto the shard's device
+with ``non_blocking=True``, the kernel launched on that device's current
 CUDA stream, outputs copied back into pinned host tensors with
 ``non_blocking=True``, and a :class:`torch.cuda.Event` recorded after
 them.  :class:`DispatchWindow` keeps at most ``window`` such chunks in
-flight and retires the oldest by synchronising its event.  On the CPU a
+flight and retires the oldest by synchronising its events.  On the CPU a
 dispatch runs the plain PyTorch version synchronously.
 
 Both classes are **owner-thread confined**: ``submit``/``drain`` must
@@ -44,6 +46,24 @@ def row_bucket_target(n: int) -> int:
     return target
 
 
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def shard_row_target(n: int, n_shards: int) -> int:
+    """Row count → its stable dispatch shape on an ``n_shards``-device
+    mesh: the per-shard row count rounds up to a power of two, floored so
+    that the whole chunk never drops below :data:`ROW_BUCKET` rows (a
+    tiny batch pays the same neutral rows spread over the mesh, not
+    :data:`ROW_BUCKET` per device).  ``n_shards = 1`` is
+    :func:`row_bucket_target`; the result is a multiple of ``n_shards``."""
+    if n_shards <= 1:
+        return row_bucket_target(n)
+    per_floor = _pow2_at_least(max(1, -(-ROW_BUCKET // n_shards)))
+    per = max(per_floor, _pow2_at_least(max(1, -(-n // n_shards))))
+    return n_shards * per
+
+
 def _pad_rows(a: np.ndarray, n: int, fill) -> np.ndarray:
     """Pad axis 0 of ``a`` up to ``n`` rows with ``fill``."""
     if a.shape[0] >= n:
@@ -53,14 +73,16 @@ def _pad_rows(a: np.ndarray, n: int, fill) -> np.ndarray:
 
 
 class InFlight:
-    """One dispatched chunk on the card: its outputs' pinned host copies,
-    the event recorded after them, and every tensor the async copies and
-    the launch still use (kept alive until the event has passed)."""
+    """One dispatched chunk on the card: per shard, its outputs' pinned
+    host copies and the event recorded after them, and the device outputs
+    the copies read (kept alive until the events have passed; the pinned
+    inputs are held by PyTorch's host allocator until their copies are
+    done).  It retires when every shard's event has fired."""
 
-    __slots__ = ("event", "outputs", "keepalive")
+    __slots__ = ("events", "outputs", "keepalive")
 
-    def __init__(self, event, outputs, keepalive):
-        self.event = event
+    def __init__(self, events, outputs, keepalive):
+        self.events = events
         self.outputs = outputs
         self.keepalive = keepalive
 
@@ -68,9 +90,34 @@ class InFlight:
 def _materialize(out):
     """Wait for a chunk and return its outputs as numpy (the sync point)."""
     if isinstance(out, InFlight):
-        out.event.synchronize()
-        return tuple(t.numpy() for t in out.outputs)
+        for event in out.events:
+            event.synchronize()
+        return tuple(np.concatenate([shard[i].numpy() for shard in out.outputs])
+                     for i in range(len(out.outputs[0])))
     return tuple(np.asarray(x) for x in out)
+
+
+def _collect(outs):
+    """Output-major per-shard device outputs → host outputs (every shard on
+    the CPU) or an :class:`InFlight` (per shard: pinned host copies on the
+    shard's device's current stream, then an event)."""
+    n_shards = len(outs[0])
+    if all(s.device.type == "cpu" for o in outs for s in o):
+        return tuple(np.concatenate([s.numpy() for s in o]) for o in outs)
+    events, host = [], []
+    for d in range(n_shards):
+        shard = [o[d] for o in outs]
+        dev = shard[0].device
+        with torch.cuda.device(dev):
+            out_host = tuple(torch.empty(o.shape, dtype=o.dtype,
+                                         pin_memory=True) for o in shard)
+            for h, o in zip(out_host, shard):
+                h.copy_(o, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+        events.append(event)
+        host.append(out_host)
+    return InFlight(events, host, outs)
 
 
 class DispatchWindow:
@@ -129,7 +176,8 @@ class DispatchWindow:
 
 
 class Executor:
-    """Device-owning execution of planned buckets on one device.
+    """Device-owning execution of planned buckets on one device, or on
+    every device of a :class:`~jepsen_tpu_torch.parallel.mesh.Mesh`.
 
     ``submit(planned_bucket)`` splits the bucket into chunks of at most
     the plan's dispatch cap — every chunk padded with neutral rows to one
@@ -149,7 +197,12 @@ class Executor:
     A frontier chunk gets 1/window of the plan's row cap, so the chunks
     in flight together hold at most one cap's worth of device memory;
     when the cap is below the window, the bucket dispatches serially at
-    the full cap.  Dense chunks keep the full cap.  A chunk with
+    the full cap.  Dense chunks keep the full cap.  Every cap is per
+    device: on a mesh of n devices a chunk holds n × the cap and splits
+    into n equal shards (:func:`shard_row_target`), padded with neutral
+    rows, one CUDA event per shard.  The padding and live rows each
+    device was handed are kept in :attr:`shard_pad_rows`,
+    :attr:`dev_rows_live` and :attr:`dev_rows_total`.  A chunk with
     overflowed rows is parked and escalates at :meth:`drain`, with the
     window empty.  A bucket with no device checker (routed to the
     oracle) or whose cap is 0 (not even one row fits) settles inline:
@@ -158,12 +211,21 @@ class Executor:
     """
 
     def __init__(self, window: Optional[int] = None, *,
-                 device: torch.device, escalation=None,
-                 sufficient_rung: bool = True,
+                 device: Optional[torch.device] = None, mesh=None,
+                 escalation=None, sufficient_rung: bool = True,
                  max_dispatch: Optional[int] = None):
         from ..ops import wgl
+        from ..parallel import mesh as mesh_mod
 
+        if device is None and mesh is None:
+            raise ValueError("an Executor needs a device or a mesh")
+        device, mesh = mesh_mod.run_placement(device, mesh)
         self.device = device
+        #: the mesh chunks shard over (None: the one device)
+        self.mesh = mesh
+        #: what a chunk dispatches over: the mesh, or a mesh of the device
+        self._placement = mesh if mesh is not None else \
+            mesh_mod.Mesh((device,))
         self.escalation = (wgl.ESCALATION_FACTORS if escalation is None
                            else escalation)
         self.sufficient_rung = sufficient_rung
@@ -177,6 +239,25 @@ class Executor:
         #: an escalation rerun holds a larger frontier, and running it on top
         #: of in-flight base chunks would exceed the memory the caps allow
         self._pending_escalations: List[tuple] = []
+        #: neutral padding rows dispatched so far, to row buckets and to
+        #: equal shards (plain counters, callers reset them)
+        self.shard_pad_rows = 0
+        #: per device of the placement: live rows and all rows handed to it
+        self.dev_rows_live: List[int] = [0] * self.n_devices
+        self.dev_rows_total: List[int] = [0] * self.n_devices
+
+    @property
+    def n_devices(self) -> int:
+        """Shards each dispatch splits into (1 = no mesh)."""
+        return self._placement.size
+
+    def counters(self) -> dict:
+        """The dispatch counters as plain values: the placement's devices,
+        padding rows, and live and total rows per device."""
+        return {"devices": [str(d) for d in self._placement.devices],
+                "shard_pad_rows": self.shard_pad_rows,
+                "dev_rows_live": list(self.dev_rows_live),
+                "dev_rows_total": list(self.dev_rows_total)}
 
     # -- settle path (runs inside window retirement, owner thread) -------
 
@@ -201,7 +282,7 @@ class Executor:
 
         wgl.escalate_overflows(
             plan, arrays, ok, failed_at, overflow, device=self.device,
-            escalation=self.escalation,
+            mesh=self.mesh, escalation=self.escalation,
             sufficient_rung=self.sufficient_rung,
             max_dispatch=self.max_dispatch,
         )
@@ -232,33 +313,33 @@ class Executor:
 
     # -- dispatch path ----------------------------------------------------
 
-    def _launch(self, fn, arrays):
-        """Run ``fn`` on one padded chunk; returns host outputs (CPU) or
-        an :class:`InFlight` (CUDA, nothing synchronised)."""
-        host = tuple(torch.from_numpy(np.ascontiguousarray(a))
-                     for a in arrays)
-        if self.device.type == "cpu":
-            return tuple(t.numpy() for t in fn(*host))
-        with torch.cuda.device(self.device):
-            host = tuple(t.pin_memory() for t in host)
-            dev = tuple(t.to(self.device, non_blocking=True) for t in host)
-            outs = fn(*dev)
-            out_host = tuple(
-                torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-                for o in outs
-            )
-            for h, o in zip(out_host, outs):
-                h.copy_(o, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-        return InFlight(event, out_host, (host, dev, outs))
+    def _launch(self, plan, arrays):
+        """Run ``plan`` on one padded chunk, sharded over the placement:
+        the plan's own ``run_rows`` (the Elle screens), else the history
+        checker through :func:`~jepsen_tpu_torch.parallel.mesh.
+        sharded_check`.  Returns host outputs (CPU) or an
+        :class:`InFlight` (CUDA, nothing synchronised)."""
+        from ..parallel import mesh as mesh_mod
+
+        run_rows = getattr(plan, "run_rows", None)
+        if run_rows is not None:
+            outs = run_rows(self._placement, arrays)
+        else:
+            outs = mesh_mod.sharded_check(plan.fn, self._placement, *arrays)
+        return _collect(outs)
 
     def _dispatch(self, plan, chunk, rows) -> None:
         chunk_id = self._next_chunk
         self._next_chunk += 1
-        self._chunks[chunk_id] = (plan, chunk, rows, len(rows))
+        n_live, n_rows = len(rows), chunk[0].shape[0]
+        self._chunks[chunk_id] = (plan, chunk, rows, n_live)
+        self.shard_pad_rows += n_rows - n_live
+        shard = n_rows // self.n_devices
+        for d in range(self.n_devices):
+            self.dev_rows_total[d] += shard
+            self.dev_rows_live[d] += min(max(n_live - d * shard, 0), shard)
         self._win.submit(
-            chunk_id, lambda fn=plan.fn, c=chunk: self._launch(fn, c)
+            chunk_id, lambda p=plan, c=chunk: self._launch(p, c)
         )
 
     def submit(self, pb) -> None:
@@ -280,17 +361,20 @@ class Executor:
             self._settle_rows(plan, arrays, rows, np.zeros((B,), bool),
                               np.zeros((B,), np.int32), np.ones((B,), bool))
             return
-        cap = plan.disp
+        per_device = plan.disp
         serialize = False
         if plan.kernel != "dense" and self._win.window > 1:
-            if cap >= self._win.window:
-                cap //= self._win.window
+            if per_device >= self._win.window:
+                per_device //= self._win.window
             else:
                 serialize = True
+        # every cap is per device: a chunk shards evenly over the mesh
+        cap = per_device * self.n_devices
         # one stable shape per bucket: a short bucket pads to its power-of
-        # -two row bucket, a long one to full cap-row chunks (the tail
-        # too), so a bucket never launches at a per-tail-size shape
-        target = min(cap, row_bucket_target(B))
+        # -two row bucket (per shard), a long one to full cap-row chunks
+        # (the tail too), so a bucket never launches at a per-tail-size
+        # shape, and every chunk splits into equal shards
+        target = min(cap, shard_row_target(B, self.n_devices))
         pad_fills = getattr(plan, "pad_fills", wgl._PAD_FILLS)
         for lo in range(0, B, cap):
             hi = min(lo + cap, B)

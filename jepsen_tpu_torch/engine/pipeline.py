@@ -20,12 +20,17 @@
   declares a partition split into per-partition sub-histories
   (:mod:`.decompose`); the sub-histories flow through their own planner
   into the same executor, and their verdicts AND back at the end.
+- **Mesh.**  A run given a :class:`~jepsen_tpu_torch.parallel.mesh.Mesh`
+  shards every chunk over its devices; a run given neither a mesh nor a
+  device adopts :func:`~jepsen_tpu_torch.parallel.mesh.
+  engine_default_mesh` (every CUDA device when there are two or more).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+from ..parallel import mesh as mesh_mod
 from .decompose import DecomposedRun
 from .execution import Executor
 from .planning import Planner, estimated_cost
@@ -46,13 +51,21 @@ def run(
     window: Optional[int] = None,
     bucketed: bool = True,
     decomposed: bool = True,
+    mesh=None,
+    stats: Optional[dict] = None,
 ) -> List[dict]:
     """Check ``histories`` through the full pipeline on ``device`` (a
-    resolved :class:`torch.device`); per-history result dicts in input
-    order.  This is ``check_batch``'s engine — call that, not this."""
+    device, or None for the default CUDA device) or over ``mesh``;
+    per-history result dicts in input order.  With neither, the mesh is
+    :func:`~jepsen_tpu_torch.parallel.mesh.engine_default_mesh`'s.
+    ``stats``, when given, gains the run's dispatch
+    counters (:meth:`Executor.counters`).  This is ``check_batch``'s
+    engine — call that, not this."""
+    device, mesh = mesh_mod.run_placement(device, mesh)
+    n_devices = 1 if mesh is None else mesh.size
     dec = DecomposedRun(model, histories, oracle_fallback=oracle_fallback,
                         enabled=decomposed)
-    ex = Executor(window, device=device, escalation=escalation,
+    ex = Executor(window, device=device, mesh=mesh, escalation=escalation,
                   sufficient_rung=sufficient_rung, max_dispatch=max_dispatch)
     streams = {}  # id(ctx) -> the BucketStream of that context's planner
     for ctx, idx in dec.feed():
@@ -62,6 +75,7 @@ def run(
                 ctx.model, slot_cap=slot_cap, device=device,
                 max_dispatch=max_dispatch, frontier=frontier,
                 max_closure=max_closure, bucketed=bucketed,
+                n_devices=n_devices,
             ).open_stream()
         for pb in stream.feed(ctx, idx):
             ex.submit(pb)
@@ -72,4 +86,6 @@ def run(
         ex.submit(pb)
     ex.drain()
     dec.drain_oracles()
+    if stats is not None:
+        stats.update(ex.counters())
     return dec.results()

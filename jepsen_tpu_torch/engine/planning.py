@@ -16,9 +16,9 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-#: rows a shape bucket accumulates before flushing mid-stream (the
-#: default dispatch cap: ordinary batches flush once per bucket, larger
-#: keyspaces stream — encode of flush k+1 overlaps device work of k)
+#: rows a shape bucket accumulates before flushing mid-stream, per device
+#: (the default dispatch cap: ordinary batches flush once per bucket,
+#: larger keyspaces stream — encode of flush k+1 overlaps device work of k)
 DEFAULT_FLUSH_ROWS = 16384
 
 #: sentinel distinct from every bucket key (``None`` is the legitimate
@@ -122,7 +122,10 @@ class PlannedBucket:
 
 class Planner:
     """Pure per-run planning: stream host encode into per-(E, C) shape
-    buckets and plan each flush's kernel route on ``device``."""
+    buckets and plan each flush's kernel route on ``device``.  The flush
+    threshold is a per-device feed rate: on an ``n_devices`` mesh a flush
+    fans out over every device, so it waits for ``n_devices`` ×
+    :data:`DEFAULT_FLUSH_ROWS` rows."""
 
     def __init__(
         self,
@@ -134,6 +137,7 @@ class Planner:
         frontier: int,
         max_closure: Optional[int] = None,
         bucketed: bool = True,
+        n_devices: int = 1,
     ):
         from ..ops.step_kernels import spec_for
 
@@ -145,6 +149,7 @@ class Planner:
         self.frontier = frontier
         self.max_closure = max_closure
         self.bucketed = bucketed
+        self.flush_rows = max(1, n_devices) * DEFAULT_FLUSH_ROWS
 
     def encode_one(self, ctx: RunContext, idx: int):
         """Encode one history of ``ctx`` against its own model
@@ -238,7 +243,7 @@ class BucketStream:
         if key is _ROUTED_ORACLE:
             return
         acc = self.buckets[key]
-        if p.bucketed and len(acc[0]) >= DEFAULT_FLUSH_ROWS:
+        if p.bucketed and len(acc[0]) >= p.flush_rows:
             pb = p.plan_rows(key, *acc)
             self.buckets[key] = ([], [])
             if pb is not None:

@@ -31,6 +31,7 @@ SOURCES: Dict[str, Path] = {
     "dense_automaton": CSRC / "dense_automaton.cu",
     "frontier_search": CSRC / "frontier_search.cu",
     "cycles_closure": CSRC / "cycles_closure.cu",
+    "verdict_stats": CSRC / "verdict_stats.cu",
 }
 
 #: sm_90a keeps Hopper-only instructions (wgmma, setmaxnreg) available;

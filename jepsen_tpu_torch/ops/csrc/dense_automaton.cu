@@ -1,8 +1,9 @@
-// Dense subset automaton for linearizability, by hand for Hopper (sm_90a).
+// Dense subset automata for linearizability, by hand for Hopper (sm_90a).
 //
 // Replaces jepsen_tpu/ops/dense.py:build_dense, the jitted vmap-of-scan that
 // the JAX package runs on the TPU, in all four of its transition families
-// (one template instantiation each):
+// (one template instantiation each), and, in a kernel of its own at the end
+// of this file, dense.py:build_dense_queue (the unordered queue, K2):
 //   kFamilyRegister  register / cas-register / read-any, mutex acquire and
 //                    release as cas(0 -> 1) / cas(1 -> 0), owner-mutex ops
 //                    as the cas codes its encoder emits      (dense.py:534-546)
@@ -68,8 +69,12 @@ constexpr int F_CAS = 2;
 constexpr int F_READ_ANY = 3;
 constexpr int F_ACQUIRE = 4;
 constexpr int F_RELEASE = 5;
+constexpr int F_ENQUEUE = 6;
+constexpr int F_DEQUEUE = 7;
 constexpr int F_RACQUIRE = 8;
 constexpr int F_PACQUIRE = 10;
+
+constexpr int kMaxW = 1 << (kMaxC - 5);  // packed subset words at C = 12
 
 // per-launch constants of the transition families
 struct Params {
@@ -388,6 +393,188 @@ int launch_family(const void* init_state, const void* ev_slot,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The unordered-queue automaton (K2), replacing dense.py:build_dense_queue.
+//
+// Unique-value enqueues and dequeues commute, so a config's contents are a
+// function of its linset: D is one packed bitset over the 2^C subsets (the
+// register kernel with its value axis removed), W <= 128 words, plus two
+// value bitsets carried across events for the promoted prefix: enq_c (bit
+// v-1: value v enqueued by a completed op, or in the initial contents, from
+// init_state) and deq_c (dequeued by a completed op).  A slot's move is
+// legal from a source subset depending on which OTHER slots the subset
+// holds, so per event each slot j gets a mask valid[j][k] over the source
+// words k instead of a transition:
+//   enqueue:  every subset;
+//   dequeue of v: none if v was dequeued by the prefix (deq_c); else the
+//     subsets where v is present -- all if its enqueue completed (enq_c),
+//     else those holding the slot of an open enqueue of v -- minus those
+//     holding the slot of another open dequeue of v.
+// Slots are matched by their (summed) value ids, as the reference matches
+// them.  The closure ORs (D[k'] & valid[j][k']) into D[k' | bit j] by
+// Jacobi passes capped at C + 2, and completion drops the completing slot's
+// bit, exactly as in the register kernel; then the completing op's value
+// bit joins enq_c or deq_c.  A value id outside 1..32 has no bit (the
+// reference's out-of-range shift gives 0).
+//
+// What bounds it on this card: the same serial chain of block barriers per
+// event as the register family, over fewer words (no state axis): one block
+// per history, at most 128 threads, the masks ([C][W], 6 KB at C = 12) and
+// both D buffers in static shared memory.  Padding events are skipped and a
+// block stops at its first failed event, both exact as above.
+
+__device__ __forceinline__ uint32_t subset_has(int m, int k) {
+  // the packed bits of word k whose subset holds slot m
+  if (m < 5) return ~lo_mask(m);
+  return ((k >> (m - 5)) & 1) ? 0xFFFFFFFFu : 0u;
+}
+
+__global__ void dense_queue_kernel(
+    const int32_t* __restrict__ init_state, const int32_t* __restrict__ ev_slot,
+    const int8_t* __restrict__ cand_slot, const int8_t* __restrict__ cand_f,
+    const int16_t* __restrict__ cand_a, uint8_t* __restrict__ ok,
+    int32_t* __restrict__ failed_at, uint8_t* __restrict__ overflow, int E,
+    int C) {
+  __shared__ uint32_t buf[2][kMaxW];
+  __shared__ uint32_t valid[kMaxC * kMaxW];
+  __shared__ int32_t lane[3 * kMaxC];
+  __shared__ int32_t slot_kind[kMaxC];  // 0 inactive or other, 1 enq, 2 deq
+  __shared__ int32_t slot_a[kMaxC];
+  __shared__ uint32_t slot_vbit[kMaxC];
+
+  const int row = blockIdx.x;
+  const int t = threadIdx.x;
+  const int nt = blockDim.x;
+  const int log_w = C > 5 ? C - 5 : 0;
+  const int W = 1 << log_w;
+  const int64_t ev_base = static_cast<int64_t>(row) * E;
+  uint32_t* cur = buf[0];
+  uint32_t* nxt = buf[1];
+
+  // every thread carries its own copy of the prefix bitsets: all of them
+  // update them from the same shared values
+  uint32_t enq_c = static_cast<uint32_t>(init_state[row]);
+  uint32_t deq_c = 0u;
+  for (int w = t; w < W; w += nt) cur[w] = w == 0 ? 1u : 0u;  // empty linset
+  __syncthreads();
+
+  bool done = false;
+  int failed = -1;
+  for (int e = 0; e < E; ++e) {
+    const int es = ev_slot[ev_base + e];  // block-uniform
+    if (es < 0) continue;                 // padding: D and the prefix kept
+
+    const int64_t lane_base = (ev_base + e) * C;
+    if (t < C) {
+      lane[t] = cand_slot[lane_base + t];
+      lane[C + t] = cand_f[lane_base + t];
+      lane[2 * C + t] = cand_a[lane_base + t];
+    }
+    __syncthreads();
+
+    // regroup the lanes by slot (summed, as the reference sums them)
+    if (t < C) {
+      bool active = false;
+      int f = 0, a = 0;
+      for (int l = 0; l < C; ++l) {
+        if (lane[l] == t) {
+          active = true;
+          f += lane[C + l];
+          a += lane[2 * C + l];
+        }
+      }
+      const uint32_t shift = static_cast<uint32_t>(a - 1);
+      slot_kind[t] = !active ? 0 : (f == F_ENQUEUE ? 1 : (f == F_DEQUEUE ? 2 : 0));
+      slot_a[t] = a;
+      slot_vbit[t] = active && shift < 32u ? 1u << shift : 0u;
+    }
+    __syncthreads();
+
+    // each slot's mask of legal source words
+    for (int i = t; i < C * W; i += nt) {
+      const int j = i >> log_w;
+      const int k = i & (W - 1);
+      const int kind = slot_kind[j];
+      uint32_t m = 0u;
+      if (kind == 1) {
+        m = 0xFFFFFFFFu;
+      } else if (kind == 2 && !(deq_c & slot_vbit[j])) {
+        const int a = slot_a[j];
+        uint32_t present = (enq_c & slot_vbit[j]) ? 0xFFFFFFFFu : 0u;
+        uint32_t forbid = 0u;
+        for (int o = 0; o < C; ++o) {
+          if (slot_a[o] != a) continue;
+          if (slot_kind[o] == 1) present |= subset_has(o, k);
+          if (slot_kind[o] == 2 && o != j) forbid |= subset_has(o, k);
+        }
+        m = present & ~forbid;
+      }
+      valid[i] = m;
+    }
+    __syncthreads();
+
+    // closure to fixpoint, Jacobi passes capped at C + 2
+    for (int pass = 0; pass < C + 2; ++pass) {
+      int changed = 0;
+      for (int k = t; k < W; k += nt) {
+        uint32_t add = 0u;
+        for (int j = 0; j < C; ++j) {
+          if (j < 5) {
+            add |= ((cur[k] & valid[j * W + k]) & lo_mask(j)) << (1 << j);
+          } else {
+            const int wb = 1 << (j - 5);
+            if (k & wb) add |= cur[k ^ wb] & valid[j * W + (k ^ wb)];
+          }
+        }
+        const uint32_t d = cur[k];
+        const uint32_t dn = d | add;
+        nxt[k] = dn;
+        changed |= dn != d;
+      }
+      const int any = __syncthreads_or(changed);
+      uint32_t* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+      if (!any) break;
+    }
+
+    // completion of slot es: keep configs that linearized it, drop its bit
+    int nonzero = 0;
+    for (int k = t; k < W; k += nt) {
+      uint32_t df = 0u;
+      if (es < C) {
+        if (es < 5) {
+          df = (cur[k] >> (1 << es)) & lo_mask(es);
+        } else {
+          const int wb = 1 << (es - 5);
+          df = (k & wb) ? 0u : cur[k | wb];
+        }
+      }
+      nxt[k] = df;
+      nonzero |= df != 0u;
+    }
+    const int any = __syncthreads_or(nonzero);
+    if (!any) {
+      done = true;
+      failed = e;
+      break;
+    }
+    if (es < C) {  // the completing op joins the prefix
+      if (slot_kind[es] == 1) enq_c |= slot_vbit[es];
+      if (slot_kind[es] == 2) deq_c |= slot_vbit[es];
+    }
+    uint32_t* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+
+  if (t == 0) {
+    ok[row] = done ? 0 : 1;
+    failed_at[row] = failed;
+    overflow[row] = 0;
+  }
+}
+
 }  // namespace
 
 // Launch over B histories on `stream`; returns the CUDA error of the
@@ -452,4 +639,30 @@ extern "C" int dense_automaton_launch(
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Launch the unordered-queue automaton over B histories on `stream`; returns
+// the CUDA error of the launch (0 on success).  Shapes as
+// dense_automaton_launch takes them; init_state is the initial contents as a
+// value bitset, cand_b is not read, 1 <= C <= 12.
+extern "C" int dense_queue_launch(const void* init_state, const void* ev_slot,
+                                  const void* cand_slot, const void* cand_f,
+                                  const void* cand_a, const void* cand_b,
+                                  void* ok, void* failed_at, void* overflow,
+                                  int B, int E, int C, void* stream) {
+  (void)cand_b;
+  if (B == 0) return 0;
+  if (B < 0 || E < 0 || C < 1 || C > kMaxC) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int W = C > 5 ? 1 << (C - 5) : 1;
+  const int threads = ((W + 31) / 32) * 32;
+  dense_queue_kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(init_state),
+      static_cast<const int32_t*>(ev_slot),
+      static_cast<const int8_t*>(cand_slot),
+      static_cast<const int8_t*>(cand_f), static_cast<const int16_t*>(cand_a),
+      static_cast<uint8_t*>(ok), static_cast<int32_t*>(failed_at),
+      static_cast<uint8_t*>(overflow), E, C);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -498,6 +498,13 @@ class CyclePlan:
         self.rounds_full = closure_rounds(n)
         self.disp = cycles_max_dispatch(n, 1, 0, max_dispatch)
 
+    def run_rows(self, mesh, arrays):
+        """One padded chunk sharded over ``mesh`` (per-shard flags and
+        rounds, nothing synchronised)."""
+        from ..parallel import mesh as mesh_mod
+
+        return mesh_mod.sharded_elle(self.fn, mesh, arrays[0], 2)
+
     def settle_rows(self, rows, mat, n_live: int) -> None:
         flags = np.asarray(mat[0])[:n_live]
         for row, (sink, idx) in enumerate(rows):
@@ -533,6 +540,13 @@ class ScreenPlan:
         self.disp = cycles_max_dispatch(n, len(self.masks), len(self.nonadj),
                                         max_dispatch)
 
+    def run_rows(self, mesh, arrays):
+        """One padded chunk sharded over ``mesh`` (per-shard members,
+        walks and rounds, nothing synchronised)."""
+        from ..parallel import mesh as mesh_mod
+
+        return mesh_mod.sharded_elle(self.fn, mesh, arrays[0], 3)
+
     def settle_rows(self, rows, mat, n_live: int) -> None:
         members = np.asarray(mat[0])[:n_live]
         walks = np.asarray(mat[1])[:n_live]
@@ -544,7 +558,8 @@ class ScreenPlan:
 
 
 def _submit_elle_buckets(planned, window, executor, device) -> None:
-    """Dispatch planned buckets through the engine, largest estimated cost
+    """Dispatch planned buckets through the engine (``executor``, sharded
+    when it has a mesh, else one on ``device``), largest estimated cost
     first, then drain (every settle has run when this returns)."""
     from .. import device as device_mod
     from ..engine import execution, planning

@@ -1,7 +1,8 @@
 """Dense subset-automaton linearizability checker — the port of
 :mod:`jepsen_tpu.ops.dense` (``build_dense``: the register, cas-register,
 mutex and owner-mutex transitions, and the reentrant-mutex,
-acquired-permits and multi-register branches).
+acquired-permits and multi-register branches; ``build_dense_queue``: the
+unordered queue).
 
 For models whose state enumerates to a small integer domain there is a
 representation with no frontier to overflow:
@@ -33,6 +34,18 @@ for j ≥ 5 — until fixpoint (≤ C + 2 passes); completion of slot e applies
 ``k → k \\ bit_e``.  An empty D at a completion fails the history at that
 event.
 
+The unordered queue (K2) has no value axis: unique-value enqueues and
+dequeues commute, so a config's contents are a function of its linset and
+D is one packed bitset over the subsets, plus two 32-bit value bitsets
+carried across events for the promoted prefix (``enqC``: enqueued by a
+completed op or initially, ``deqC``: dequeued by a completed op).  A
+slot's legal source subsets depend on the other slots in the subset, so
+it gets a per-word mask instead of a transition: an enqueue is legal
+everywhere; a dequeue of v where v's enqueue completed or its open
+enqueue's slot bit is set, and nowhere another open dequeue of v is in
+the subset or v was dequeued by the prefix.  Closure and completion are
+the register kernel's, over those masks (:func:`dense_queue_reference`).
+
 Three forms of the one function live here:
 
 - :func:`dense_check_reference`, the plain PyTorch version: batch-wide,
@@ -40,10 +53,10 @@ Three forms of the one function live here:
   carry the 32-bit words (``uint32`` has no shifts or comparisons in
   PyTorch on the CPU, and ``int32 >>`` is arithmetic).  The CPU tests
   hold it byte for byte against the JAX kernel.
-- :data:`DENSE_KERNELS`, the wrappers of the hand-written CUDA kernel
-  ``csrc/dense_automaton.cu`` (one thread block per history, D in shared
-  memory, templated on the transition family), one per family, each with
-  its launch counter.
+- :data:`DENSE_KERNELS`, the wrappers of the hand-written CUDA kernels
+  in ``csrc/dense_automaton.cu`` (one thread block per history, D in
+  shared memory, templated on the transition family, and the queue
+  automaton beside them), one per family, each with its launch counter.
 - :class:`DenseChecker`, the module the engine calls: the kernel for CUDA
   tensors, the plain version for CPU tensors, nothing else.
 """
@@ -60,8 +73,8 @@ from torch import nn
 
 from . import _build
 from .step_kernels import (
-    F_ACQUIRE, F_CAS, F_PACQUIRE, F_RACQUIRE, F_READ_ANY, F_RELEASE,
-    F_WRITE, MR_REGISTERS, MR_VALUE_BITS)
+    F_ACQUIRE, F_CAS, F_DEQUEUE, F_ENQUEUE, F_PACQUIRE, F_RACQUIRE,
+    F_READ_ANY, F_RELEASE, F_WRITE, MR_REGISTERS, MR_VALUE_BITS)
 
 #: specs whose state is exactly "current value id" (mutex: 0 = free,
 #: 1 = held; owner-mutex: 0 = free, else the holder's client id, its ops
@@ -88,6 +101,9 @@ FAMILY_IDS = {
     "multi-register": 3,
 }
 
+#: the unordered queue's automaton (K2): no value axis, its own kernel
+QUEUE = "unordered-queue"
+
 #: word mask of the 32-bit lanes the int64 words carry
 _U32 = 0xFFFFFFFF
 
@@ -96,8 +112,11 @@ Shape = Union[int, Tuple[int, int]]
 
 def family(spec_name: str) -> str:
     """The transition family a dense spec runs: its own for reentrant
-    mutex, permits and multi-register, ``"register"`` for the rest."""
-    return spec_name if spec_name in FAMILY_IDS else "register"
+    mutex, permits, multi-register and the unordered queue,
+    ``"register"`` for the rest."""
+    if spec_name in FAMILY_IDS or spec_name == QUEUE:
+        return spec_name
+    return "register"
 
 
 def mr_shape_probe(init_state, cand_a, cand_b) -> tuple:
@@ -172,9 +191,9 @@ def applicable(spec_name: str, C: int, V) -> bool:
     """``V`` is the value-domain size for the register family (rounded up
     to 4), or a pair: ``(Vr, K)`` (per-register domain, register count)
     for multi-register, ``(N, P)`` (clients, permits) for
-    acquired-permits.  The unordered queue has its own dense kernel in
-    the reference (K2), which the engine never routes to: the direct
-    checker takes the queue first."""
+    acquired-permits.  The unordered queue has its own dense automaton
+    (K2), which the engine never routes to (the direct checker takes the
+    queue first); :func:`make_dense_fn` builds it on request."""
     if spec_name == "unordered-queue":
         return C <= MAX_C
     if spec_name == "multi-register":
@@ -193,8 +212,11 @@ def applicable(spec_name: str, C: int, V) -> bool:
 
 
 def n_states(spec_name: str, V: Shape) -> int:
-    """The automaton's state count S for a dense shape."""
+    """The automaton's state count S for a dense shape (1 for the queue:
+    its contents are a function of the linset)."""
     fam = family(spec_name)
+    if fam == QUEUE:
+        return 1
     if fam == "multi-register":
         vr, k = V
         return int(vr) ** int(k)
@@ -251,10 +273,9 @@ def _subset_maps(C: int):
 
 def _subset_has(C: int) -> np.ndarray:
     """has[j]: [W] uint32 mask of packed bits whose subset index has bit
-    j SET — the "configs that linearized slot j" selector.  The kernel
-    folds it into ``didx``/``dshr``; it is kept so that
-    :func:`~jepsen_tpu_torch.ops.carry.tables_from_reference` can hold
-    all of the port's tables against the reference's."""
+    j SET — the "configs that linearized slot j" selector.  The register
+    kernel folds it into ``didx``/``dshr``; the queue automaton builds
+    its dequeue masks from it."""
     W = _n_words(C)
     k = np.arange(W)
     has = np.zeros((C, W), np.uint32)
@@ -517,6 +538,145 @@ def dense_check_reference(
     return ~done, failed_at, torch.zeros((B,), dtype=torch.bool, device=dev)
 
 
+def dense_queue_reference(
+    init_state: torch.Tensor,
+    ev_slot: torch.Tensor,
+    cand_slot: torch.Tensor,
+    cand_f: torch.Tensor,
+    cand_a: torch.Tensor,
+    cand_b: torch.Tensor,
+    tables: Optional[Tables] = None,
+    work: Optional[dict] = None,
+):
+    """The plain PyTorch version of the unordered-queue automaton (K2,
+    ``jepsen_tpu/ops/dense.py:build_dense_queue``), on any device: ``(ok
+    [B] bool, failed_at [B] int32, overflow [B] bool)`` for an encoded
+    queue batch.  ``init_state`` is the initial contents as a value
+    bitset (value id v at bit v − 1); ``cand_b`` is not read.
+
+    Per non-padding event of a row still searching: regroup the lanes by
+    slot (op codes and value ids summed, as the reference sums them),
+    build each slot's ``[W]`` mask of legal source words, run Jacobi
+    closure passes ``D |= OR_j ((D & valid_j)[uidx] & umask) << ushl``
+    until no word changes or C + 2 passes, complete the event's slot as
+    the register automaton does, then OR the completing op's value bit
+    into ``enqC`` or ``deqC``.  A value id outside 1..32 has no bit (the
+    reference's out-of-range shift gives 0).  Words ride int64 tensors
+    masked to 32 bits.
+
+    ``work``, when given, gains ``"int_ops"``, counted as
+    :func:`dense_check_reference` counts them: per row still searching
+    and per closure pass that changes its D, for each slot with a
+    nonzero mask, the AND with the mask, the AND with ``umask``, the
+    shift and the OR into the update per word (slot j < 5), or the AND
+    and the OR per live word (j ≥ 5: half the words); then D | update
+    and the fixpoint compare per word.  Per completion: shift, AND and
+    emptiness OR per word (slot < 5), or the emptiness OR per live word.
+    Not counted: loads and stores, building the masks, and the pass that
+    only confirms the fixpoint."""
+    dev = ev_slot.device
+    B, E = ev_slot.shape
+    C = cand_slot.shape[2]
+    W = _n_words(C)
+    if tables is None:
+        tables = subset_tables(C, dev)
+    uidx, umask, ushl, didx, dmask, dshr = tables
+    has = torch.as_tensor(_subset_has(C).astype(np.int64), device=dev)
+    max_closure = C + 2
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    slots = torch.arange(C, device=dev)
+    others = ~torch.eye(C, dtype=torch.bool, device=dev)
+    umask_b, ushl_b = umask[None], ushl[None, :, None]
+    dmask_b, dshr_b = dmask[None], dshr[None, :, None]
+
+    D = torch.zeros((B, W), dtype=torch.int64, device=dev)
+    D[:, 0] = 1  # the empty linset
+    enq_c = init_state.long() & _U32
+    deq_c = torch.zeros((B,), dtype=torch.int64, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    failed_at = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    int_ops = 0
+    if work is not None:  # ops to fold one slot's mask into a pass
+        slot_cost = torch.where(slots < 5, 4 * W, W)[None, :]
+
+    for e in range(E):
+        rows = ((ev_slot[:, e] >= 0) & ~done).nonzero().squeeze(1)
+        n = rows.numel()
+        if n == 0:
+            continue
+        es = ev_slot[rows, e].long()
+        eq = cand_slot[rows, e].long()[:, None, :] == slots[None, :, None]
+        active = eq.any(dim=2)
+        f_s = torch.where(eq, cand_f[rows, e].long()[:, None, :], zero).sum(2)
+        a_s = torch.where(eq, cand_a[rows, e].long()[:, None, :], zero).sum(2)
+        is_enq = active & (f_s == F_ENQUEUE)
+        is_deq = active & (f_s == F_DEQUEUE)
+        shift = (a_s - 1) & _U32  # value ids are 1-based
+        vbit = torch.where(active & (shift < 32),
+                           torch.ones_like(shift) << shift.clamp(max=31), zero)
+
+        # slot pairs matched by value id: slot k holds the open enqueue
+        # (resp. another open dequeue) of slot j's value
+        same = a_s[:, :, None] == a_s[:, None, :]
+        enq_at = same & is_enq[:, None, :] & is_deq[:, :, None]
+        other_deq = same & is_deq[:, None, :] & is_deq[:, :, None] & others
+        e_mask = torch.zeros((n, C, W), dtype=torch.int64, device=dev)
+        forbid = torch.zeros((n, C, W), dtype=torch.int64, device=dev)
+        for k in range(C):
+            e_mask |= torch.where(enq_at[:, :, k, None], has[k], zero)
+            forbid |= torch.where(other_deq[:, :, k, None], has[k], zero)
+        ec, dc = enq_c[rows], deq_c[rows]
+        enq_done = (ec[:, None] & vbit) != 0
+        deq_done = (dc[:, None] & vbit) != 0
+        enq_part = torch.where(enq_done[..., None], _U32, e_mask)
+        valid = torch.where(
+            is_deq[..., None],
+            torch.where(deq_done[..., None], zero, enq_part & ~forbid & _U32),
+            torch.where(is_enq[..., None], _U32, zero))
+        if work is not None:
+            per_pass = ((valid != 0).any(2) * slot_cost).sum(1) + 2 * W
+
+        # --- closure: Jacobi passes to fixpoint, capped, per-row stop ---
+        uidx_b = uidx[None].expand(n, C, W)
+        Dc = D[rows]
+        on = torch.ones((n,), dtype=torch.bool, device=dev)
+        for _ in range(max_closure):
+            U = (torch.gather(Dc[:, None, :] & valid, 2, uidx_b)
+                 & umask_b) << ushl_b
+            add = U[:, 0]
+            for j in range(1, C):
+                add = add | U[:, j]
+            Dn = (Dc | add) & _U32
+            changed = (Dn != Dc).any(1) & on
+            if work is not None:
+                int_ops += int((per_pass * changed).sum())
+            Dc = torch.where(on[:, None], Dn, Dc)
+            on = changed
+            if not bool(on.any()):
+                break
+
+        # --- completion, then the completing op joins the prefix ---
+        Ds = torch.gather(Dc[:, None, :].expand(n, C, W), 2,
+                          didx[None].expand(n, C, W))
+        Dvar = (Ds >> dshr_b) & dmask_b
+        onehot = es[:, None] == slots[None, :]
+        Df = torch.where(onehot[..., None], Dvar, zero).sum(1)
+        empty = ~(Df != 0).any(1)
+        if work is not None:
+            int_ops += int(torch.where(es < 5, 3 * W, W // 2).sum())
+        comp_vbit = torch.where(onehot, vbit, zero).sum(1)
+        enq_c[rows] = torch.where((onehot & is_enq).any(1), ec | comp_vbit, ec)
+        deq_c[rows] = torch.where((onehot & is_deq).any(1), dc | comp_vbit, dc)
+        D[rows] = Df  # an emptied row parks on D = 0
+        failed = rows[empty]
+        done[failed] = True
+        failed_at[failed] = e
+
+    if work is not None:
+        work["int_ops"] = work.get("int_ops", 0) + int_ops
+    return ~done, failed_at, torch.zeros((B,), dtype=torch.bool, device=dev)
+
+
 _IN_DTYPES = (torch.int32, torch.int32, torch.int8, torch.int8, torch.int16,
               torch.int16)
 _IN_NAMES = ("init_state", "ev_slot", "cand_slot", "cand_f", "cand_a",
@@ -629,9 +789,60 @@ class DenseAutomatonKernel:
         return ok, failed_at, overflow
 
 
-#: one wrapper of the dense-automaton kernel per transition family (their
-#: launch counts are what show that a run went through each family)
+class DenseQueueKernel:
+    """Wrapper of the hand-written CUDA kernel for the unordered-queue
+    automaton (``dense_queue_launch`` in ``csrc/dense_automaton.cu``;
+    replaces ``jepsen_tpu/ops/dense.py:build_dense_queue``).  Takes CUDA
+    tensors only, launches on the current stream without synchronising,
+    and counts its launches in :attr:`launches`."""
+
+    family = QUEUE
+    name = "dense_queue"
+
+    def __init__(self):
+        #: kernel launches so far (a plain counter; callers reset it)
+        self.launches = 0
+        self._fn = None
+
+    def _entry(self):
+        if self._fn is None:
+            fn = _build.load("dense_automaton").dense_queue_launch
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, init_state, ev_slot, cand_slot, cand_f, cand_a,
+                 cand_b):
+        arrays = (init_state, ev_slot, cand_slot, cand_f, cand_a, cand_b)
+        B, E, C = check_inputs(arrays, 1)
+        dev = init_state.device
+        if dev.type != "cuda":
+            raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
+        ok = torch.empty((B,), dtype=torch.bool, device=dev)
+        failed_at = torch.empty((B,), dtype=torch.int32, device=dev)
+        overflow = torch.empty((B,), dtype=torch.bool, device=dev)
+        if B == 0:
+            return ok, failed_at, overflow
+        fn = self._entry()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(*(t.data_ptr() for t in arrays), ok.data_ptr(),
+                     failed_at.data_ptr(), overflow.data_ptr(), B, E, C,
+                     stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {err} "
+                               f"(B={B}, E={E}, C={C})")
+        self.launches += 1
+        return ok, failed_at, overflow
+
+
+#: one wrapper of the dense-automaton kernels per transition family, the
+#: queue's included (their launch counts are what show that a run went
+#: through each family)
 DENSE_KERNELS = {fam: DenseAutomatonKernel(fam) for fam in FAMILY_IDS}
+DENSE_KERNELS[QUEUE] = DenseQueueKernel()
 
 #: the register family's wrapper (register, cas-register, mutex and
 #: owner-mutex codes)
@@ -641,15 +852,16 @@ DENSE_AUTOMATON = DENSE_KERNELS["register"]
 class DenseChecker(nn.Module):
     """The dense checker for one ``(spec, E, C, V)`` shape (``V`` a
     scalar domain, or the ``(Vr, K)``/``(N, P)`` pair of multi-register
-    and acquired-permits): ``forward(init_state, ev_slot, cand_slot,
-    cand_f, cand_a, cand_b) -> (ok, failed_at, overflow)``.  CUDA tensors
-    go to the CUDA kernel, CPU tensors to the plain version; there is no
-    fallback between the two.  The subset-map tables and the permit
-    tables are buffers, so they follow the module's device."""
+    and acquired-permits; the queue's is 0): ``forward(init_state,
+    ev_slot, cand_slot, cand_f, cand_a, cand_b) -> (ok, failed_at,
+    overflow)``.  CUDA tensors go to the CUDA kernel, CPU tensors to the
+    plain version; there is no fallback between the two.  The subset-map
+    tables and the permit tables are buffers, so they follow the
+    module's device."""
 
     def __init__(self, spec_name: str, E: int, C: int, V: Shape):
         super().__init__()
-        if not applicable(spec_name, C, V) or spec_name == "unordered-queue":
+        if not applicable(spec_name, C, V):
             raise ValueError(f"no dense kernel for {spec_name!r} at C={C}, "
                              f"V={V}")
         self.spec_name, self.E, self.C, self.V = spec_name, E, C, V
@@ -680,9 +892,17 @@ class DenseChecker(nn.Module):
             return self.mr_shape
         return None
 
+    def on_device(self, device: torch.device) -> "DenseChecker":
+        """The cached checker of the same shape on ``device`` (a mesh runs
+        one per shard)."""
+        return make_dense_fn(self.spec_name, self.E, self.C, self.V, device)
+
     def reference(self, *arrays, work: Optional[dict] = None):
         """The plain PyTorch version on the arrays' device."""
         check_inputs(arrays, self.S)
+        if self.family == QUEUE:
+            return dense_queue_reference(*arrays, tables=self.tables(),
+                                         work=work)
         return dense_check_reference(*arrays, S=self.S, tables=self.tables(),
                                      work=work, fam=self.family,
                                      params=self._params())
@@ -690,6 +910,8 @@ class DenseChecker(nn.Module):
     def forward(self, *arrays):
         if arrays[0].is_cuda:
             kernel = DENSE_KERNELS[self.family]
+            if self.family == QUEUE:
+                return kernel(*arrays)
             if self.family == "acquired-permits":
                 return kernel(*arrays, S=self.S,
                               permit_sources=(self.pm_acq_src,
@@ -698,11 +920,21 @@ class DenseChecker(nn.Module):
         return self.reference(*arrays)
 
 
-@lru_cache(maxsize=64)
 def make_dense_fn(spec_name: str, E: int, C: int, V: Shape,
                   device: torch.device) -> DenseChecker:
     """The cached :class:`DenseChecker` for a shape, its buffers on
     ``device`` (one module per ``(spec, E, C, V, device)``, like the
     reference's per-shape jit cache; the engine rounds a scalar V and the
-    permit client count up to 4, so drifting batches reuse a few)."""
+    permit client count up to 4, so drifting batches reuse a few).  The
+    queue automaton has no value axis, so its V is normalised to 0, as
+    the reference normalises it: every value domain and initial bitset
+    shares one module."""
+    if spec_name == QUEUE:
+        V = 0
+    return _make_dense_fn_cached(spec_name, E, C, V, torch.device(device))
+
+
+@lru_cache(maxsize=64)
+def _make_dense_fn_cached(spec_name: str, E: int, C: int, V: Shape,
+                          device: torch.device) -> DenseChecker:
     return DenseChecker(spec_name, E, C, V).to(device)

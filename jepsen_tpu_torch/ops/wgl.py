@@ -31,6 +31,13 @@ does:
   (the fenced mutexes, the FIFO queue), go to the CPU oracle, tagged
   ``"oracle-fallback"``, as in the reference.
 
+Given a :class:`~jepsen_tpu_torch.parallel.mesh.Mesh` (``mesh=``), every
+dispatch shards its rows over the mesh's devices, each device running its
+own checker on its shard with every row cap per device; with no mesh and
+no device the run adopts every CUDA device when there are two or more
+(:func:`~jepsen_tpu_torch.parallel.mesh.engine_default_mesh`).  Sharding
+never moves a verdict: padding rows are neutral and sliced off.
+
 Models that declare a partition (multi-register per key, multi-mutex
 per lock name) are split into per-partition sub-histories ahead of all
 of this (:mod:`jepsen_tpu_torch.engine.decompose`), unless the caller
@@ -52,7 +59,6 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import device as device_mod
 from .. import models as m
 from ..history import History
 from . import _build
@@ -639,15 +645,21 @@ def plan_bucket(model, spec, arrays, *, device,
 ESCALATIONS: Dict[int, int] = {}
 
 
-def _run_rows(fn, arrays, device, disp: int):
+def _run_rows(fn, arrays, device, disp: int, mesh=None):
     """Run ``fn`` over host ``arrays`` in chunks of at most ``disp`` rows on
-    ``device``, synchronously; outputs as numpy."""
+    ``device``, or sharded over ``mesh`` (``disp`` is then the whole
+    chunk: the mesh size × the per-device cap), synchronously; outputs as
+    numpy."""
+    from ..parallel import mesh as mesh_mod
+
+    placement = mesh if mesh is not None else mesh_mod.Mesh((device,))
     B = arrays[0].shape[0]
     outs = []
     for lo in range(0, B, disp):
-        chunk = tuple(torch.from_numpy(np.ascontiguousarray(a[lo:lo + disp]))
-                      .to(device) for a in arrays)
-        outs.append(tuple(x.cpu().numpy() for x in fn(*chunk)))
+        shards = mesh_mod.sharded_check(
+            fn, placement, *(a[lo:lo + disp] for a in arrays))
+        outs.append(tuple(np.concatenate([s.cpu().numpy() for s in o])
+                          for o in shards))
     return tuple(np.concatenate([o[i] for o in outs]) for i in range(3))
 
 
@@ -665,7 +677,7 @@ def overflow_rows(arrays, overflow: np.ndarray):
 
 def escalate_overflows(plan: BucketPlan, arrays, ok: np.ndarray,
                        failed_at: np.ndarray, overflow: np.ndarray, *,
-                       device, escalation=ESCALATION_FACTORS,
+                       device, mesh=None, escalation=ESCALATION_FACTORS,
                        sufficient_rung: bool = True,
                        max_dispatch: int = DEFAULT_MAX_DISPATCH) -> None:
     """Retry overflowed rows on the device at growing frontier capacities,
@@ -674,9 +686,10 @@ def escalate_overflows(plan: BucketPlan, arrays, ok: np.ndarray,
     :func:`sufficient_frontier` is affordable and no rung reached it —
     once at ``max(sufficient, F)``.  Each rerun is padded to a multiple of
     8 rows with neutral all-padding rows; a rung that cannot dispatch
-    even one row is skipped.  Rows still overflowed afterwards are the
-    oracle's.  A plan with no device checker (oracle-routed, or a
-    dense-only spec) has no rungs."""
+    even one row is skipped.  Under a ``mesh`` the reruns shard over its
+    devices, each holding at most the rung's per-device cap.  Rows still
+    overflowed afterwards are the oracle's.  A plan with no device
+    checker (oracle-routed, or a dense-only spec) has no rungs."""
     if plan.fn is None or plan.spec.dense_only:
         return
     capacities = [plan.frontier * factor for factor in escalation]
@@ -689,14 +702,16 @@ def escalate_overflows(plan: BucketPlan, arrays, ok: np.ndarray,
             break
         fn2 = make_check_fn(plan.spec.name, plan.E, plan.C, capacity,
                             plan.mc, device)
-        disp2 = min(max_dispatch, fn2.safe_dispatch)
+        # per-device cap: a mesh rerun shards its rows evenly
+        n_dev = 1 if mesh is None else mesh.size
+        disp2 = min(max_dispatch, fn2.safe_dispatch) * n_dev
         if disp2 == 0:
             continue
         bad, sub = overflow_rows(arrays, overflow)
         n_bad = len(bad)
         ESCALATIONS[capacity] = ESCALATIONS.get(capacity, 0) + n_bad
         ok2, failed2, ovf2 = (x[:n_bad] for x in
-                              _run_rows(fn2, sub, device, disp2))
+                              _run_rows(fn2, sub, device, disp2, mesh))
         ok[bad] = ok2
         failed_at[bad] = failed2
         overflow[bad] = ovf2
@@ -717,6 +732,8 @@ def check_batch(
     bucketed: bool = True,
     decomposed: bool = True,
     device=None,
+    mesh=None,
+    stats: Optional[dict] = None,
 ) -> List[dict]:
     """Check a batch of histories; per-history result dicts in input
     order, as :func:`jepsen_tpu.ops.wgl.check_batch` returns them (with
@@ -724,6 +741,14 @@ def check_batch(
 
     ``device`` defaults to the current CUDA device and raises without
     CUDA; ``device="cpu"`` runs the plain PyTorch version of every kernel.
+    ``mesh`` (a :class:`~jepsen_tpu_torch.parallel.mesh.Mesh`) shards
+    every dispatch over its devices; with neither ``mesh`` nor ``device``
+    the run adopts :func:`~jepsen_tpu_torch.parallel.mesh.
+    engine_default_mesh` (every CUDA device when there are two or more;
+    naming a device keeps the run on it).  Row caps are per device, and
+    sharding never moves a verdict.  ``stats``, when given, gains the
+    run's dispatch counters: the devices, the padding rows and the live
+    and total rows per device.
     Histories are encoded into per-(E, C) shape buckets and dispatched
     through a bounded in-flight ``window`` (default 4; 1 = strictly
     serial); CPU-oracle fallbacks run on a worker pool alongside device
@@ -760,7 +785,9 @@ def check_batch(
         window=window,
         bucketed=bucketed,
         decomposed=decomposed,
-        device=device_mod.resolve(device),
+        device=device,
+        mesh=mesh,
+        stats=stats,
     )
 
 

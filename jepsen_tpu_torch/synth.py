@@ -1,9 +1,10 @@
 """Synthetic history generation — for differential tests and benchmarks.
 
 A copy of :mod:`jepsen_tpu.synth`'s CAS-register, multi-register, lock
-and permit generators:
-for the same seed they produce the same histories as the reference
-(``tests/test_torch_encode.py`` pins it), so the port and the JAX
+and permit generators, and of the reference tests' unique-element queue
+generator (:func:`generate_queue_history`): for the same seed they
+produce the same histories as the reference (``tests/test_torch_encode.py``
+and ``tests/test_torch_queue.py`` pin it), so the port and the JAX
 package can be fed identical corpora.
 
 Simulates honest linearizable executions of a CAS register with real
@@ -374,6 +375,66 @@ def generate_permits_history(
     for p in waiting:
         hist.append(info_op(p, "acquire", {"client": f"c{p}"}))
     h = History(hist)
+    for i, op in enumerate(h):
+        op.index = i
+        op.time = i
+    return h.index_ops()
+
+
+def generate_queue_history(
+    rng,
+    n_procs: int = 4,
+    n_ops: int = 24,
+    corrupt: bool = False,
+    initial=(),
+):
+    """Simulated unique-element unordered queue (the reference's
+    ``tests/test_models.py:_gen_queue_history``, same draws for the same
+    seed): enqueues of fresh values, dequeues returning any present
+    element, ops linearizing at completion; a dequeue of an empty queue
+    fails.  corrupt=True makes one ok dequeue claim a value that was
+    never enqueued.  ``initial``: distinct integer values already in the
+    queue (the model's initial contents, ``UnorderedQueue(initial)``);
+    fresh values start past them.  With none, the histories are the
+    reference's."""
+    present = set(initial)
+    next_v = max(present, default=0) + 1
+    pending = {}
+    idle = list(range(n_procs))
+    hist = []
+    done = 0
+    while done < n_ops or pending:
+        if idle and done < n_ops and (not pending or rng.random() < 0.6):
+            p = idle.pop(rng.randrange(len(idle)))
+            if present and rng.random() < 0.45:
+                hist.append(invoke_op(p, "dequeue", None))
+                pending[p] = ("dequeue", None)
+            else:
+                v = next_v
+                next_v += 1
+                hist.append(invoke_op(p, "enqueue", v))
+                pending[p] = ("enqueue", v)
+            done += 1
+        else:
+            p = rng.choice(list(pending))
+            f, v = pending.pop(p)
+            idle.append(p)
+            if f == "enqueue":
+                present.add(v)
+                hist.append(ok_op(p, "enqueue", v))
+            elif present:
+                got = rng.choice(sorted(present))
+                present.discard(got)
+                hist.append(ok_op(p, "dequeue", got))
+            else:
+                hist.append(fail_op(p, "dequeue", None, error="empty"))
+    h = History(hist)
+    if corrupt and len(h) > 4:
+        deqs = [i for i, op in enumerate(h)
+                if op.type == "ok" and op.f == "dequeue"]
+        if deqs:
+            i = rng.choice(deqs)
+            h[i] = h[i].copy(value=next_v + 7)  # never enqueued
     for i, op in enumerate(h):
         op.index = i
         op.time = i

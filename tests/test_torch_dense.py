@@ -402,5 +402,5 @@ def test_family_wrappers_count_apart_and_refuse_cpu_tensors():
     assert {k.name for k in dense.DENSE_KERNELS.values()} == {
         "dense_automaton", "dense_automaton[reentrant-mutex]",
         "dense_automaton[acquired-permits]",
-        "dense_automaton[multi-register]"}
+        "dense_automaton[multi-register]", "dense_queue"}
     assert dense.DENSE_AUTOMATON is dense.DENSE_KERNELS["register"]

@@ -33,7 +33,9 @@ _IMPORT_ALL = textwrap.dedent("""
     ]
     for required in ("jepsen_tpu_torch.models.locks",
                      "jepsen_tpu_torch.checker.locks_direct",
-                     "jepsen_tpu_torch.engine.decompose"):
+                     "jepsen_tpu_torch.engine.decompose",
+                     "jepsen_tpu_torch.parallel",
+                     "jepsen_tpu_torch.parallel.mesh"):
         assert required in names, required
     for name in names:
         importlib.import_module(name)
@@ -52,9 +54,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # every module of the port, the lock checkers and the decomposition
-    # front-end included
-    assert int(out.stdout.split()[-1]) >= 21
+    # every module of the port, the lock checkers, the decomposition
+    # front-end and the mesh included
+    assert int(out.stdout.split()[-1]) >= 23
 
 
 def test_the_refusal_matches_names_exactly():
