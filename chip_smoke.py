@@ -18,17 +18,23 @@ without its last line.
    E = 832, C = 8, V = 8.  Outputs must be byte-equal (tolerance: exact,
    every output is an integer or a bool), and rows of one template must
    agree (a relabeling preserves the verdict).
-3. edges — the same comparison at the envelope's edges: C = 4 (one
-   word), C = 12 (128 words), V = 32, C = 12 with V = 32, and mutex op
-   codes.
+3. edges — the same comparison at the envelope's edges: C = 4, 6 and 7
+   (W = 1, 2 and 4 words: 32, 16 and 8 histories per warp), C = 12 (128
+   words), V = 32, C = 12 with V = 32, and mutex op codes; then rows
+   built for the kernel's two designs: batches whose row count is not a
+   multiple of the histories per warp, rows that fail at event 0,
+   all-padding rows, rows of read-any codes, and the register family at
+   C = 12 on both sides of the warp/block switch (S·W = WARP_MAX_SW and
+   one state more, through the wrapper directly).
 4. end to end — ``check_batch(models.cas_register(0), histories)`` on
    1024 synth 1000-op histories plus a few that overflow the slot cap
    (so the oracle pool runs), window 4, launch counter reset just before
    and read just after; verdicts held against the port's CPU oracle on a
    64-history sample.
 5. times — kernel ms (CUDA events, median of 7 after 2 warm-ups), its
-   bound, the plain version's ms, end-to-end histories/s, each beside the
-   card's name and power limit.
+   bound, the plain version's ms, end-to-end histories/s, the design the
+   shape runs ("warp" or "block") with the kernel's registers and spill
+   bytes from ptxas, each beside the card's name and power limit.
 6. frontier — the frontier search's CUDA kernel against its plain
    PyTorch version on the card at the slice's shape: 1024 synth 1000-op
    CAS-register histories (seed 45200, 5 processes, crash probability
@@ -65,8 +71,10 @@ without its last line.
     and bench.py's decomposition headline, 64 histories of 1000 ops over
     64 keys split into per-key sub-histories (K = 1).
 12. family edges — the largest shapes the planner gives at C = 12: K1m
-    at (Vr, K) = (128, 1) and (3, 4), and K1r at V = 32 (a directly
-    encoded batch of clients 1..15; no synth history reaches it).
+    at (Vr, K) = (128, 1) and (3, 4), K1r at V = 32 (a directly encoded
+    batch of clients 1..15; no synth history reaches it, and rows that
+    fail at event 0 and all-padding rows ride with it), and K1p at
+    (N, P) = (12, 2) with all twelve clients.
 13. family end to end — ``check_batch`` on each of the five batches of
     10 and 11, with a few 15-process lock and permit histories beside
     them (past the dense envelope: the oracle and its direct checkers
@@ -74,7 +82,8 @@ without its last line.
     just after: each family's kernel must have launched on its phase.
     Verdicts held against the CPU oracle on a sample; the multi-register
     batches decomposed and undecomposed must agree.
-14. family times — as in 5, for each family at its phase-10/11 shape.
+14. family times — as in 5, for each family at its phase-10/11 shape
+    (with its design, registers and spills).
 15. Elle kernels — the has-cycle (K6) and screen (K7, with the K8 bit
     packing fused) entry points of ``cycles_closure.cu`` against their
     plain PyTorch versions on the card, byte-equal (tolerance: exact), in
@@ -133,6 +142,7 @@ from __future__ import annotations
 
 import json
 import random
+import re
 import subprocess
 import sys
 import time
@@ -263,6 +273,103 @@ def kernel_bound(arrays, failed_at, int_ops, table_bytes=0, lane_bytes=6):
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
+def kernel_symbol(fam: str, S: int, C: int) -> str:
+    """The mangled-name fragment of the ``dense_automaton.cu`` instance a
+    launch of family ``fam`` at (S, C) runs."""
+    if dense.design(fam, S, C) == "warp":
+        return f"register_warp_kernelILi{max(C - 5, 0)}E"
+    return f"dense_block_kernelILi{dense.FAMILY_IDS[fam]}E"
+
+
+def ptxas_resources(ptxas: str, fragment: str) -> dict:
+    """Registers and spill bytes that ptxas reported for the kernel whose
+    mangled name holds ``fragment`` (empty when it reported nothing)."""
+    for part in ptxas.split("Compiling entry function '")[1:]:
+        name, _, body = part.partition("'")
+        if fragment not in name:
+            continue
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          body)
+        return {"registers": int(regs.group(1)) if regs else None,
+                "spill_store_bytes": int(spill.group(1)) if spill else None,
+                "spill_load_bytes": int(spill.group(2)) if spill else None}
+    return {}
+
+
+def design_fields(fam: str, S: int, C: int, ptxas: str) -> dict:
+    return {"design": dense.design(fam, S, C),
+            **ptxas_resources(ptxas, kernel_symbol(fam, S, C))}
+
+
+class RawRegister:
+    """The register family's kernel wrapper at ``S`` states with its plain
+    version, for shapes no planner gives (S past 32)."""
+
+    def __init__(self, S: int):
+        self.S = S
+
+    def __call__(self, *arrays):
+        return dense.DENSE_AUTOMATON(*arrays, S=self.S)
+
+    def reference(self, *arrays, work=None):
+        return dense.dense_check_reference(*arrays, S=self.S, work=work)
+
+
+def with_rows(arrays, extra):
+    """``arrays`` with the rows of ``extra`` appended."""
+    return tuple(np.concatenate([a, x]) for a, x in zip(arrays, extra))
+
+
+def padding_rows(arrays, n):
+    """``n`` all-padding rows shaped like ``arrays``' rows."""
+    return tuple(np.full((n,) + a.shape[1:], f, a.dtype)
+                 for a, f in zip(arrays, wgl._PAD_FILLS))
+
+
+def failing_at_0(arrays, f, a):
+    """Copies of ``arrays``' rows whose event 0 completes slot 0 alone,
+    with op code ``f`` and value ``a`` (each a number or a per-row array),
+    and no other candidate lane."""
+    init, ev, cs, cf, ca, cb = (x.copy() for x in arrays)
+    ev[:, 0] = 0
+    cs[:, 0, :] = -1
+    cs[:, 0, 0] = 0
+    cf[:, 0, 0] = f
+    ca[:, 0, 0] = a
+    return init, ev, cs, cf, ca, cb
+
+
+def register_edges(flagship, V):
+    """(name, arrays, S) of the register family's rows around the warp
+    design: row counts that are not a multiple of the histories per warp
+    (4 at C = 8, 32 at C = 4), rows that fail at event 0, all-padding
+    rows among real ones, read-any codes, and C = 12 on both sides of
+    the warp/block switch."""
+    init = flagship[0][:9]
+    fail0 = failing_at_0(tuple(a[:9] for a in flagship), F_READ,
+                         np.where(init == 0, 1, 0).astype(np.int16))
+    read_any = tuple(a[:64].copy() for a in flagship)
+    read_any[3][read_any[2] >= 0] = F_READ_ANY
+    s_warp = dense.WARP_MAX_SW // 128
+    edges = [
+        ("B131-H4", tuple(a[:131] for a in flagship), V),
+        ("C4-B45-H32", random_batch("cas-register", 45301, B=45, E=96, C=4,
+                                    p_accept=0.98, p_stray=0.0), 8),
+        ("fail-at-0", with_rows(fail0, tuple(a[:3] for a in flagship)), V),
+        ("all-padding", with_rows(tuple(a[:5] for a in flagship),
+                                  padding_rows(flagship, 6)), V),
+        ("read-any", read_any, V),
+        (f"switch-warp-S{s_warp}",
+         random_batch("cas-register", 45302, B=64, E=128, C=12,
+                      amax=s_warp - 1, p_accept=0.995, p_stray=0.0), s_warp),
+        (f"switch-block-S{s_warp + 1}",
+         random_batch("cas-register", 45303, B=64, E=128, C=12,
+                      amax=s_warp, p_accept=0.995, p_stray=0.0), s_warp + 1),
+    ]
+    return edges
+
+
 def time_kernel(checker, arrays, reps=7, warmup=2):
     for _ in range(warmup):
         checker(*arrays)
@@ -305,6 +412,12 @@ def edge_cases():
          [synth.generate_lock_history(rng, n_procs=6, n_ops=300,
                                       corrupt=i % 4 == 0)
           for i in range(128)], 8, 8, None),
+        ("C6-W2", "cas-register", cas,
+         [synth.generate_history(rng, n_procs=6, n_ops=300, corrupt=i % 4 == 0)
+          for i in range(128)], 6, 6, None),
+        ("C7-W4", "cas-register", cas,
+         [synth.generate_history(rng, n_procs=7, n_ops=300, corrupt=i % 4 == 0)
+          for i in range(128)], 7, 7, None),
     ]
 
 
@@ -568,10 +681,11 @@ def same_verdicts(a, b) -> bool:
     return [r["valid?"] for r in a] == [r["valid?"] for r in b]
 
 
-def family_phases(device, card, pick):
+def family_phases(device, card, pick, ptxas=""):
     """Phases 10-14; returns the ``{"kernels": [...]}`` entries of the
     reentrant-mutex, acquired-permits and multi-register families, and
-    the register family's largest error on the owner-mutex batch."""
+    the register family's largest error on the owner-mutex batch.
+    ``ptxas`` is the build's report (registers and spills per kernel)."""
     n = FAMILY_HISTORIES
     lock_cases = [
         ("reentrant-cp-lock", "reentrant-mutex", models.reentrant_mutex(),
@@ -637,13 +751,31 @@ def family_phases(device, card, pick):
     r_dom = encode.round_up(wgl.value_domain("reentrant-mutex", r_edge[0],
                                              r_edge[4], r_edge[5]), 4)
     require(r_dom == 32, f"reentrant edge domain {r_dom}, not 32")
+    # rows that fail at event 0 (a release of a free lock) and all-padding
+    # rows ride with the reentrant edge
+    r_edge = with_rows(with_rows(r_edge, failing_at_0(
+        tuple(a[:4] for a in r_edge), F_RRELEASE, 1)),
+        padding_rows(r_edge, 5))
     edges.append(("K1r-V32", "reentrant-mutex", r_edge, 32))
     for name, spec, eb, shape in edges:
         checker = dense.make_dense_fn(spec, eb[1].shape[1], 12, shape,
                                       device)
-        _, _, e_err, _ = family_compare(name, checker, eb, device,
-                                        phase="family_edge")
+        e_failed, _, e_err, _ = family_compare(name, checker, eb, device,
+                                               phase="family_edge")
         errs[spec] = max(errs[spec], e_err)
+        if name == "K1r-V32":
+            require((e_failed[128:132] == 0).all(),
+                    "K1r rows did not fail at event 0")
+    # the largest permit shape the planner gives at C = 12: all twelve
+    # clients, (N, P) = (12, 2), S = 91
+    p_arrays, p_plan = family_batch(models.acquired_permits(2),
+                                    permit_histories(46800, 64, n_procs=12,
+                                                     n_ops=300), device)
+    require(p_plan.n_values == (12, 2) and p_arrays[2].shape[2] == 12,
+            f"permit edge shape {p_plan.n_values}, C={p_arrays[2].shape[2]}")
+    _, _, e_err, _ = family_compare("K1p-N12-P2", p_plan.fn, p_arrays,
+                                    device, phase="family_edge")
+    errs["acquired-permits"] = max(errs["acquired-permits"], e_err)
 
     # -- 13. end to end through check_batch -------------------------------
     e2e = {}
@@ -691,7 +823,8 @@ def family_phases(device, card, pick):
         B, E, C = arrays[2].shape
         emit(phase="family_times", case=name, kernel=dense.DENSE_KERNELS[
             fam].name, rows=int(B), E=int(E), C=int(C), V=str(checker.V),
-             S=checker.S, ms=ms, runs_ms=all_ms, bound_ms=bound_ms,
+             S=checker.S, **design_fields(fam, checker.S, C, ptxas),
+             ms=ms, runs_ms=all_ms, bound_ms=bound_ms,
              bound_by=bound_by, bytes=nbytes, int_ops=int_ops,
              plain_ms=plain_s * 1e3, e2e_histories_per_s=e2e_rate,
              launches=launches, library_ms=None,
@@ -1445,6 +1578,7 @@ def main() -> int:
     # -- 1. build and device ------------------------------------------------
     t0 = time.perf_counter()
     report = _build.build()
+    ptxas = "\n".join(v["ptxas"] for v in report.values())
     card = card_line()
     print(card, flush=True)
     emit(phase="build", seconds=time.perf_counter() - t0,
@@ -1483,7 +1617,19 @@ def main() -> int:
                                          to_device(batch_arrays(eb), device))
         err = max(err, e_err)
         emit(phase="edge", case=name, spec=spec, rows=len(encs), E=E_edge,
-             C=c_edge, V=v, invalid=int((~e_ok).sum()), max_abs_err=e_err)
+             C=c_edge, V=v, invalid=int((~e_ok).sum()), max_abs_err=e_err,
+             design=dense.design("register", v, c_edge))
+    for name, eb, S in register_edges(arrays_np, V):
+        (e_ok, e_failed, _), _, e_err = compare(RawRegister(S),
+                                                to_device(eb, device))
+        err = max(err, e_err)
+        if name.startswith("fail-at-0"):
+            require((e_failed[:9] == 0).all(), "fail-at-0 rows did not fail "
+                    "at event 0")
+        emit(phase="edge", case=name, spec="register", rows=int(len(eb[0])),
+             E=int(eb[1].shape[1]), C=int(eb[2].shape[2]), V=S,
+             invalid=int((~e_ok).sum()), max_abs_err=e_err,
+             design=dense.design("register", S, eb[2].shape[2]))
 
     # -- 4. end to end through check_batch ----------------------------------
     hs = synth.generate_batch(seed=45101, n_histories=E2E_HISTORIES - 8,
@@ -1522,7 +1668,8 @@ def main() -> int:
     bound_ms, bound_by, nbytes = kernel_bound(arrays_np, failed_at,
                                               work["int_ops"])
     emit(phase="times", kernel="dense_automaton", rows=int(B), E=int(E),
-         C=int(C), V=int(V), ms=ms, runs_ms=all_ms, bound_ms=bound_ms,
+         C=int(C), V=int(V), **design_fields("register", V, C, ptxas),
+         ms=ms, runs_ms=all_ms, bound_ms=bound_ms,
          bound_by=bound_by, bytes=nbytes, int_ops=work["int_ops"],
          plain_ms=plain_s * 1e3, e2e_histories_per_s=len(hs) / e2e_s,
          library_ms=None,
@@ -1622,7 +1769,7 @@ def main() -> int:
          card=card)
 
     # -- 10-14. the lock, permit and multi-register families ---------------
-    family_entries, owner_err = family_phases(device, card, pick)
+    family_entries, owner_err = family_phases(device, card, pick, ptxas)
     err = max(err, owner_err)
 
     # -- 15-17. the Elle screens -------------------------------------------

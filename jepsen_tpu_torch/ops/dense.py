@@ -54,9 +54,12 @@ Three forms of the one function live here:
   PyTorch on the CPU, and ``int32 >>`` is arithmetic).  The CPU tests
   hold it byte for byte against the JAX kernel.
 - :data:`DENSE_KERNELS`, the wrappers of the hand-written CUDA kernels
-  in ``csrc/dense_automaton.cu`` (one thread block per history, D in
-  shared memory, templated on the transition family, and the queue
-  automaton beside them), one per family, each with its launch counter.
+  in ``csrc/dense_automaton.cu`` (the register family in a warp design,
+  32/W histories per warp with no block barriers; the other families, and
+  register shapes past :data:`WARP_MAX_SW`, one thread block per history
+  with per-target lists of live sources; both update D in place; the
+  queue automaton beside them), one per family, each with its launch
+  counter (:func:`design` says which design a shape runs).
 - :class:`DenseChecker`, the module the engine calls: the kernel for CUDA
   tensors, the plain version for CPU tensors, nothing else.
 """
@@ -103,6 +106,11 @@ FAMILY_IDS = {
 
 #: the unordered queue's automaton (K2): no value axis, its own kernel
 QUEUE = "unordered-queue"
+
+#: the register family runs the CUDA kernel's warp design while S·W (states
+#: × packed subset words) is at most this, every other shape its block
+#: design (``kWarpMaxSW`` in ``csrc/dense_automaton.cu``)
+WARP_MAX_SW = 4096
 
 #: word mask of the 32-bit lanes the int64 words carry
 _U32 = 0xFFFFFFFF
@@ -185,6 +193,16 @@ def permit_sources(tbl: np.ndarray) -> np.ndarray:
 def _permit_states(n_clients: int, p: int) -> int:
     return 1 + n_clients + (n_clients * (n_clients + 1) // 2 if p >= 2
                             else 0)
+
+
+def design(fam: str, S: int, C: int) -> str:
+    """Which design of the CUDA kernel a launch of family ``fam`` at ``S``
+    states and ``C`` slots runs: ``"warp"`` (the register family while
+    S·W ≤ :data:`WARP_MAX_SW`: one warp per 32/W histories, no block
+    barriers) or ``"block"`` (one block per history)."""
+    if fam == "register" and S * _n_words(C) <= WARP_MAX_SW:
+        return "warp"
+    return "block"
 
 
 def applicable(spec_name: str, C: int, V) -> bool:
@@ -433,7 +451,11 @@ def dense_check_reference(
     and the fixpoint compare per word.  Per completion: shift, AND and
     emptiness OR per word (slot < 5), or the emptiness OR per live word.
     Not counted: loads and stores, building the transitions, and the pass
-    that only confirms the fixpoint."""
+    that only confirms the fixpoint.  It also gains ``"max_passes"``: the
+    most closure passes that changed D on any row at any event (at most
+    C: a pass adds the configs one more linearized op away, so the C + 2
+    cap never binds, and the kernels may reach the same fixpoint in any
+    order of updates)."""
     dev = ev_slot.device
     B, E = ev_slot.shape
     C = cand_slot.shape[2]
@@ -458,6 +480,7 @@ def dense_check_reference(
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     failed_at = torch.full((B,), -1, dtype=torch.int32, device=dev)
     int_ops = 0
+    max_passes = 0
     if work is not None:  # live words per slot, and ops to fold one in
         low = slots < 5
         live_w = torch.where(low, W, W // 2)[None, :]
@@ -493,7 +516,7 @@ def dense_check_reference(
         uidx_b = uidx[None, :, None, :].expand(n, C, S, W)
         Dc = D[rows]
         on = torch.ones((n,), dtype=torch.bool, device=dev)
-        for _ in range(max_closure):
+        for n_pass in range(max_closure):
             # X[j, s'] = OR of D[s] over the sources s that slot j moves
             # to s'; one source at a time, so no scratch row is written
             # twice in one scatter, and only sources some row holds
@@ -516,6 +539,7 @@ def dense_check_reference(
             on = changed
             if not bool(on.any()):
                 break
+            max_passes = max(max_passes, n_pass + 1)
 
         # --- completion: keep configs that linearized e_slot, then
         # promote it out of the linset ---
@@ -535,6 +559,7 @@ def dense_check_reference(
 
     if work is not None:
         work["int_ops"] = work.get("int_ops", 0) + int_ops
+        work["max_passes"] = max(work.get("max_passes", 0), max_passes)
     return ~done, failed_at, torch.zeros((B,), dtype=torch.bool, device=dev)
 
 

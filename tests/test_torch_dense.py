@@ -8,6 +8,8 @@ kernel is held against this same plain version on the card by
 """
 
 import random
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -103,12 +105,9 @@ def test_plain_version_equals_jax_kernel(spec, C, V, corpus):
         assert not ok.all(), "the corpus must hold invalid histories"
 
 
-@pytest.mark.parametrize("seed", range(3))
-def test_plain_version_equals_jax_kernel_random_codes(seed):
-    """Random lanes, op codes (all twelve, so the read branch's catch-all
-    is exercised), slot ids and padding events."""
-    rs = np.random.default_rng(seed)
-    B, E, C, V = 6, 24, 8, 8
+def _random_lanes(rs, B, E, C):
+    """Random candidate lanes (distinct slot ids per event) and event
+    slots, a fifth of them padding."""
     cand_slot = np.full((B, E, C), -1, np.int8)
     for b in range(B):
         for e in range(E):
@@ -116,12 +115,28 @@ def test_plain_version_equals_jax_kernel_random_codes(seed):
             cand_slot[b, e, :k] = rs.permutation(C)[:k]
     ev_slot = np.where(rs.random((B, E)) < 0.2, -1,
                        rs.integers(0, C, (B, E))).astype(np.int32)
+    return ev_slot, cand_slot
+
+
+def _random_codes(seed):
+    """The cas-register random-code batch: (arrays, C, V)."""
+    rs = np.random.default_rng(seed)
+    B, E, C, V = 6, 24, 8, 8
+    ev_slot, cand_slot = _random_lanes(rs, B, E, C)
     arrays = [
         rs.integers(0, V, B).astype(np.int32), ev_slot, cand_slot,
         rs.integers(0, 12, (B, E, C)).astype(np.int8),
         rs.integers(0, V, (B, E, C)).astype(np.int16),
         rs.integers(0, V, (B, E, C)).astype(np.int16),
     ]
+    return arrays, C, V
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_plain_version_equals_jax_kernel_random_codes(seed):
+    """Random lanes, op codes (all twelve, so the read branch's catch-all
+    is exercised), slot ids and padding events."""
+    arrays, C, V = _random_codes(seed)
     _assert_matches_reference("cas-register", arrays, C, V)
 
 
@@ -210,14 +225,14 @@ def test_work_counts_the_operations_the_function_needs():
     ok, failed_at, _ = dense.dense_check_reference(
         *carry.batch_from_reference(*one, device="cpu"), S=4, work=work)
     assert bool(ok[0]) and int(failed_at[0]) == -1
-    assert work == {"int_ops": 27}
+    assert work == {"int_ops": 27, "max_passes": 1}
     fills = wgl._PAD_FILLS
     three = [np.concatenate([a, a, np.full_like(a, f)])
              for a, f in zip(one, fills)]
     work = {}
     dense.dense_check_reference(
         *carry.batch_from_reference(*three, device="cpu"), S=4, work=work)
-    assert work == {"int_ops": 54}
+    assert work == {"int_ops": 54, "max_passes": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -319,22 +334,53 @@ def test_family_plain_version_equals_jax_kernel_random_codes(spec, C, V,
     """Random lanes, all twelve op codes, a/b past the clients, values and
     registers (clipped as the reference clips them), initial states past
     S (clamped), and padding events."""
+    _assert_matches_reference(spec, _random_family_codes(C, init_hi), C, V)
+
+
+def _random_family_codes(C, init_hi):
     rs = np.random.default_rng(C)
     B, E = 6, 24
-    cand_slot = np.full((B, E, C), -1, np.int8)
-    for b in range(B):
-        for e in range(E):
-            k = rs.integers(0, C + 1)
-            cand_slot[b, e, :k] = rs.permutation(C)[:k]
-    ev_slot = np.where(rs.random((B, E)) < 0.2, -1,
-                       rs.integers(0, C, (B, E))).astype(np.int32)
-    arrays = [
+    ev_slot, cand_slot = _random_lanes(rs, B, E, C)
+    return [
         rs.integers(-2, init_hi, B).astype(np.int32), ev_slot, cand_slot,
         rs.integers(0, 12, (B, E, C)).astype(np.int8),
         rs.integers(-2, 10, (B, E, C)).astype(np.int16),
         rs.integers(-2, 6, (B, E, C)).astype(np.int16),
     ]
-    _assert_matches_reference(spec, arrays, C, V)
+
+
+def _fixpoint_corpus(name):
+    """(spec, arrays, C, V) of one corpus the fixpoint test runs: the
+    flagship-like synth batch (cas-register, C = 8, V = 8), the
+    cas-register random codes, or a RANDOM_FAMILIES batch."""
+    kind, _, arg = name.partition(":")
+    if kind == "synth":
+        encs = _encoded("cas-register", 5, 120, 5, seed=808)
+        return "cas-register", _stack(encs, 8), 8, 8
+    if kind == "codes":
+        arrays, C, V = _random_codes(int(arg))
+        return "cas-register", arrays, C, V
+    spec, C, V, init_hi = RANDOM_FAMILIES[int(arg)]
+    return spec, _random_family_codes(C, init_hi), C, V
+
+
+FIXPOINT_CORPORA = (["synth", "codes:0", "codes:1", "codes:2"]
+                    + [f"family:{i}" for i in range(len(RANDOM_FAMILIES))])
+
+
+@pytest.mark.parametrize("corpus", FIXPOINT_CORPORA)
+def test_closure_settles_within_c_passes(corpus):
+    """At most C closure passes change D at any event of any row, so the
+    pass that confirms the fixpoint is at most pass C + 1 and the C + 2
+    cap never binds: the least fixpoint is reached, whatever the order of
+    updates, which the CUDA kernels' in-place passes rely on."""
+    spec, arrays, C, V = _fixpoint_corpus(corpus)
+    tensors = carry.batch_from_reference(*arrays, device="cpu")
+    checker = dense.make_dense_fn(spec, arrays[1].shape[1], C, V,
+                                  torch.device("cpu"))
+    work: dict = {}
+    checker.reference(*tensors, work=work)
+    assert 1 <= work["max_passes"] <= C
 
 
 def test_permits_tables_equal_reference():
@@ -404,3 +450,19 @@ def test_family_wrappers_count_apart_and_refuse_cpu_tensors():
         "dense_automaton[acquired-permits]",
         "dense_automaton[multi-register]", "dense_queue"}
     assert dense.DENSE_AUTOMATON is dense.DENSE_KERNELS["register"]
+
+
+def test_design_rule_matches_the_kernel_source():
+    """``dense.design`` mirrors the CUDA launch's switch: the register
+    family runs the warp design while S·W ≤ kWarpMaxSW, every other
+    family and shape the block design."""
+    src = (Path(dense.__file__).parent / "csrc" / "dense_automaton.cu")
+    m = re.search(r"#define DENSE_WARP_MAX_SW (\d+)", src.read_text())
+    assert m and int(m.group(1)) == dense.WARP_MAX_SW
+    assert dense.design("register", 8, 8) == "warp"        # the flagship
+    assert dense.design("register", 12, 12) == "warp"      # owner-mutex
+    S_edge = dense.WARP_MAX_SW // 128
+    assert dense.design("register", S_edge, 12) == "warp"
+    assert dense.design("register", S_edge + 1, 12) == "block"
+    for fam in ("reentrant-mutex", "acquired-permits", "multi-register"):
+        assert dense.design(fam, 4, 4) == "block"
