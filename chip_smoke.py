@@ -47,7 +47,16 @@ without its last line.
    capacity (F = 512), at the sufficient rung's capacity (C = 4),
    with two linset words (slot ids moved past 32), with max_closure = 2,
    and on one random batch per step function (register, cas-register,
-   mutex, reentrant mutex, multi-register, unordered queue).
+   mutex, reentrant mutex, multi-register, unordered queue) at F = 16.
+   Then rows built for the kernel's two designs (each line names the
+   design it ran): both sides of the warp/block switch in F (the C = 16
+   rows at the largest warp capacity and twice it) and in C (64 and 65),
+   rows whose first closure pass fills exactly F and F + 1 configs and
+   then carry on over later events (on both designs), rows of one block
+   that finish at different events beside all-padding rows and a row
+   failing at event 0, 131 rows (no multiple of the histories a block
+   holds), valid rows of 2200 events (past the dedup table's cycle of
+   1023 epochs), and C = 32 and 33 (one linset word and two).
 8. frontier end to end — ``check_batch`` on the slice's 1024 histories
    plus 8 crash-heavy 10-process ones, frontier launch counter and
    escalation counter reset just before and read just after: the kernel
@@ -56,7 +65,8 @@ without its last line.
    ``"oracle-overflow"``; device verdicts held against the CPU oracle on
    a 64-history sample.
 9. frontier times — as in 5, for the frontier kernel at the slice's
-   shape (1024 rows, F = 128).
+   shape (1024 rows, F = 128), with its design ("warp" or "block"),
+   registers and spill bytes.
 10. lock and permit families — the dense automaton's reentrant-mutex
     (K1r), register (owner-mutex as cas codes) and acquired-permits
     (K1p) families against their plain versions on the card, at the
@@ -302,6 +312,16 @@ def design_fields(fam: str, S: int, C: int, ptxas: str) -> dict:
             **ptxas_resources(ptxas, kernel_symbol(fam, S, C))}
 
 
+def frontier_design_fields(spec: str, F: int, C: int, ptxas: str) -> dict:
+    """The frontier kernel's design at (F, C) with the registers and spill
+    bytes ptxas reported for the instance a ``spec`` launch runs."""
+    design = wgl.frontier_design(F, C)
+    step = step_kernels.STEP_IDS[spec]
+    fragment = (f"frontier_warp_kernelILi{step}ELi{wgl.linset_words(C)}E"
+                if design == "warp" else f"frontier_search_kernelILi{step}E")
+    return {"design": design, **ptxas_resources(ptxas, fragment)}
+
+
 class RawRegister:
     """The register family's kernel wrapper at ``S`` states with its plain
     version, for shapes no planner gives (S past 32)."""
@@ -327,16 +347,20 @@ def padding_rows(arrays, n):
                  for a, f in zip(arrays, wgl._PAD_FILLS))
 
 
-def failing_at_0(arrays, f, a):
-    """Copies of ``arrays``' rows whose event 0 completes slot 0 alone,
-    with op code ``f`` and value ``a`` (each a number or a per-row array),
-    and no other candidate lane."""
+def failing_at(arrays, events, f=F_READ, a=32000):
+    """Copies of ``arrays``' rows where row i completes, at event
+    ``events[i]`` (None: never), slot 0 alone with op code ``f`` and value
+    ``a`` (each a number or a per-row array; by default a read of a value
+    no register holds, so the row fails there unless it failed before)."""
     init, ev, cs, cf, ca, cb = (x.copy() for x in arrays)
-    ev[:, 0] = 0
-    cs[:, 0, :] = -1
-    cs[:, 0, 0] = 0
-    cf[:, 0, 0] = f
-    ca[:, 0, 0] = a
+    f, a = (np.broadcast_to(x, (len(init),)) for x in (f, a))
+    for i, e in enumerate(events):
+        if e is not None:
+            ev[i, e] = 0
+            cs[i, e, :] = -1
+            cs[i, e, 0] = 0
+            cf[i, e, 0] = f[i]
+            ca[i, e, 0] = a[i]
     return init, ev, cs, cf, ca, cb
 
 
@@ -347,8 +371,8 @@ def register_edges(flagship, V):
     rows among real ones, read-any codes, and C = 12 on both sides of
     the warp/block switch."""
     init = flagship[0][:9]
-    fail0 = failing_at_0(tuple(a[:9] for a in flagship), F_READ,
-                         np.where(init == 0, 1, 0).astype(np.int16))
+    fail0 = failing_at(tuple(a[:9] for a in flagship), [0] * 9, F_READ,
+                       np.where(init == 0, 1, 0).astype(np.int16))
     read_any = tuple(a[:64].copy() for a in flagship)
     read_any[3][read_any[2] >= 0] = F_READ_ANY
     s_warp = dense.WARP_MAX_SW // 128
@@ -525,6 +549,80 @@ def two_word(arrays, C2=40):
             *wide)
 
 
+def fill_rows(F: int, C: int, k: int, E: int = 48, B: int = 8):
+    """Cas-register rows whose first closure pass meets the capacity F:
+    event 0 opens k ops cas(0 -> i + 1) in slots 0..k-1 and completes slot
+    0, so that pass finds 1 + k distinct configs (exactly F at k = F - 1,
+    F + 1 at k = F: an overflow) and the next pass none.  The row carries
+    on: each later event reuses slot 0 for a write, then a read, of a fresh
+    value while the k - 1 other ops stay open (no state is 0 again, so none
+    is accepted), and every odd row reads a wrong value at event 4, 8, 12
+    or 16, a different one per row."""
+    init = np.zeros((B,), np.int32)
+    ev = np.zeros((B, E), np.int32)
+    cs = np.full((B, E, C), -1, np.int8)
+    cf = np.full((B, E, C), F_CAS, np.int8)
+    ca = np.zeros((B, E, C), np.int16)
+    cb = np.zeros((B, E, C), np.int16)
+    cs[:, :, :k] = np.arange(k)
+    cb[:, :, :k] = np.arange(1, k + 1)
+    for e in range(1, E):
+        cf[:, e, 0] = F_WRITE if e % 2 else F_READ
+        ca[:, e, 0] = k + 1 + (e - 1) // 2
+        cb[:, e, 0] = 0
+    for r in range(1, B, 2):
+        ca[r, 2 * (r + 1), 0] += 1000
+    return init, ev, cs, cf, ca, cb
+
+
+def frontier_switch_capacity(C: int) -> int:
+    """The largest power-of-two capacity that runs the warp design at C."""
+    F = 1
+    while wgl.frontier_design(2 * F, C) == "warp":
+        F *= 2
+    return F
+
+
+def frontier_design_edges(slice_arrays, crash_heavy):
+    """(name, spec, arrays, F, max_closure) of the rows around the frontier
+    kernel's two designs: both sides of the warp/block switch in F (the
+    crash-heavy C = 16 rows) and in C (64 and 65), rows whose first pass
+    fills exactly F and F + 1 configs and carry on (on both designs), rows
+    of one block finishing at different events with all-padding rows
+    beside them, a row count no multiple of the histories a block holds,
+    valid rows of 2200 events (past the dedup table's epoch cycle), and
+    C = 32 and 33 (one linset word and two)."""
+    F_w = frontier_switch_capacity(16)
+    C, mc = slice_arrays[2].shape[2], slice_arrays[2].shape[2] + 1
+    apart = failing_at(tuple(a[:9] for a in slice_arrays),
+                       [0, 1, 2, 5, 17, 40, 100, 300, None])
+    return [
+        (f"switch-warp-F{F_w}", "cas-register", crash_heavy, F_w, 17),
+        (f"switch-block-F{2 * F_w}", "cas-register", crash_heavy, 2 * F_w,
+         17),
+        ("switch-warp-C64", "cas-register",
+         random_batch("cas-register", 45260, B=64, E=64, C=64), 16, 65),
+        ("switch-block-C65", "cas-register",
+         random_batch("cas-register", 45261, B=64, E=64, C=65), 16, 66),
+        ("fill-F", "cas-register", fill_rows(16, 16, 15), 16, 17),
+        ("fill-F+1", "cas-register", fill_rows(16, 16, 16), 16, 17),
+        ("fill-F-block", "cas-register", fill_rows(64, 65, 63), 64, 66),
+        ("fill-F+1-block", "cas-register", fill_rows(64, 65, 64), 64, 66),
+        ("finish-apart", "cas-register",
+         with_rows(apart, padding_rows(slice_arrays, 3)),
+         wgl.DEFAULT_FRONTIER, mc),
+        ("B131", "cas-register", tuple(a[:131] for a in slice_arrays),
+         wgl.DEFAULT_FRONTIER, mc),
+        ("E2200", "cas-register",
+         random_batch("cas-register", 45264, B=32, E=2200, p_accept=1.0,
+                      p_stray=0.0), 32, 9),
+        ("C32", "cas-register",
+         random_batch("cas-register", 45262, B=64, E=64, C=32), 16, 33),
+        ("C33", "cas-register",
+         random_batch("cas-register", 45263, B=64, E=64, C=33), 16, 34),
+    ]
+
+
 def frontier_compare(name, spec, arrays, F, mc, device, work=None):
     """The frontier kernel against its plain version on ``arrays``; emits
     one line and returns (kernel outputs, plain seconds, max error)."""
@@ -534,6 +632,7 @@ def frontier_compare(name, spec, arrays, F, mc, device, work=None):
         checker, to_device(arrays, device), work)
     emit(phase="frontier_edge" if name else "frontier", case=name, spec=spec,
          rows=int(B), E=int(E), C=int(C), F=F, max_closure=mc,
+         design=wgl.frontier_design(F, int(C)),
          invalid=int((~ok).sum()), overflowed=int(ovf.sum()),
          max_abs_err=err, plain_s=plain_s, tolerance="exact (byte-equal)")
     return (ok, failed_at, ovf), plain_s, err
@@ -753,8 +852,8 @@ def family_phases(device, card, pick, ptxas=""):
     require(r_dom == 32, f"reentrant edge domain {r_dom}, not 32")
     # rows that fail at event 0 (a release of a free lock) and all-padding
     # rows ride with the reentrant edge
-    r_edge = with_rows(with_rows(r_edge, failing_at_0(
-        tuple(a[:4] for a in r_edge), F_RRELEASE, 1)),
+    r_edge = with_rows(with_rows(r_edge, failing_at(
+        tuple(a[:4] for a in r_edge), [0] * 4, F_RRELEASE, 1)),
         padding_rows(r_edge, 5))
     edges.append(("K1r-V32", "reentrant-mutex", r_edge, 32))
     for name, spec, eb, shape in edges:
@@ -1718,7 +1817,8 @@ def main() -> int:
         ("W2", "cas-register", two_word(short), wgl.DEFAULT_FRONTIER, 41),
         ("max_closure=2", "cas-register", short, wgl.DEFAULT_FRONTIER, 2),
     ] + [(f"random-{spec}", spec, random_batch(spec, 45230 + i), 16, 9)
-         for i, spec in enumerate(RANDOM_OPS)]
+         for i, spec in enumerate(RANDOM_OPS)
+         ] + frontier_design_edges(f_arrays, hc)
     for name, spec, arrays, F, mc in edges:
         _, _, e_err = frontier_compare(name, spec, arrays, F, mc, device)
         f_err = max(f_err, e_err)
@@ -1761,7 +1861,9 @@ def main() -> int:
     f_bound_ms, f_bound_by, f_bytes = kernel_bound(f_arrays, f_failed,
                                                    f_work["int_ops"])
     emit(phase="frontier_times", kernel="frontier_search", rows=int(fB),
-         E=int(fE), C=int(fC), F=wgl.DEFAULT_FRONTIER, ms=f_ms,
+         E=int(fE), C=int(fC), F=wgl.DEFAULT_FRONTIER,
+         **frontier_design_fields("cas-register", wgl.DEFAULT_FRONTIER,
+                                  int(fC), ptxas), ms=f_ms,
          runs_ms=f_all_ms, bound_ms=f_bound_ms, bound_by=f_bound_by,
          bytes=f_bytes, int_ops=f_work["int_ops"], plain_ms=f_plain_s * 1e3,
          e2e_histories_per_s=len(f_hs) / f_e2e_s, library_ms=None,

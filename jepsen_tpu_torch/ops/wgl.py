@@ -19,7 +19,9 @@ does:
   every open op (K3 steps, F·C candidates, exact dedup and compaction
   back to F, K5) and keeps the configs that linearized the completing op.
   On the card that is the CUDA kernel ``csrc/frontier_search.cu`` (K4,
-  with K3 and K5 inside it); with ``device="cpu"`` its plain PyTorch
+  with K3 and K5 inside it: one warp per history with its frontier in
+  shared memory, or one block per history for large capacities,
+  :func:`frontier_design`); with ``device="cpu"`` its plain PyTorch
   version :func:`frontier_check_reference`;
 - a frontier row that overflows (more than F distinct configs, or a
   closure cut at ``max_closure``) reports overflow, never a verdict, and
@@ -85,6 +87,15 @@ ESCALATION_FACTORS = (4,)
 #: largest frontier the guaranteed-sufficient escalation may allocate;
 #: above it the oracle takes the leftovers
 MAX_SUFFICIENT_FRONTIER = 8192
+
+#: the CUDA kernel runs its warp design (one warp per history, the
+#: frontier and its dedup table in shared memory) while C is at most
+#: FRONTIER_WARP_MAX_C and F·(1 + W) + T, the words of F configs and a
+#: table of T ≥ max(4F, 8) slots, at most FRONTIER_WARP_MAX_WORDS;
+#: every other shape its block design (``kWarpMaxC``, ``kWarpMaxWords``
+#: in ``csrc/frontier_search.cu``)
+FRONTIER_WARP_MAX_WORDS = 8192
+FRONTIER_WARP_MAX_C = 64
 
 #: device memory one frontier dispatch may hold: its workspace (the
 #: closure's F·(C+1) candidate lanes, the dedup table, the frontier) plus
@@ -247,8 +258,9 @@ def _closure_pass(st, ws, vl, cs, cf, ca, cb, step, F: int):
     body): expand every config by every open slot it has not linearized,
     append the F·C candidates after the F old lanes (lane F + f·C + c),
     dedup exactly and compact back to F.  Returns ``(states, words,
-    valid, grew, overflowed, cands)``; ``cands`` [n, F] counts each
-    config's valid candidates, for the operation count."""
+    valid, grew, overflowed, cands, born)``; ``cands`` [n, F] counts each
+    config's valid candidates, for the operation count, and ``born``
+    [n, F, C] marks the candidate lanes that survived."""
     n, C = cs.shape
     W = ws.shape[2]
     active = cs >= 0
@@ -271,7 +283,7 @@ def _closure_pass(st, ws, vl, cs, cf, ca, cb, step, F: int):
     v2 = _exact_survivors(all_st, all_ws, all_vl)
     grew = v2[:, F:].any(1)
     s3, w3, v3, count = _compact(all_st, all_ws, v2, F)
-    return s3, w3, v3, grew, count > F, nv.sum(2)
+    return s3, w3, v3, grew, count > F, nv.sum(2), v2[:, F:].view(n, F, C)
 
 
 def _get_bit(ws, slot):
@@ -321,7 +333,13 @@ def frontier_check_reference(
     prefix add); per completion, 3 per valid config (test and clear the
     bit, count it).  Not counted: loads and stores, clearing the dedup
     table, the step's other compares and selects, and the configs a
-    naive closure expands again on every pass (the kernel does)."""
+    naive closure expands again on every pass.
+
+    ``work`` also gains ``"stale_survivors"``: survivors whose parent an
+    earlier closure pass of the same event expanded (0 on every input,
+    which is what lets the kernel expand only the configs the last pass
+    appended), and ``"max_frontier"``: the most configs a frontier held
+    after a closure pass."""
     step = STEPS[spec_name]
     dev = ev_slot.device
     B, E = ev_slot.shape
@@ -335,7 +353,7 @@ def frontier_check_reference(
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     failed_at = torch.full((B,), -1, dtype=torch.int32, device=dev)
     overflow = torch.zeros((B,), dtype=torch.bool, device=dev)
-    int_ops = 0
+    int_ops = stale = max_frontier = 0
 
     for e in range(E):
         # padding events and finished rows leave the carry alone
@@ -354,7 +372,7 @@ def frontier_check_reference(
             live = (changed & ~ovf & (it < max_closure)).nonzero().squeeze(1)
             if live.numel() == 0:
                 break
-            s3, w3, v3, grew, o3, cands = _closure_pass(
+            s3, w3, v3, grew, o3, cands, born = _closure_pass(
                 st[live], ws[live], vl[live], cs[live], cf[live], ca[live],
                 cb[live], step, F)
             if work is not None:
@@ -363,6 +381,8 @@ def frontier_check_reference(
                            + torch.where(it[live] == 0, held, 0))
                 pairs = fr.sum(1) * (cs[live] >= 0).sum(1)
                 int_ops += int((4 * pairs + (2 * W + 3) * inserts).sum())
+                stale += int((born & ~fr[:, :, None]).sum())
+                max_frontier = max(max_frontier, int(v3.sum(1).max()))
                 # the old configs survive first, in order: the rest are new
                 fresh[live] = v3 & (torch.arange(F, device=dev)[None, :]
                                     >= held[:, None])
@@ -390,6 +410,8 @@ def frontier_check_reference(
 
     if work is not None:
         work["int_ops"] = work.get("int_ops", 0) + int_ops
+        work["stale_survivors"] = work.get("stale_survivors", 0) + stale
+        work["max_frontier"] = max(work.get("max_frontier", 0), max_frontier)
     return ~done, failed_at, overflow
 
 
@@ -400,16 +422,33 @@ def frontier_check_reference(
 
 def frontier_row_bytes(F: int, E: int, C: int) -> int:
     """Device bytes one row of a frontier dispatch holds, at most: its
-    inputs (4 + 4E + 6EC), its outputs (6) and the kernel's workspace —
-    for K = F·(C+1) candidate lanes their states, W words each and table
-    slots, a dedup table of under 4K slots, two frontier buffers of F
-    configs, 4-byte elements (the kernel's own count,
-    ``frontier_search_workspace_bytes``, is what the wrapper
-    allocates)."""
+    inputs (4 + 4E + 6EC), its outputs (6) and the block design's
+    workspace — for K = F·(C+1) candidate lanes their states, W words each
+    and table slots, a dedup table of under 4K slots, two frontier buffers
+    of F configs, 4-byte elements (the kernel's own count,
+    ``frontier_search_workspace_bytes``, is what the wrapper allocates:
+    none for a shape that runs the warp design, which keeps its frontier
+    in shared memory)."""
     W = linset_words(C)
     K = F * (C + 1)
     workspace = 4 * (K * (2 + W) + 4 * K + 2 * F * (1 + W)) + 16
     return workspace + 4 + 4 * E + 6 * E * C + 6
+
+
+def frontier_design(F: int, C: int) -> str:
+    """Which design of the CUDA kernel a launch at capacity ``F`` over
+    ``C`` slots runs: ``"warp"`` (one warp per history, the frontier, its
+    dedup table and the event's candidate lanes in the warp's slice of
+    shared memory, no block barrier) while ``C ≤``
+    :data:`FRONTIER_WARP_MAX_C` and F·(1 + W) + T ≤
+    :data:`FRONTIER_WARP_MAX_WORDS` (T the smallest power of two ≥ 4F
+    and ≥ 8), else ``"block"`` (one block per history, its workspace in
+    device memory)."""
+    W = linset_words(C)
+    T = 1 << (max(4 * F, 8) - 1).bit_length()
+    if C <= FRONTIER_WARP_MAX_C and F * (1 + W) + T <= FRONTIER_WARP_MAX_WORDS:
+        return "warp"
+    return "block"
 
 
 def frontier_max_dispatch(F: int, E: int, C: int,
@@ -444,9 +483,11 @@ def check_frontier_inputs(arrays):
 class FrontierSearchKernel:
     """Wrapper of the hand-written CUDA kernel ``csrc/frontier_search.cu``
     (replaces ``jepsen_tpu/ops/wgl.py:build_batched`` with its step
-    functions and exact compaction).  Takes CUDA tensors only, allocates
-    the per-row workspace, launches on the current stream without
-    synchronising, and counts its launches in :attr:`launches`."""
+    functions and exact compaction; :func:`frontier_design` says which of
+    its two designs a shape runs).  Takes CUDA tensors only, allocates
+    the per-row workspace the kernel asks for, launches on the current
+    stream without synchronising, and counts its launches in
+    :attr:`launches`."""
 
     name = "frontier_search"
 

@@ -22,6 +22,8 @@ whose cost is quadratic in F·(C+1).
 """
 
 import random
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from jepsen_tpu import models as ref_models
 from jepsen_tpu import synth as ref_synth
 from jepsen_tpu import history as ref_history
@@ -182,6 +185,11 @@ _PARITY = [
     ("register-F8", "register", lambda: _synth_arrays("register", 2), 8,
      None),
     ("W2-F4", "cas-register", _two_word_arrays, 4, None),
+    # a first pass that finds exactly F configs, and one that finds F + 1
+    ("fill-F", "cas-register", lambda: chip_smoke.fill_rows(16, 16, 15), 16,
+     None),
+    ("fill-F+1", "cas-register", lambda: chip_smoke.fill_rows(16, 16, 16),
+     16, None),
 ] + [(f"{spec}-F8", spec, lambda spec=spec: _random_arrays(spec, i), 8, None)
      for i, spec in enumerate(_RANDOM_OPS)]
 
@@ -197,6 +205,57 @@ def test_plain_version_equals_jax_allpairs(case, spec, make, F, mc):
         assert o.dtype == r.dtype and o.tobytes() == r.tobytes(), name
     if case.startswith(("cas-F4", "cas-mc1", "W2")):
         assert ref[2].any()  # the case reaches overflow/truncation
+    if case == "fill-F":
+        assert not ref[2].any() and (ref[1] > 0).any()
+    if case == "fill-F+1":
+        assert ref[2].all()
+
+
+@pytest.mark.parametrize("case,spec,make,F,mc", _PARITY,
+                         ids=[c[0] for c in _PARITY])
+def test_closure_survivors_come_only_from_the_last_pass(case, spec, make, F,
+                                                        mc):
+    """The semi-naive order the CUDA kernel relies on: no closure pass
+    keeps a candidate whose parent an earlier pass of the same event
+    expanded, on every parity corpus (every step spec, overflowing
+    frontiers, max_closure cuts, two linset words), so expanding only the
+    configs the last pass appended loses nothing.  The frontier never
+    holds more than F configs."""
+    arrays = make()
+    mc = arrays[2].shape[2] + 1 if mc is None else mc
+    work: dict = {}
+    plain = wgl.frontier_check_reference(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays),
+        spec_name=spec, F=F, max_closure=mc, work=work)
+    assert work["stale_survivors"] == 0
+    assert 1 <= work["max_frontier"] <= F
+    # the counts leave the outputs alone
+    assert [x.numpy().tobytes() for x in plain] == [
+        x.tobytes() for x in _ours(arrays, spec, F, mc)]
+
+
+def test_frontier_design_matches_the_kernel_source():
+    """``wgl.frontier_design`` mirrors the CUDA launch's switch: the warp
+    design while C ≤ kWarpMaxC and F·(1 + W) + T ≤ kWarpMaxWords (T the
+    table's power of two ≥ 4F and ≥ 8), the block design beyond."""
+    src = (Path(wgl.__file__).parent / "csrc" / "frontier_search.cu"
+           ).read_text()
+    words = re.search(r"#define FRONTIER_WARP_MAX_WORDS (\d+)", src)
+    max_c = re.search(r"constexpr int kWarpMaxC = (\d+);", src)
+    assert words and int(words.group(1)) == wgl.FRONTIER_WARP_MAX_WORDS
+    assert max_c and int(max_c.group(1)) == wgl.FRONTIER_WARP_MAX_C
+    design = wgl.frontier_design
+    # the slice, its first escalation rung, phase 19's mesh, the queue
+    for F, C in ((128, 8), (512, 8), (512, 16), (32, 8), (256, 8)):
+        assert design(F, C) == "warp"
+    # F: 1024 configs of two words and a 4096-slot table take 7168 words
+    assert design(1024, 32) == "warp" and design(2048, 8) == "block"
+    assert design(1024, 64) == "warp" and design(1025, 8) == "block"
+    # C: two linset words at most
+    assert design(16, 64) == "warp" and design(16, 65) == "block"
+    # the sufficient rung's large capacities
+    assert design(4096, 4) == "block" and design(8192, 12) == "block"
+    assert chip_smoke.frontier_switch_capacity(16) == 1024
 
 
 @pytest.mark.parametrize("spec,make", [
