@@ -102,8 +102,12 @@ without its last line.
     random stacks at n = 32 … 1024; the screen at the list-append
     strict-serializable profile (n = 512, 6 filter masks, 2 lifted
     queries) on the corpus's 64 graphs tiled to 1024 rows; edges: a
-    512-vertex ring (the most rounds), all-zero rows, graphs of exactly
-    512 vertices, has-cycle rings at 512 and 1024.
+    512-vertex ring (the most rounds), a ring whose walks take the
+    want→rest hop 256 times, want edges into vertices with no rest
+    out-edge, the smallest screen (n = 32), all-zero rows, graphs of
+    exactly 512 vertices, has-cycle rings at 32 and 64 (both sides of the
+    warp/shared switch), 512 and 1024, and 1023 version graphs (the last
+    warp holds one plane).  Each line names the design the shape runs.
 16. Elle end to end — ``elle.check_batch`` at bench.py:1282's shape (64
     histories × 400 transactions × 32 keys from ``synth``, the injected
     G1c in every 4th): list-append strict-serializable and rw-register
@@ -114,9 +118,14 @@ without its last line.
     route's; histories/s for both routes and the route counts.
 17. Elle times — each kernel at a 1024-row stack (has-cycle on the
     version graphs, the screen on phase 15's stack): median of 7 with
-    CUDA events, its bound (the plain version's operations, or the
-    bytes), the plain version's time, and ``library_ms``: the same fixed
-    squaring ladder as one thresholded bf16 ``torch.bmm`` per round.
+    CUDA events around the wrapper, ``device_ms`` (launches captured in
+    one CUDA graph and replayed: the device's time without the wrapper's
+    host time), its design with the registers and spill bytes ptxas
+    reported, its bound (the operations of the algorithm the kernel runs,
+    from its plain twin ``cycles.reduced_screen``, or the bytes) beside
+    the squaring's count and bound, the plain version's time, and
+    ``library_ms``: the same fixed squaring ladder as one thresholded
+    bf16 ``torch.bmm`` per round.
 
 18. queue — the unordered-queue automaton (K2, ``dense_queue_launch`` in
     ``dense_automaton.cu``) against its plain version at
@@ -408,6 +417,30 @@ def time_kernel(checker, arrays, reps=7, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times)), times
+
+
+def graph_ms(run, args, launches=20, reps=7):
+    """Median ms a launch takes when ``launches`` of them are captured back
+    to back in one CUDA graph and replayed: the device's time, without the
+    host's wrapper between the CUDA events of :func:`time_kernel`."""
+    run(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            run(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
 
 
 def edge_cases():
@@ -1039,13 +1072,14 @@ def screen_pair(mode, masks=ELLE_MASKS, nonadj=ELLE_NONADJ):
                                                     work))
 
 
-def ring_relation(n, rows):
-    """Row 0: a ring through all n vertices, every edge ww and every other
-    one also rw (nonadjacent rw edges: each vertex has a walk); the other
-    rows are all-zero."""
+def ring_relation(n, rows, pattern=(1, 1 | 4)):
+    """Row 0: a ring through all n vertices whose edge i carries
+    ``pattern[i % len(pattern)]`` (by default every edge ww and every
+    other one also rw: nonadjacent rw edges, so each vertex with an rw
+    out-edge has a walk); the other rows are all-zero."""
     rel = np.zeros((rows, n, n), np.uint8)
     for i in range(n):
-        rel[0, i, (i + 1) % n] = 1 | (4 if i % 2 else 0)
+        rel[0, i, (i + 1) % n] = pattern[i % len(pattern)]
     return rel
 
 
@@ -1154,19 +1188,52 @@ def elle_end_to_end(name, workload, models, hs, card):
     return launches, dev_s
 
 
-def elle_phases(device, card):
-    """Phases 15-17; returns the ``{"kernels": [...]}`` entries of the
-    has-cycle and screen kernels."""
-    la_hs = elle_histories("append", 47100)
-    rw_hs = elle_histories("wr", 47200)
+def want_into_dead_ends(n, rows, seed):
+    """Random relations (2/n, every Elle bit) in which a third of the
+    vertices keep only rw out-edges, and rw edges lead into them: walks
+    whose first want hop lands where no rest edge leaves."""
+    rng = np.random.default_rng(seed)
+    rel = (rng.choice([1, 2, 4, 8, 16, 5, 6, 17], size=(rows, n, n))
+           * (rng.random((rows, n, n)) < 2.0 / n)).astype(np.uint8)
+    dead = rng.random((rows, n)) < 1 / 3
+    rel[dead] &= np.uint8(4)
+    into = (rng.random((rows, n, n)) < 2.0 / n) & dead[:, None, :]
+    rel[into] |= np.uint8(4)
+    return rel
 
-    # -- 15. kernels against their plain versions -----------------------
+
+def cycles_kernels(kind, mode, n):
+    """Mangled-name fragments of the ``cycles_closure.cu`` kernels a
+    launch runs (ptxas reports registers and spills under them)."""
+    if kind == "has_cycle":
+        return [{"warp": f"has_cycle_warp_kernelILi{n}E",
+                 "double": f"has_cycle_double_kernelILi{n // 32}E",
+                 "single": "has_cycle_kernelILi32E"}[
+                     cycles.has_cycle_design(n)]]
+    out = [f"screen_kernelILi{n // 32}E"]
+    if cycles.screen_design(mode, n) == "lifted":
+        out.append(f"screen_lifted_kernelILi{n // 16}E")
+    return out
+
+
+def cycles_design(kind, mode, n):
+    if kind == "has_cycle":
+        return cycles.has_cycle_design(n)
+    return {"filter": "double", "walks": cycles.screen_design(mode, n)}
+
+
+def elle_kernel_phase(device, la_hs, rw_hs):
+    """Phase 15: both entry points against their plain versions, both
+    modes, at the corpus stacks, random stacks and edge rows.  Returns
+    (version-graph stack, list-append stack, has-cycle max error, screen
+    max error, the screen's plain seconds and squaring count by mode)."""
     vg = version_graph_stack(rw_hs)
     vg_dev = torch.from_numpy(vg).to(device)
     hc_err = 0
     for mode in ("fixed", "earlyexit"):
         _, err, _ = cycles_compare("version-graphs", *has_cycle_pair(mode),
-                                   vg_dev, entry="has_cycle", mode=mode)
+                                   vg_dev, entry="has_cycle", mode=mode,
+                                   design=cycles_design("has_cycle", mode, 16))
         hc_err = max(hc_err, err)
     rng = np.random.default_rng(47300)
     for n in HAS_CYCLE_SIZES:
@@ -1177,7 +1244,9 @@ def elle_phases(device, card):
         for mode in ("fixed", "earlyexit"):
             _, err, _ = cycles_compare(f"random-n{n}", *has_cycle_pair(mode),
                                        torch.from_numpy(adj).to(device),
-                                       entry="has_cycle", mode=mode)
+                                       entry="has_cycle", mode=mode,
+                                       design=cycles_design("has_cycle", mode,
+                                                            n))
             hc_err = max(hc_err, err)
     rel_np, n_max = list_append_stack(la_hs)
     rel = torch.from_numpy(rel_np).to(device)
@@ -1185,11 +1254,22 @@ def elle_phases(device, card):
     for mode in ("fixed", "earlyexit"):
         plain_s, err, ops = cycles_compare(
             "list-append-1024", *screen_pair(mode), rel, entry="screen",
-            mode=mode, largest_graph=n_max)
+            mode=mode, largest_graph=n_max,
+            design=cycles_design("screen", mode, ELLE_N))
         sc_plain[mode] = (plain_s, ops)
         sc_err = max(sc_err, err)
+    small = np.random.default_rng(47410)
     edge_cases = [
         ("screen", "ring-512", torch.from_numpy(ring_relation(512, 8))),
+        # want, rest, want, rest ...: each walk takes 256 want→rest hops
+        ("screen", "ring-many-hops-512",
+         torch.from_numpy(ring_relation(512, 8, (4, 2, 4, 1)))),
+        ("screen", "want-into-dead-ends-512",
+         torch.from_numpy(want_into_dead_ends(512, 16, 47420))),
+        ("screen", "smallest-n32", torch.from_numpy(
+            (small.integers(0, 32, size=(ELLE_EDGE_ROWS, 32, 32))
+             * (small.random((ELLE_EDGE_ROWS, 32, 32)) < 3.0 / 32)
+             ).astype(np.uint8))),
         ("screen", "zeros-512", torch.zeros((ELLE_EDGE_ROWS, 512, 512),
                                             dtype=torch.uint8)),
         ("screen", "graph-of-512", torch.from_numpy(elle_encode.stack_rel(
@@ -1200,17 +1280,38 @@ def elle_phases(device, card):
             (ring_relation(1024, 4) > 0).astype(np.uint8))),
         ("has_cycle", "zeros-W1-n16", torch.zeros((ELLE_EDGE_ROWS, 16, 16),
                                                   dtype=torch.uint8)),
+        # an odd count of n = 16 graphs: the last warp holds one plane
+        ("has_cycle", "version-graphs-1023", torch.from_numpy(
+            vg[np.arange(1023) % len(vg)])),
+        # both sides of the warp/shared switch
+        ("has_cycle", "ring-32", torch.from_numpy(
+            (ring_relation(32, 8) > 0).astype(np.uint8))),
+        ("has_cycle", "ring-64", torch.from_numpy(
+            (ring_relation(64, 8) > 0).astype(np.uint8))),
     ]
     for kind, case, x in edge_cases:
         for mode in ("fixed", "earlyexit"):
             pair = screen_pair(mode) if kind == "screen" else \
                 has_cycle_pair(mode)
-            _, err, _ = cycles_compare(case, *pair, x.to(device),
-                                       entry=kind, mode=mode)
+            _, err, _ = cycles_compare(
+                case, *pair, x.to(device), entry=kind, mode=mode,
+                design=cycles_design(kind, mode, int(x.shape[-1])))
             if kind == "screen":
                 sc_err = max(sc_err, err)
             else:
                 hc_err = max(hc_err, err)
+    return vg, rel, hc_err, sc_err, sc_plain
+
+
+def elle_phases(device, card, ptxas=""):
+    """Phases 15-17; returns the ``{"kernels": [...]}`` entries of the
+    has-cycle and screen kernels."""
+    la_hs = elle_histories("append", 47100)
+    rw_hs = elle_histories("wr", 47200)
+
+    # -- 15. kernels against their plain versions -----------------------
+    vg, rel, hc_err, sc_err, sc_plain = elle_kernel_phase(device, la_hs,
+                                                          rw_hs)
 
     # -- 16. end to end through elle.check_batch -------------------------
     la_launches, la_s = elle_end_to_end(
@@ -1231,38 +1332,66 @@ def elle_phases(device, card):
     torch.cuda.synchronize()
     hc_plain_s = time.perf_counter() - t0
     hc_ms, hc_all = time_kernel(cycles.HAS_CYCLE, (vg_t,))
+    hc_device_ms = graph_ms(cycles.HAS_CYCLE, (vg_t,))
     hc_lib_ms, _ = time_kernel(library_has_cycle, (vg_t,))
     require(np.array_equal(library_has_cycle(vg_t).cpu().numpy(),
                            cycles.HAS_CYCLE(vg_t)[0].cpu().numpy()),
             "the bmm ladder disagrees with the has-cycle kernel")
     B, n = vg_rows.shape[0], vg_rows.shape[-1]
     hc_bytes = B * n * n + B + 4 * B
+    # the warp design runs full Jacobi rounds: its count is the squaring's
     hc_bound, hc_by = cycles_bound(hc_bytes, hc_work["int_ops"])
     sc_ms, sc_all = time_kernel(
         lambda t: cycles.SCREEN(t, ELLE_MASKS, ELLE_NONADJ), (rel,))
+    sc_device_ms = graph_ms(
+        lambda t: cycles.SCREEN(t, ELLE_MASKS, ELLE_NONADJ), (rel,),
+        launches=5)
     sc_lib_ms, _ = time_kernel(library_screen, (rel,), reps=3, warmup=1)
     lib_m, lib_w = library_screen(rel)
-    k_m, k_w, _ = cycles.SCREEN(rel, ELLE_MASKS, ELLE_NONADJ)
+    k_m, k_w, k_r = cycles.SCREEN(rel, ELLE_MASKS, ELLE_NONADJ)
     require(torch.equal(lib_m, k_m) and torch.equal(lib_w, k_w),
             "the bmm ladder disagrees with the screen kernel")
     del lib_m, lib_w
+    # the count of the algorithm the kernel runs, from its plain twin
+    sc_twin: dict = {}
+    t_m, t_w, t_r = cycles.reduced_screen(rel, ELLE_MASKS, ELLE_NONADJ,
+                                          "fixed", sc_twin)
+    require(torch.equal(t_m, k_m) and torch.equal(t_w, k_w)
+            and torch.equal(t_r, k_r),
+            "the screen's plain twin disagrees with the kernel")
+    require(sc_twin["stale_rows"] == 0, "the semi-naive closure went stale")
+    del t_m, t_w
     B, n = rel.shape[0], rel.shape[-1]
     sc_bytes = B * n * n + B * (len(ELLE_MASKS) + len(ELLE_NONADJ)) * n \
         + 4 * B
-    sc_plain_s, sc_ops = sc_plain["fixed"]
-    sc_bound, sc_by = cycles_bound(sc_bytes, sc_ops)
+    sc_plain_s, sc_ops_sq = sc_plain["fixed"]
+    sc_bound, sc_by = cycles_bound(sc_bytes, sc_twin["int_ops"])
+    sc_bound_sq, sc_by_sq = cycles_bound(sc_bytes, sc_ops_sq)
+    hc_regs = {k: ptxas_resources(ptxas, k)
+               for k in cycles_kernels("has_cycle", "fixed", 16)}
+    sc_regs = {k: ptxas_resources(ptxas, k)
+               for k in cycles_kernels("screen", "fixed", ELLE_N)}
     emit(phase="elle_times", kernel=cycles.HAS_CYCLE.name,
-         case="version-graphs", rows=ELLE_STACK_ROWS, n=16, ms=hc_ms,
-         runs_ms=hc_all, bound_ms=hc_bound, bound_by=hc_by, bytes=hc_bytes,
-         int_ops=hc_work["int_ops"], plain_ms=hc_plain_s * 1e3,
+         case="version-graphs", rows=ELLE_STACK_ROWS, n=16, mode="fixed",
+         design=cycles_design("has_cycle", "fixed", 16), resources=hc_regs,
+         ms=hc_ms, runs_ms=hc_all, device_ms=hc_device_ms,
+         bound_ms=hc_bound, bound_by=hc_by,
+         bytes=hc_bytes, int_ops=hc_work["int_ops"],
+         int_ops_squaring=hc_work["int_ops"], bound_ms_squaring=hc_bound,
+         bound_by_squaring=hc_by, plain_ms=hc_plain_s * 1e3,
          library_ms=hc_lib_ms,
          library="bf16 torch.bmm per round, thresholded (fixed ladder)",
          e2e_histories_per_s=len(rw_hs) / rw_s, card=card)
     emit(phase="elle_times", kernel=cycles.SCREEN.name,
          case="list-append-strict-serializable", rows=ELLE_STACK_ROWS,
-         n=ELLE_N, F=len(ELLE_MASKS), Q=len(ELLE_NONADJ), ms=sc_ms,
-         runs_ms=sc_all, bound_ms=sc_bound, bound_by=sc_by, bytes=sc_bytes,
-         int_ops=sc_ops, plain_ms=sc_plain_s * 1e3, library_ms=sc_lib_ms,
+         n=ELLE_N, F=len(ELLE_MASKS), Q=len(ELLE_NONADJ), mode="fixed",
+         design=cycles_design("screen", "fixed", ELLE_N), resources=sc_regs,
+         ms=sc_ms, runs_ms=sc_all, device_ms=sc_device_ms,
+         bound_ms=sc_bound, bound_by=sc_by,
+         bytes=sc_bytes, int_ops=sc_twin["int_ops"],
+         int_ops_squaring=sc_ops_sq, bound_ms_squaring=sc_bound_sq,
+         bound_by_squaring=sc_by_sq, plain_ms=sc_plain_s * 1e3,
+         library_ms=sc_lib_ms,
          library="bf16 torch.bmm per round, thresholded (fixed ladder)",
          e2e_histories_per_s=len(la_hs) / la_s, card=card)
     return [{
@@ -1875,7 +2004,7 @@ def main() -> int:
     err = max(err, owner_err)
 
     # -- 15-17. the Elle screens -------------------------------------------
-    elle_entries = elle_phases(device, card)
+    elle_entries = elle_phases(device, card, ptxas)
 
     # -- 18. the unordered-queue automaton ----------------------------------
     queue_entry = queue_phase(device, card)

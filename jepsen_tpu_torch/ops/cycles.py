@@ -31,8 +31,13 @@ bit ``k`` of row ``i``.  Three forms of each function live here:
 
 - the plain PyTorch versions (:func:`has_cycle_reference`,
   :func:`screen_reference`, :func:`packed_closure`), on int64 tensors
-  that carry the 32-bit words (``uint32`` has no shifts on the CPU);
-  each takes ``work=`` and adds the kernel's own 32-bit operations;
+  that carry the 32-bit words (``uint32`` has no shifts on the CPU),
+  the byte-equality oracle of the kernel; each takes ``work=`` and adds
+  the squaring's 32-bit operations.  Beside them the plain twins of the
+  kernel's own arithmetic, :func:`semi_naive_closure` and
+  :func:`reduced_screen` (same outputs; ``work=`` counts what the kernel
+  runs), and the mirrors of its design switches,
+  :func:`has_cycle_design` and :func:`screen_design`;
 - the wrappers :data:`HAS_CYCLE` and :data:`SCREEN` of the hand-written
   CUDA kernel ``csrc/cycles_closure.cu``, each with its launch counter;
 - :func:`has_cycle` / :func:`screen`, which take the kernel for a CUDA
@@ -86,6 +91,16 @@ MAX_FILTERS, MAX_LIFTED = 8, 4
 #: elements of the plain closure's squaring transient per chunk of
 #: planes (int64: 512 MB)
 _PLAIN_CHUNK_ELEMS = 1 << 26
+
+#: the kernel's designs, mirrored from ``csrc/cycles_closure.cu``
+#: (``kHasCycleWarpMaxN``, ``kDoubleMaxN``, ``CYCLES_REDUCED_LIFTED``):
+#: has-cycle keeps a plane in a warp's registers up to
+#: ``HAS_CYCLE_WARP_MAX_N`` vertices and in two shared-memory copies up to
+#: ``DOUBLE_MAX_N``; the fixed-mode screen closes each lifted query as an
+#: n-vertex plane while ``REDUCED_LIFTED``
+HAS_CYCLE_WARP_MAX_N = 32
+DOUBLE_MAX_N = 512
+REDUCED_LIFTED = True
 
 
 def _bucket(n: int) -> int:
@@ -199,6 +214,106 @@ def packed_closure(words: torch.Tensor, n: int, mode: str = "fixed",
     return rw, int(first.max()) if P else 1
 
 
+def has_cycle_design(n: int) -> str:
+    """Which design of the has-cycle kernel a launch over ``n``-vertex
+    graphs runs: ``"warp"`` (a row a lane, ⌊32/n⌋ planes a warp, rounds
+    by shuffles), ``"double"`` (two shared-memory copies of the plane,
+    :func:`semi_naive_closure`) or ``"single"`` (one copy, the Jacobi
+    round of :func:`packed_closure` staged in registers)."""
+    if n <= HAS_CYCLE_WARP_MAX_N:
+        return "warp"
+    return "double" if n <= DOUBLE_MAX_N else "single"
+
+
+def screen_design(mode: str, n: int) -> str:
+    """How the screen kernel answers the nonadjacent-walk queries over
+    ``n``-vertex graphs: ``"reduced"`` (each query closed as the n-vertex
+    plane ``M = Rs ∪ Wn·Rs``, :func:`reduced_screen`; ``"fixed"`` mode,
+    whose round count does not depend on the data) or ``"lifted"`` (the
+    2n-vertex lifted plane, whose first unchanged round ``"earlyexit"``
+    reports; and past :data:`DOUBLE_MAX_N`, where M's two copies would
+    not fit).  The filter planes always run :func:`semi_naive_closure`."""
+    _check_mode(mode)
+    if mode == "fixed" and REDUCED_LIFTED and n <= DOUBLE_MAX_N:
+        return "reduced"
+    return "lifted"
+
+
+def _square_sel(sel: torch.Tensor, rw: torch.Tensor, n: int) -> torch.Tensor:
+    """``sq[p, i] = OR of row k of rw over the set bits k of sel[p, i]``
+    for ``(P, rows, W)`` word stacks over ``n`` columns (rows of ``rw``)."""
+    reach = unpack_words(sel, n)
+    zero = torch.zeros((), dtype=rw.dtype, device=rw.device)
+    return _or_reduce(torch.where(reach[..., None], rw[:, None, :, :], zero),
+                      2)
+
+
+def _row_bits(words: torch.Tensor, n: int) -> torch.Tensor:
+    """Set bits of each row of a ``(..., W)`` word stack."""
+    return unpack_words(words, n).sum(-1)
+
+
+def semi_naive_closure(words: torch.Tensor, n: int, mode: str = "fixed",
+                       work: Optional[dict] = None):
+    """The kernel's closure for planes of up to :data:`DOUBLE_MAX_N` rows:
+    the rounds of :func:`packed_closure`, each row OR-ing in only the rows
+    that can add to it.  With ``Δ_t[i] = r_t[i] & ~r_{t-1}[i]`` and
+    ``C_t`` the rows that changed in round t − 1, round t ORs row k into
+    row i for k in ``r_t[i] & (Δ_t[i] | C_t)``: any other k of ``r_t[i]``
+    was in ``r_{t-1}[i]`` with an unchanged row, already OR-ed in.  Round
+    1 takes every set bit; a row with nothing to OR in is skipped.  Same
+    outputs as :func:`packed_closure`, plane by plane and round by round.
+
+    ``work["int_ops"]`` gains the kernel's own count for every round it
+    runs, the final unchanged one included: per row the word operations
+    that form its iteration set, and for every row not skipped one OR per
+    set bit per word plus the OR into the row and the compare.
+    ``work["stale_rows"]`` gains the rows whose round differs from the
+    full Jacobi round (computed only when ``work`` is given; 0 when the
+    order is exact), and ``work["plane_rounds"]`` is set to each plane's
+    first unchanged round (``closure_rounds(n)`` if every round changed
+    it)."""
+    _check_mode(mode)
+    R = closure_rounds(n)
+    P, rows, W = words.shape
+    cur = words.to(torch.int64).clone()
+    prev = cur.clone()
+    changed = torch.ones((P, rows), dtype=torch.bool, device=cur.device)
+    first = torch.full((P,), R, dtype=torch.int64, device=cur.device)
+    active = torch.arange(P, device=cur.device)
+    per = max(1, _PLAIN_CHUNK_ELEMS // max(1, rows * rows * W))
+    for rnd in range(1, R + 1):
+        if active.numel() == 0:
+            break
+        still = []
+        for lo in range(0, active.numel(), per):
+            idx = active[lo:lo + per]
+            x = cur[idx]
+            sel = x & ((x & ~prev[idx]) | pack_words(changed[idx])[:, None])
+            new = x | _square_sel(sel, x, n)
+            row_changed = (new != x).any(-1)
+            if work is not None:
+                full = x | _square_sel(x, x, n)
+                run = (sel != 0).any(-1) | (rnd == 1)
+                work["int_ops"] = work.get("int_ops", 0) + rows * W * len(
+                    idx) + int((W * _row_bits(sel, n)[run]).sum()) + \
+                    2 * W * int(run.sum())
+                work["stale_rows"] = work.get("stale_rows", 0) + int(
+                    (full != new).any(-1).sum())
+            prev[idx] = x
+            cur[idx] = new
+            changed[idx] = row_changed
+            plane = row_changed.any(-1)
+            first[idx[~plane]] = rnd
+            still.append(idx[plane])
+        active = torch.cat(still)
+    if work is not None:
+        work["plane_rounds"] = first
+    if mode == "fixed":
+        return cur, R
+    return cur, int(first.max()) if P else 1
+
+
 def _diagonal(words: torch.Tensor, n: int) -> torch.Tensor:
     """``(P, n, W)`` closure words → ``(P, n)`` bool ``c[v, v]``."""
     v = torch.arange(n, device=words.device)
@@ -273,6 +388,70 @@ def screen_reference(rel: torch.Tensor, masks: Sequence[int],
         aw = torch.stack([(rel & w) > 0 for w, _ in nonadj], dim=1)
         reach = c[:, :, n:, :n]  # from (·, 1) to (·, 0), ≥ 1 step
         walks = (aw & reach.transpose(-1, -2)).any(-1)
+        used += uw
+    rounds = torch.full((B,), used, dtype=torch.int32, device=rel.device)
+    return members, walks, rounds
+
+
+def reduced_screen(rel: torch.Tensor, masks: Sequence[int],
+                   nonadj: Sequence[Tuple[int, int]], mode: str = "fixed",
+                   work: Optional[dict] = None):
+    """Plain version of what the screen kernel computes, with the outputs
+    of :func:`screen_reference`.  Members are the diagonals of the filter
+    planes closed by :func:`semi_naive_closure`.  A nonadjacent-walk query
+    (want, rest) on the ``"reduced"`` design (:func:`screen_design`):
+    with ``Wn = rel & want``, ``Rs = rel & rest`` and the n-vertex plane
+    ``M = Rs ∪ Wn·Rs``, ``walk[v] = ∃k: (Wn·Rs)[v, k] ∧ (k = v ∨
+    M⁺[k, v])`` — from (j, 1) the lifted walk's first step is a rest edge
+    into state 0, and every path between state-0 vertices is a chain of
+    "rest" or "want then rest" steps, the edges of M.  On the
+    ``"lifted"`` design the query closes the 2n-vertex lifted plane as
+    :func:`screen_reference` does.
+
+    ``work["int_ops"]`` counts the kernel's own operations: the
+    semi-naive closures (:func:`semi_naive_closure`), M's product (one OR
+    per want bit per word, and the OR of ``Rs[v]``), the product again
+    at read-out (the kernel recomputes ``Wn·Rs``; the closure took both
+    of its planes) and one bit test per set bit of ``Wn·Rs``; a lifted
+    plane counts as in :func:`packed_closure`."""
+    B, n = check_relations(rel)
+    rel = rel.to(torch.uint8)
+    F, Q = len(masks), len(nonadj)
+    W = word_count(n)
+    used = 0
+    members = torch.zeros((B, F, n), dtype=torch.bool, device=rel.device)
+    walks = torch.zeros((B, Q, n), dtype=torch.bool, device=rel.device)
+    if F:
+        marr = torch.tensor(list(masks), dtype=torch.uint8,
+                            device=rel.device)
+        planes = (rel[:, None] & marr[None, :, None, None]) > 0
+        closed, um = semi_naive_closure(
+            pack_words(planes.reshape(B * F, n, n)), n, mode, work)
+        members = _diagonal(closed, n).reshape(B, F, n)
+        used += um
+    if Q and screen_design(mode, n) == "reduced":
+        eye = torch.eye(n, dtype=torch.bool, device=rel.device)
+        for q, (want, rest) in enumerate(nonadj):
+            wn = pack_words((rel & want) > 0)
+            rs = pack_words((rel & rest) > 0)
+            wr = _square_sel(wn, rs, n)
+            closed, _ = semi_naive_closure(rs | wr, n, "fixed", work)
+            star = unpack_words(closed, n) | eye
+            hops = unpack_words(wr, n)
+            walks[:, q] = (hops & star.transpose(-1, -2)).any(-1)
+            if work is not None:
+                work["int_ops"] = work.get("int_ops", 0) + (
+                    2 * W * int(_row_bits(wn, n).sum()) + B * n * W
+                    + int(hops.sum()))
+        used += closure_rounds(2 * n)
+    elif Q:
+        stack = torch.stack([lifted(rel, w, r) for w, r in nonadj], dim=1)
+        closed, uw = packed_closure(
+            pack_words(stack.reshape(B * Q, 2 * n, 2 * n)), 2 * n, mode,
+            work)
+        c = unpack_words(closed, 2 * n).reshape(B, Q, 2 * n, 2 * n)
+        aw = torch.stack([(rel & w) > 0 for w, _ in nonadj], dim=1)
+        walks = (aw & c[:, :, n:, :n].transpose(-1, -2)).any(-1)
         used += uw
     rounds = torch.full((B,), used, dtype=torch.int32, device=rel.device)
     return members, walks, rounds

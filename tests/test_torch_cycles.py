@@ -10,6 +10,9 @@ Inputs come from numpy seeds.  The CUDA kernel is held against the same
 plain versions on the card by ``chip_smoke.py``.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -204,6 +207,177 @@ def test_screen_matches_reference_every_diameter(n):
             _assert_same(_port_screen(rel, FULL_MASKS, FULL_NONADJ, mode),
                          _ref_screen(rel, FULL_MASKS, FULL_NONADJ, mode),
                          (n, d, mode))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's own arithmetic: the semi-naive closure and the reduced screen
+# ---------------------------------------------------------------------------
+
+
+def _walk_ring(n, pattern):
+    """Row 0: a ring through all n vertices whose edge i carries
+    ``pattern[i % len(pattern)]``; row 1: the same edges as a chain."""
+    rel = np.zeros((2, n, n), np.uint8)
+    for i in range(n):
+        rel[0, i, (i + 1) % n] = pattern[i % len(pattern)]
+    for i in range(n - 1):
+        rel[1, i, i + 1] = pattern[i % len(pattern)]
+    return rel
+
+
+def _reduced_case(case, n):
+    """(masks, nonadj, rel) of one reduced-screen case at ``n``."""
+    rng = np.random.default_rng(3200 + n + sum(map(ord, case)))
+    if case.startswith("density-"):
+        return FULL_MASKS, FULL_NONADJ, _random_rel(
+            rng, n, p=float(case.split("-")[1]) / n)
+    if case == "diagonal":
+        rel = _random_rel(rng, n, p=2.0 / n)
+        rel[:, np.arange(n), np.arange(n)] = rng.integers(
+            0, 32, size=(rel.shape[0], n)).astype(np.uint8)
+        return FULL_MASKS, FULL_NONADJ, rel
+    if case == "no-want":  # no rw bit anywhere: no walk
+        rel = _random_rel(rng, n, p=4.0 / n) & np.uint8(0b11011)
+        return (1, 3, 7), ((4, 3),), rel
+    if case == "ring":  # every edge ww and rw: every vertex walks
+        return FULL_MASKS, FULL_NONADJ, _walk_ring(n, (1 | 4,))
+    if case == "ring-many-hops":  # want, rest, want, rest ...: n/2 hops
+        return FULL_MASKS, FULL_NONADJ, _walk_ring(n, (4, 2, 4, 1))
+    raise ValueError(case)
+
+
+REDUCED_CASES = ("density-0.5", "density-1", "density-2", "density-4",
+                 "diagonal", "no-want", "ring", "ring-many-hops")
+
+
+@pytest.mark.parametrize("n", (32, 64, 128))
+@pytest.mark.parametrize("case", REDUCED_CASES)
+def test_reduced_screen_matches_reference(case, n):
+    """The screen's arithmetic on the card (filter planes by the
+    semi-naive closure, each walk query closed as the n-vertex plane
+    M = Rs ∪ Wn·Rs) equals the reference's packed screen and the port's
+    lifted plain version, in both modes."""
+    masks, nonadj, rel = _reduced_case(case, n)
+    for mode in MODES:
+        got = cycles.reduced_screen(torch.from_numpy(rel), masks, nonadj,
+                                    mode)
+        _assert_same(got, _ref_screen(rel, masks, nonadj, mode),
+                     (case, n, mode))
+        _assert_same(got, _port_screen(rel, masks, nonadj, mode),
+                     (case, n, mode))
+    if case.startswith("ring"):  # a walk from each want edge's tail
+        tails = torch.from_numpy((rel[0] & 4).any(-1))
+        assert (got[1][0] == tails).all() and tails.any()
+        assert not got[1][1].any()
+    if case == "no-want":
+        assert not got[1].any()
+
+
+def _corpus_planes(corpus, n):
+    """Word planes of an "every diameter" corpus at ``n``: has-cycle's
+    rings and chains, or the screen's rings and chains under every filter
+    mask and as reduced walk planes M."""
+    planes = []
+    for d in range(1, n + 1):
+        if corpus == "has-cycle":
+            planes.append(_ring_and_chain(n, d) > 0)
+            continue
+        rel = _diameter_rel(n, d)
+        planes += [(rel & m) > 0 for m in FULL_MASKS]
+        for want, rest in FULL_NONADJ:
+            rs = cycles.pack_words(torch.from_numpy((rel & rest) > 0))
+            wn = cycles.pack_words(torch.from_numpy((rel & want) > 0))
+            m_plane = rs | cycles._square_sel(wn, rs, n)
+            planes.append(cycles.unpack_words(m_plane, n).numpy())
+    return cycles.pack_words(torch.from_numpy(np.concatenate(planes)))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("corpus", ("has-cycle", "screen"))
+def test_semi_naive_closure_is_the_full_jacobi_round(corpus, n):
+    """Every round of the semi-naive closure gives the full Jacobi round's
+    rows (``stale_rows`` = 0), so each plane closes to the same words and
+    stops at the same first unchanged round as :func:`packed_closure`, in
+    both modes, on every diameter."""
+    words = torch.unique(_corpus_planes(corpus, n), dim=0)
+    want, want_rounds = cycles.packed_closure(words, n, "earlyexit")
+    work: dict = {}
+    got, rounds = cycles.semi_naive_closure(words, n, "earlyexit", work)
+    assert work["stale_rows"] == 0
+    assert torch.equal(got, want) and rounds == want_rounds
+    assert torch.equal(work["plane_rounds"],
+                       _first_unchanged_rounds(words, n))
+    got, rounds = cycles.semi_naive_closure(words, n, "fixed")
+    assert torch.equal(got, want) and rounds == cycles.closure_rounds(n)
+
+
+def _first_unchanged_rounds(words, n, chunk=64):
+    """Each plane's first unchanged full Jacobi round (the ladder length
+    if every round changed it)."""
+    R = cycles.closure_rounds(n)
+    first = torch.full((words.shape[0],), R, dtype=torch.int64)
+    for lo in range(0, words.shape[0], chunk):
+        rw = words[lo:lo + chunk]
+        done = torch.zeros(rw.shape[0], dtype=torch.bool)
+        for rnd in range(1, R + 1):
+            new = rw | cycles._square(rw, n)[0]
+            still = (new == rw).flatten(1).all(1) & ~done
+            first[lo:lo + chunk][still] = rnd
+            done |= still
+            rw = new
+    return first
+
+
+def test_semi_naive_counts_every_round_it_runs():
+    """Unlike :func:`packed_closure`, the semi-naive count includes the
+    final unchanged round: an empty plane runs one round that forms each
+    row's iteration set and writes every row; a ring's later rounds skip
+    the rows with nothing to OR in."""
+    n, W = 64, 2
+    work: dict = {}
+    cycles.semi_naive_closure(torch.zeros((3, n, W), dtype=torch.int64), n,
+                              work=work)
+    assert (work["int_ops"], work["stale_rows"]) == (3 * 3 * n * W, 0)
+    assert work["plane_rounds"].tolist() == [1, 1, 1]
+    ring = cycles.pack_words(torch.from_numpy(_ring_and_chain(n, n)[:1] > 0))
+    semi, full = {}, {}
+    cycles.semi_naive_closure(ring, n, work=semi)
+    cycles.packed_closure(ring, n, work=full)
+    assert semi["stale_rows"] == 0 and 0 < semi["int_ops"]
+
+
+def test_reduced_screen_counts_fewer_operations_than_the_lifted_planes():
+    rng = np.random.default_rng(3300)
+    rel = _random_rel(rng, 64, p=2.0 / 64)
+    lifted, reduced = {}, {}
+    cycles.screen_reference(torch.from_numpy(rel), (), FULL_NONADJ,
+                            work=lifted)
+    cycles.reduced_screen(torch.from_numpy(rel), (), FULL_NONADJ,
+                          work=reduced)
+    assert 0 < reduced["int_ops"] < lifted["int_ops"]
+    assert reduced["stale_rows"] == 0
+
+
+def test_design_rules_match_the_kernel_source():
+    """``has_cycle_design`` and ``screen_design`` mirror the switches of
+    ``cycles_closure.cu``: the warp design up to kHasCycleWarpMaxN
+    vertices, two shared copies up to kDoubleMaxN, one past it; fixed-mode
+    screens reduce their walk queries while CYCLES_REDUCED_LIFTED."""
+    src = (Path(cycles.__file__).parent / "csrc" / "cycles_closure.cu"
+           ).read_text()
+    warp = re.search(r"constexpr int kHasCycleWarpMaxN = (\d+);", src)
+    double = re.search(r"constexpr int kDoubleMaxN = (\d+);", src)
+    reduced = re.search(r"#define CYCLES_REDUCED_LIFTED (\d)", src)
+    assert warp and int(warp.group(1)) == cycles.HAS_CYCLE_WARP_MAX_N
+    assert double and int(double.group(1)) == cycles.DOUBLE_MAX_N
+    assert reduced and bool(int(reduced.group(1))) == cycles.REDUCED_LIFTED
+    assert [cycles.has_cycle_design(n) for n in (16, 32, 64, 512, 1024)] \
+        == ["warp", "warp", "double", "double", "single"]
+    for n in (32, 64, 512):
+        assert cycles.screen_design("fixed", n) == "reduced"
+        assert cycles.screen_design("earlyexit", n) == "lifted"
+    with pytest.raises(ValueError):
+        cycles.screen_design("sometimes", 64)
 
 
 def test_packed_closure_counts_only_changing_rounds():
