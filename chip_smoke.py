@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Needs one CUDA device and the CUDA toolkit (``nvcc``); imports nothing of
-JAX or of the JAX package.  Every phase prints one JSON line; any build
-failure, launch error or mismatch raises and the script exits non-zero
-without its last line.
+JAX or of the JAX package.  Every phase prints one JSON line (with the
+seconds elapsed since the script started); any build failure, launch
+error or mismatch raises and the script exits non-zero without its last
+line.
 
 1. build — compiles every kernel of the port from ``jepsen_tpu_torch/ops
    /csrc/`` (one ``nvcc`` per source, started together) into
@@ -133,13 +134,17 @@ without its last line.
     32 templates of ``synth.generate_queue_history`` (8 processes, 40
     ops, a quarter corrupted, every third with three values queued
     initially) relabelled to 16384 rows by per-row permutations of the
-    value ids 1..31; edges at C = 1, 6 and 12, at the 31-value cap,
-    all-padding rows and random op codes.  Byte-equal (tolerance:
+    value ids 1..31; edges at C = 1, 5, 6, 10, 11 and 12 (either side of
+    the warp design's one-word and one-warp boundaries), at the 31-value
+    cap, all-padding rows, random op codes, a row count that is no
+    multiple of the histories a warp, rows failing at event 0 and warps
+    whose histories fail at different events.  Byte-equal (tolerance:
     exact).  End to end: the dense entry point
     (``dense.make_dense_fn("unordered-queue", ...)``, K2 counter reset
     around it) on 1024 fresh histories must agree with ``check_batch``'s
     direct checker and the frontier search at F = 256; then its times as
-    in 5.
+    in 5, with the design (``dense.queue_design``), registers and spills,
+    and ``device_ms`` by CUDA-graph replay as in 17.
 19. mesh — a two-shard mesh (two cards when there are, else the one card
     named twice; the line says which): ``check_batch(mesh=...)`` on the
     histories of 4 and on 264 of 8's with ``frontier=32`` (escalation
@@ -149,9 +154,15 @@ without its last line.
 20. verdict stats — K9 (``verdict_stats.cu``) against its plain version
     at 16384 rows, then summed over the shards of ``sharded_check`` on
     the mesh (the dense flagship and the frontier slice at F = 32),
-    equal to the unsharded counts; median of 7 with CUDA events, the
-    bound by bytes (2B + 24), the plain time and ``library_ms`` (three
-    ``torch.count_nonzero`` calls).
+    equal to the unsharded counts; edges: B = 1, inputs that start off a
+    16-byte boundary (both alike, and each differently), bytes other than
+    0 and 1 read as true, and 10^6 rows past the single-block switch
+    (``mesh.stats_design``), each equal to the plain version on the
+    bytes' truth.  Times: median of 7 with CUDA events around the wrapper
+    (its host time), ``device_ms`` by CUDA-graph replay at 16384 and 10^6
+    rows beside an empty kernel's (the floor of a launch), the design,
+    registers and spills, the bound by bytes (2B + 24), the plain time
+    and ``library_ms`` (three ``torch.count_nonzero`` calls).
 
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -159,6 +170,7 @@ The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 
 from __future__ import annotations
 
+import ctypes
 import json
 import random
 import re
@@ -197,8 +209,13 @@ FAMILY_HISTORIES = 1024
 DECOMPOSE_HISTORIES, DECOMPOSE_KEYS = 64, 64
 
 
+#: the script's start, for each line's elapsed seconds
+_T0 = time.perf_counter()
+
+
 def emit(**fields) -> None:
-    print(json.dumps(fields), flush=True)
+    print(json.dumps({**fields, "elapsed_s": time.perf_counter() - _T0}),
+          flush=True)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1524,6 +1541,40 @@ def random_queue_codes(seed: int, B=128, E=64, C=12):
     return init, ev, cs, cf, ca, cb
 
 
+def completing_past_c(arrays, events):
+    """Copies of queue ``arrays``' rows where row i's event ``events[i]``
+    (None: none) completes slot C, which no lane holds: no config
+    linearized it, so the row fails there unless it failed before."""
+    init, ev, cs, cf, ca, cb = (x.copy() for x in arrays)
+    for i, e in enumerate(events):
+        if e is not None:
+            ev[i, e] = cs.shape[2]
+    return init, ev, cs, cf, ca, cb
+
+
+def queue_warp_edges(flagship):
+    """(name, arrays, forced events) of queue rows around the warp design
+    (4 histories a warp at C 8, 32 at C 4): a row count that is no multiple
+    of 4; rows that fail at event 0, where slot 0 alone holds a dequeue of
+    value 40, which no value bit or open enqueue serves (``failing_at``);
+    and warps whose histories fail at different events, each completing a
+    slot past C there (``completing_past_c``; None: not forced)."""
+    rows9 = tuple(a[:9] for a in flagship)
+    rows8 = tuple(a[:8] for a in flagship)
+    staggered = [3, None, 9, 0, 17, 5, None, 30]
+    c4, _ = queue_arrays(*queue_histories(48160, 45, n_procs=4), 4)
+    E4 = c4[1].shape[1]
+    c4_events = [None if i % 3 == 0 else (7 * i) % E4
+                 for i in range(len(c4[0]))]
+    return [
+        ("B131-H4", tuple(a[:131] for a in flagship), []),
+        ("fail-at-0", failing_at(rows9, [0] * 9, F_DEQUEUE, 40), [0] * 9),
+        ("fail-staggered-H4", completing_past_c(rows8, staggered),
+         staggered),
+        ("fail-staggered-H32", completing_past_c(c4, c4_events), c4_events),
+    ]
+
+
 def queue_compare(name, arrays, device, work=None):
     """The queue automaton's kernel against its plain version on every
     row of ``arrays``; emits one line and returns (outputs, plain seconds,
@@ -1540,7 +1591,7 @@ def queue_compare(name, arrays, device, work=None):
     return (ok, failed_at, ovf), plain_s, err
 
 
-def queue_phase(device, card):
+def queue_phase(device, card, ptxas=""):
     """Phase 18; returns the ``{"kernels": [...]}`` entry of K2."""
     kernel = dense.DENSE_KERNELS["unordered-queue"]
     arrays, reps = queue_flagship()
@@ -1554,9 +1605,11 @@ def queue_phase(device, card):
                 f"queue rows of template {int(t)} disagree")
     require((~ok).any() and ok.any(), "the queue batch is all one verdict")
 
-    # edges: C = 1, 6 and 12, the 31-value cap, padding, random codes
+    # edges: C either side of the warp design's boundaries (one word a
+    # lane from C 5 to 6, one warp a history from C 10 to 11), the
+    # 31-value cap, padding, random codes, and the rows of queue_warp_edges
     edges = []
-    for n_procs in (1, 6, 12):
+    for n_procs in (1, 5, 6, 10, 11, 12):
         hs, ms = queue_histories(48110 + n_procs, 64, n_procs=n_procs)
         edges.append((f"C{n_procs}", queue_arrays(hs, ms, n_procs,
                                                   pad_rows=2)[0]))
@@ -1567,9 +1620,22 @@ def queue_phase(device, card):
     edges.append(("random-ops", random_batch("unordered-queue", 48130,
                                              C=8)))
     edges.append(("random-codes", random_queue_codes(48140)))
+    forced = queue_warp_edges(arrays)
+    edges += [(name, e_arrays) for name, e_arrays, _ in forced]
+    failed_by_name = {}
     for name, e_arrays in edges:
-        _, _, e_err = queue_compare(name, e_arrays, device)
+        (_, e_failed, _), _, e_err = queue_compare(name, e_arrays, device)
+        failed_by_name[name] = e_failed
         err = max(err, e_err)
+    for name, _, events in forced:
+        got = failed_by_name[name]
+        for i, e in enumerate(events):
+            require(e is None or 0 <= got[i] <= e,
+                    f"queue {name}: row {i} failed at {got[i]}, not by {e}")
+    require((failed_by_name["fail-at-0"] == 0).all(),
+            "queue fail-at-0 rows did not fail at event 0")
+    require(len(set(failed_by_name["fail-staggered-H4"][:4].tolist())) > 1,
+            "the first queue warp's histories all failed at one event")
 
     # end to end: the dense entry point (launch counter reset around it)
     # against the direct checker through check_batch and the frontier
@@ -1613,15 +1679,19 @@ def queue_phase(device, card):
          agrees_with=["check_batch direct checker", "frontier search F=256"],
          card=card)
 
-    ms_, all_ms = time_kernel(dense.make_dense_fn("unordered-queue", E, C,
-                                                  0, device),
-                              to_device(arrays, device))
+    flag_checker = dense.make_dense_fn("unordered-queue", E, C, 0, device)
+    flag_dev = to_device(arrays, device)
+    ms_, all_ms = time_kernel(flag_checker, flag_dev)
+    device_ms = graph_ms(flag_checker, flag_dev, launches=5)
     # the queue automaton reads no cand_b: 4 bytes per lane
     bound_ms, bound_by, nbytes = kernel_bound(arrays, failed_at,
                                               work["int_ops"], lane_bytes=4)
     emit(phase="queue_times", kernel=kernel.name, rows=int(B), E=int(E),
-         C=int(C), ms=ms_, runs_ms=all_ms, bound_ms=bound_ms,
+         C=int(C), design=dense.queue_design(int(C)),
+         **ptxas_resources(ptxas, f"dense_queue_kernelILi{max(C - 5, 0)}E"),
+         ms=ms_, runs_ms=all_ms, device_ms=device_ms, bound_ms=bound_ms,
          bound_by=bound_by, bytes=nbytes, int_ops=work["int_ops"],
+         max_passes=work["max_passes"],
          plain_ms=plain_s * 1e3, launches=launches, library_ms=None,
          library="no single PyTorch call computes the queue automaton",
          card=card)
@@ -1719,7 +1789,48 @@ def mesh_phase(mesh, card, model, hs, results, f_hs):
          launches=cycles.SCREEN.launches, **ex.counters(), card=card)
 
 
-def stats_phase(mesh, device, card, flagship, f_arrays):
+#: rows of phase 20's input past the single-block switch
+STATS_BIG_ROWS = 10 ** 6
+
+
+def stats_edges(device):
+    """(name, ok, overflow) of K9's edge inputs as bool views of uint8
+    bytes on ``device``: bytes 0, 1, 2, 0x80 and 0xFF (any nonzero byte
+    reads as true), B = 1, starts off a 16-byte boundary (both arrays
+    alike, and each differently: the byte-wise path), and 10^6 rows past
+    the single-block switch, aligned and not."""
+    r = np.random.default_rng(48210)
+    n = STATS_BIG_ROWS + 32
+    ok_u8 = torch.from_numpy(r.choice(np.array(
+        [0, 1, 2, 0x80, 0xFF, 0], np.uint8), n)).to(device)
+    ovf_u8 = torch.from_numpy(r.choice(np.array(
+        [0, 0, 0, 1, 7, 0x40], np.uint8), n)).to(device)
+    cases = [("B1", 0, 0, 1), ("B1-unaligned", 5, 9, 1),
+             ("B16384-both-off-3", 3, 3, 16384),
+             ("B16384-ok[1:]", 1, 0, 16384),
+             ("B16383-off-5-12", 5, 12, 16383),
+             ("B1e6", 0, 0, STATS_BIG_ROWS),
+             ("B1e6-both-off-7", 7, 7, STATS_BIG_ROWS - 5),
+             ("B1e6-off-2-9", 2, 9, STATS_BIG_ROWS - 11)]
+    return [(name, ok_u8[i:i + b].view(torch.bool),
+             ovf_u8[j:j + b].view(torch.bool))
+            for name, i, j, b in cases]
+
+
+def empty_kernel():
+    """A launch of ``verdict_stats.cu``'s empty kernel on the current
+    stream (the floor a launch-bound kernel is timed against)."""
+    fn = _build.load("verdict_stats").verdict_stats_empty_launch
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run():
+        err = fn(torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"empty kernel launch failed: CUDA error {err}")
+    return run
+
+
+def stats_phase(mesh, device, card, flagship, f_arrays, ptxas=""):
     """Phase 20: K9 against its plain version at 16384 rows, then summed
     over the shards of sharded_check runs (counts equal to the unsharded
     ones); times.  ``flagship`` is (arrays, dense checker, its ok);
@@ -1736,6 +1847,23 @@ def stats_phase(mesh, device, card, flagship, f_arrays):
     require(kern.tolist() == plain.tolist() == want,
             f"K9 {kern.tolist()}, plain {plain.tolist()}, numpy {want}")
     err = int(np.abs(kern - plain).max())
+    edges = stats_edges(device)
+    for name, e_ok, e_ovf in edges:
+        got = mesh_mod.VERDICT_STATS(e_ok, e_ovf).cpu().numpy()
+        e_plain = mesh_mod.verdict_stats_reference(
+            e_ok.view(torch.uint8) != 0,
+            e_ovf.view(torch.uint8) != 0).cpu().numpy()
+        o, v = (x.view(torch.uint8).cpu().numpy() != 0 for x in (e_ok, e_ovf))
+        e_want = [int((o & ~v).sum()), int((~o & ~v).sum()), int(v.sum())]
+        require(got.tolist() == e_plain.tolist() == e_want,
+                f"K9 {name}: {got.tolist()}, plain {e_plain.tolist()}, "
+                f"numpy {e_want}")
+        e_err = int(np.abs(got - e_plain).max())
+        err = max(err, e_err)
+        emit(phase="verdict_stats_edge", case=name, rows=int(len(o)),
+             offsets=[e_ok.data_ptr() % 16, e_ovf.data_ptr() % 16],
+             design=mesh_mod.stats_design(len(o)), max_abs_err=e_err,
+             tolerance="exact (integer counts)")
 
     fB, fE, fC = f_arrays[2].shape
     f_checker = wgl.make_check_fn("cas-register", fE, fC, 32, fC + 1,
@@ -1766,6 +1894,10 @@ def stats_phase(mesh, device, card, flagship, f_arrays):
     require(int(s_stats["unknown"]) > 0, "no frontier row overflowed at F=32")
 
     ms, all_ms = time_kernel(mesh_mod.VERDICT_STATS, (ok_t, ovf_t))
+    device_ms = graph_ms(mesh_mod.VERDICT_STATS, (ok_t, ovf_t))
+    empty_ms = graph_ms(empty_kernel(), ())
+    big_ok, big_ovf = next((o, v) for name, o, v in edges if name == "B1e6")
+    big_device_ms = graph_ms(mesh_mod.VERDICT_STATS, (big_ok, big_ovf))
     plain_ms, _ = time_kernel(mesh_mod.verdict_stats_reference,
                               (ok_t, ovf_t))
     library_ms, _ = time_kernel(
@@ -1775,7 +1907,12 @@ def stats_phase(mesh, device, card, flagship, f_arrays):
     nbytes = 2 * B + 24
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     emit(phase="verdict_stats_times", kernel=mesh_mod.VERDICT_STATS.name,
-         rows=int(B), ms=ms, runs_ms=all_ms, bound_ms=bound_ms,
+         rows=int(B), design=mesh_mod.stats_design(B),
+         **ptxas_resources(ptxas, "verdict_stats_kernel"), ms=ms,
+         runs_ms=all_ms, device_ms=device_ms, empty_kernel_device_ms=empty_ms,
+         device_ms_1e6=big_device_ms, bound_ms_1e6=(
+             2 * STATS_BIG_ROWS + 24) / HBM_BYTES_PER_S * 1e3,
+         bound_ms=bound_ms,
          bound_by="bytes", bytes=nbytes, plain_ms=plain_ms,
          library_ms=library_ms,
          library="three torch.count_nonzero calls", launches=launches,
@@ -2007,7 +2144,7 @@ def main() -> int:
     elle_entries = elle_phases(device, card, ptxas)
 
     # -- 18. the unordered-queue automaton ----------------------------------
-    queue_entry = queue_phase(device, card)
+    queue_entry = queue_phase(device, card, ptxas)
 
     # -- 19. sharded dispatch over a two-shard mesh --------------------------
     mesh = pick_mesh(device)
@@ -2015,7 +2152,7 @@ def main() -> int:
 
     # -- 20. verdict statistics over the shards ------------------------------
     stats_entry = stats_phase(mesh, device, card,
-                              (arrays_np, checker, ok), f_arrays)
+                              (arrays_np, checker, ok), f_arrays, ptxas)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

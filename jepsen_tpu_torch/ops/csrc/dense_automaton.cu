@@ -129,8 +129,6 @@ constexpr int F_DEQUEUE = 7;
 constexpr int F_RACQUIRE = 8;
 constexpr int F_PACQUIRE = 10;
 
-constexpr int kMaxW = 1 << (kMaxC - 5);  // packed subset words at C = 12
-
 // the warp/block switch of the register family (S * W words); a build may
 // define it to time one design against the other at the same shape
 #ifndef DENSE_WARP_MAX_SW
@@ -230,10 +228,14 @@ __device__ __forceinline__ uint32_t register_move(bool active, int f, int a,
   return a_in ? pack_move(kMoveOne, a_eff, a_eff) : kMoveNone;
 }
 
+// a history of the warp designs takes at most 2^kLogMaxGroup lanes: the
+// whole warp (dense.queue_design mirrors the queue automaton's shapes)
+constexpr int kLogMaxGroup = 5;
+
 template <int LOG_W>
 struct WarpShape {
   static constexpr int W = 1 << LOG_W;
-  static constexpr int LOG_G = LOG_W < 5 ? LOG_W : 5;
+  static constexpr int LOG_G = LOG_W < kLogMaxGroup ? LOG_W : kLogMaxGroup;
   static constexpr int G = 1 << LOG_G;  // lanes per history
   static constexpr int M = W / G;       // words per lane
   static constexpr int H = 32 / G;      // histories per warp
@@ -908,176 +910,470 @@ int launch_block(const void* init_state, const void* ev_slot,
 // v-1: value v enqueued by a completed op, or in the initial contents, from
 // init_state) and deq_c (dequeued by a completed op).  A slot's move is
 // legal from a source subset depending on which OTHER slots the subset
-// holds, so per event each slot j gets a mask valid[j][k] over the source
-// words k instead of a transition:
-//   enqueue:  every subset;
-//   dequeue of v: none if v was dequeued by the prefix (deq_c); else the
-//     subsets where v is present -- all if its enqueue completed (enq_c),
-//     else those holding the slot of an open enqueue of v -- minus those
-//     holding the slot of another open dequeue of v.
-// Slots are matched by their (summed) value ids, as the reference matches
-// them.  The closure ORs (D[k'] & valid[j][k']) into D[k' | bit j] by
-// Jacobi passes capped at C + 2, and completion drops the completing slot's
-// bit, exactly as in the register kernel; then the completing op's value
-// bit joins enq_c or deq_c.  A value id outside 1..32 has no bit (the
-// reference's out-of-range shift gives 0).
+// holds, so per event each slot j gets a mask valid_j[k] over the source
+// words k instead of a transition.  With P_j the open enqueues of j's value
+// and Q_j the other open dequeues of j's value (slots matched by their
+// summed value ids, as the reference matches them):
+//   enqueue:       valid_j[k] = ~0;
+//   dequeue of v:  0 if v was dequeued by the prefix (deq_c), else
+//                  (v in enq_c ? ~0 : OR_{o in P_j} has(o, k))
+//                  & ~OR_{o in Q_j} has(o, k),
+// has(o, k) being the bits of word k whose subsets hold slot o: a constant
+// in-word pattern for o < 5, all or none of the word by bit o - 5 of k for
+// o >= 5.  So three words describe a dequeue slot's masks for an event:
+// w0 (its mask of the words that hold no slot >= 5 of P_j or Q_j), w1 (of
+// those that hold one of P_j's and none of Q_j's) and the two 7-bit sets
+// of P_j's and Q_j's slots >= 5 (a word that holds one of Q_j's is 0).
+// The closure ORs (D[k'] & valid_j[k']) into D[k' | bit j], completion
+// drops the completing slot's bit, exactly as in the register kernel, and
+// then the completing op's value bit joins enq_c or deq_c.  A value id
+// outside 1..32 has no bit (the reference's out-of-range shift gives 0).
 //
-// What bounds it on this card: the same serial chain of block barriers per
-// event as the register family, over fewer words (no state axis): one block
-// per history, at most 128 threads, the masks ([C][W], 6 KB at C = 12) and
-// both D buffers in static shared memory.  Padding events are skipped and a
-// block stops at its first failed event, both exact as above.
+// Why one sweep over the enqueue slots and one over the dequeue slots
+// reach the closure's fixpoint.  An enqueue is legal from every subset,
+// and a dequeue's legality depends only on the enqueues in the subset
+// (one of P_j, unless its value is in enq_c) and on the dequeues of its
+// value (none of Q_j).  Take any config the reference's passes reach: a
+// start subset plus enqueues E' and dequeues A', added in some legal
+// order.  No two of A' share a value (the second would have been
+// illegal), so adding E' first and then A' in slot order is legal at
+// every step: each dequeue then sees every enqueue it saw before and no
+// other dequeue of its value.  In-place sweeps over the enqueue slots in
+// slot order, then the dequeue slots in slot order, add exactly such
+// configs, so they end on the reference's least fixpoint, with no pass
+// that only confirms it and no vote (tests/test_torch_queue.py holds a
+// plain twin of this arithmetic against the JAX kernel and checks that
+// one more pass never changes D; the reference's C + 2 cap never binds).
+//
+// The design is the register family's warp design without its state axis:
+// a warp checks 32/G histories, G = min(W, 32) lanes each (a lane a history
+// at C <= 5); lane k of a history holds subset word k (and k + 32, k + 64,
+// k + 96 at C 11 and 12) in registers beside its history's enq_c and
+// deq_c.  There is no block barrier; a warp's 768 bytes of shared memory
+// hold the table of low_has and the regroup's two transposes.  Per event
+// the regroup is lane-parallel while G >= C: lane l holds candidate lane
+// l and ORs its bit into its slot's word of the scratch, so lane j learns
+// which candidate lanes hold slot j and sums their codes by __shfl_sync
+// (one shuffle, unless a slot id repeats); it finds P_j and Q_j with one
+// __match_any_sync on the summed value id and two ballots, and writes
+// dequeue slot j's three words to the scratch, where every lane of the
+// group reads them.  Below that (C <= 7) each lane regroups its history
+// from all C candidate lanes in registers.  A sweep applies a slot's image
+// by mask and shift, __shfl_xor_sync, or a word of the lane's own;
+// completion is branch-free and its emptiness a __ballot_sync over the
+// group.  The next event's slot id and candidate lanes are loaded into
+// registers while this one runs, and a warp stops after its histories'
+// last non-padding event.  What bounds it: integer issue (8 warps a
+// scheduler at the flagship hide the loads' latency) along each history's
+// serial chain of events (~40 live ones at the flagship, C 8: 4 histories
+// a warp, the 16384-row batch in one wave; scripts/queue_diag.py counts
+// the cycles of each phase).  Padding events are skipped and a history
+// stops at its first failed event, both exact as above.
 
-__device__ __forceinline__ uint32_t subset_has(int m, int k) {
-  // the packed bits of word k whose subset holds slot m
-  if (m < 5) return ~lo_mask(m);
-  return ((k >> (m - 5)) & 1) ? 0xFFFFFFFFu : 0u;
+// one event of one history as a lane holds it; a candidate lane packs its
+// slot id (bits 0-7), op code (8-15) and value id (16-31)
+template <int LOG_W>
+struct QueueEvent {
+  int es;
+  uint32_t sfa[WarpShape<LOG_W>::LANES_HELD];
+};
+
+template <int LOG_W>
+__device__ __forceinline__ QueueEvent<LOG_W> load_queue_event(
+    const int32_t* __restrict__ ev_slot, const int8_t* __restrict__ cand_slot,
+    const int8_t* __restrict__ cand_f, const int16_t* __restrict__ cand_a,
+    bool live_row, int64_t ev_base, int e, int C, int gl) {
+  using Sh = WarpShape<LOG_W>;
+  QueueEvent<LOG_W> ev;
+  ev.es = live_row ? ev_slot[ev_base + e] : -1;
+  const int64_t base = (ev_base + e) * C;
+#pragma unroll
+  for (int r = 0; r < Sh::LANES_HELD; ++r) {
+    const int l = Sh::LANE_REGROUP ? gl : r;
+    ev.sfa[r] = 0xFFu;  // slot -1: no slot
+    if (live_row && l < C) {
+      ev.sfa[r] = static_cast<uint8_t>(cand_slot[base + l]) |
+                  static_cast<uint32_t>(static_cast<uint8_t>(cand_f[base + l]))
+                      << 8 |
+                  static_cast<uint32_t>(static_cast<uint16_t>(cand_a[base + l]))
+                      << 16;
+    }
+  }
+  return ev;
 }
 
-__global__ void dense_queue_kernel(
+__device__ __forceinline__ int sfa_slot(uint32_t q) {
+  return static_cast<int8_t>(q & 0xFFu);
+}
+__device__ __forceinline__ int sfa_f(uint32_t q) {
+  return static_cast<int8_t>(q >> 8 & 0xFFu);
+}
+__device__ __forceinline__ int sfa_a(uint32_t q) {
+  return static_cast<int16_t>(q >> 16);
+}
+
+// a slot's kind from its summed codes: 0 (no lane, or another code), 1 an
+// enqueue, 2 a dequeue; and its value bit
+__device__ __forceinline__ int queue_kind(bool on, int f) {
+  return !on ? 0 : (f == F_ENQUEUE ? 1 : (f == F_DEQUEUE ? 2 : 0));
+}
+__device__ __forceinline__ uint32_t value_bit(bool on, int a) {
+  const uint32_t sh = static_cast<uint32_t>(a - 1);  // value ids are 1-based
+  return on && sh < 32u ? 1u << sh : 0u;
+}
+
+// OR of has(o, .) over the slots o < 5 of the set x (x < 32; the kernel
+// reads it from a table of the 32 values)
+__device__ __forceinline__ uint32_t low_has(uint32_t x) {
+  uint32_t r = 0u;
+#pragma unroll
+  for (int o = 0; o < 5; ++o) r |= (x >> o & 1u) ? ~lo_mask(o) : 0u;
+  return r;
+}
+
+// a dequeue slot's three mask words from its value bit and slot sets P, Q
+// (zero for any other slot: enqueues move in a sweep of their own); `low`
+// is the table of low_has
+__device__ __forceinline__ void slot_words(int kind, uint32_t vbit,
+                                           uint32_t P, uint32_t Q,
+                                           uint32_t enq_c, uint32_t deq_c,
+                                           const uint32_t* low, uint32_t& w0,
+                                           uint32_t& w1, uint32_t& hi) {
+  w0 = w1 = hi = 0u;
+  if (kind == 2 && !(deq_c & vbit)) {
+    const uint32_t notq = ~low[Q & 31u];
+    const bool enq_done = (enq_c & vbit) != 0u;
+    const uint32_t p_hi = enq_done ? 0u : P >> 5;
+    w0 = enq_done ? notq : low[P & 31u] & notq;
+    w1 = enq_done || p_hi ? notq : 0u;
+    hi = p_hi | (Q >> 5) << 8;
+  }
+}
+
+// slot mask of word k from the slot's three words
+__device__ __forceinline__ uint32_t slot_mask(uint32_t w0, uint32_t w1,
+                                              uint32_t hi, int k) {
+  const uint32_t kk = static_cast<uint32_t>(k);
+  if ((hi >> 8) & kk) return 0u;
+  return (hi & 0xFFu & kk) ? w1 : w0;
+}
+
+// the completing op's effect on the prefix, packed: kind in bits 0-1, bit 2
+// set when its value has a bit, the bit's index in bits 3-7
+__device__ __forceinline__ uint32_t pack_completion(int kind, uint32_t vbit,
+                                                    int a) {
+  return static_cast<uint32_t>(kind) | (vbit ? 4u : 0u) |
+         (static_cast<uint32_t>(a - 1) & 31u) << 3;
+}
+
+// an event's slots as a lane of a history holds them: each dequeue slot's
+// three mask words (zero for the other slots), the history's sets of
+// enqueue slots and of dequeue slots with a nonzero mask, the warp's
+// union of the latter, and the packed completion of the event's slot
+template <int MC>
+struct QueueSlots {
+  uint32_t w0[MC], w1[MC], hi[MC];
+  uint32_t enq, deq, live_deq, comp;
+};
+
+// a warp's shared scratch: the table of low_has, and the two transposes of
+// the lane-parallel regroup (per slot lane, the candidate lanes holding it;
+// per slot lane, its three words and packed completion)
+struct QueueScratch {
+  const uint32_t* low;
+  uint32_t* holders;
+  uint4* words;
+};
+
+template <int LOG_W>
+__device__ __forceinline__ void queue_regroup(
+    const QueueEvent<LOG_W>& ev, bool active, int C, uint32_t enq_c,
+    uint32_t deq_c, int lane, int gl, const QueueScratch& sc,
+    QueueSlots<WarpShape<LOG_W>::MAX_C>& sl) {
+  using Sh = WarpShape<LOG_W>;
+  constexpr int MC = Sh::MAX_C;
+  const int es = ev.es >= 0 && ev.es < C ? ev.es : 0;
+  if constexpr (Sh::LANE_REGROUP) {
+    // lane j of a group learns which of the group's candidate lanes hold
+    // slot j (each ORs its bit into slot j's word of the scratch), sums
+    // their codes (a shuffle a holder: one, unless a slot id repeats),
+    // matches the group's slots by value id, and every lane reads each
+    // live dequeue slot's words from the scratch
+    const int gbase = lane & ~(Sh::G - 1);
+    const uint32_t gmask = Sh::G == 32 ? kFull : (1u << Sh::G) - 1u;
+    const int my_slot = sfa_slot(ev.sfa[0]);
+    sc.holders[lane] = 0u;
+    __syncwarp();
+    if (my_slot >= 0 && my_slot < Sh::G) {
+      atomicOr(&sc.holders[gbase + my_slot], 1u << lane);
+    }
+    __syncwarp();
+    uint32_t holders = sc.holders[lane] >> gbase & gmask;
+    const int act = holders != 0u;
+    int fs = 0, as = 0;
+    while (__any_sync(kFull, holders != 0u)) {
+      const int src = holders ? __ffs(holders) - 1 : 0;
+      const uint32_t q = __shfl_sync(kFull, ev.sfa[0], gbase + src);
+      if (holders) {
+        fs += sfa_f(q);
+        as += sfa_a(q);
+        holders &= holders - 1u;
+      }
+    }
+    const bool on = active && act && gl < C;
+    const int kind = queue_kind(on, fs);
+    const uint32_t vbit = value_bit(on, as);
+    // |as| < 2^19, so its low 20 bits identify it; the group's base lane
+    // keeps groups apart
+    const uint32_t same = __match_any_sync(
+        kFull, (static_cast<uint32_t>(as) & 0xFFFFFu) |
+                   static_cast<uint32_t>(gbase) << 20);
+    const uint32_t enqs = __ballot_sync(kFull, kind == 1);
+    const uint32_t deqs = __ballot_sync(kFull, kind == 2) & ~(1u << lane);
+    uint32_t m0, m1, mh;
+    slot_words(kind, vbit, (same & enqs) >> gbase & gmask,
+               (same & deqs) >> gbase & gmask, enq_c, deq_c, sc.low, m0, m1,
+               mh);
+    sl.enq = enqs >> gbase & gmask;
+    sl.deq = __ballot_sync(kFull, (m0 | m1) != 0u) >> gbase & gmask;
+    sl.live_deq = __reduce_or_sync(kFull, sl.deq);
+    sc.words[lane] = make_uint4(m0, m1, mh, pack_completion(kind, vbit, as));
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < MC; ++j) {
+      sl.w0[j] = sl.w1[j] = sl.hi[j] = 0u;
+      if (sl.live_deq >> j & 1u) {
+        const uint4 w = sc.words[gbase + j];
+        sl.w0[j] = w.x;
+        sl.w1[j] = w.y;
+        sl.hi[j] = w.z;
+      }
+    }
+    sl.comp = sc.words[gbase + es].w;
+    __syncwarp();  // read before the next event writes
+  } else {
+    // fewer lanes than slots (C <= 7): each lane regroups its history
+    int kind[MC], as[MC];
+    uint32_t vbit[MC];
+#pragma unroll
+    for (int j = 0; j < MC; ++j) {
+      int act = 0, fs = 0, a = 0;
+#pragma unroll
+      for (int l = 0; l < MC; ++l) {
+        if (l < C && sfa_slot(ev.sfa[l]) == j) {
+          act = 1;
+          fs += sfa_f(ev.sfa[l]);
+          a += sfa_a(ev.sfa[l]);
+        }
+      }
+      const bool on = active && act && j < C;
+      kind[j] = queue_kind(on, fs);
+      as[j] = a;
+      vbit[j] = value_bit(on, a);
+    }
+    sl.enq = sl.deq = sl.comp = 0u;
+#pragma unroll
+    for (int j = 0; j < MC; ++j) {
+      uint32_t P = 0u, Q = 0u;
+#pragma unroll
+      for (int o = 0; o < MC; ++o) {
+        const bool same = as[o] == as[j];
+        P |= static_cast<uint32_t>(same && kind[o] == 1) << o;
+        Q |= static_cast<uint32_t>(same && kind[o] == 2 && o != j) << o;
+      }
+      slot_words(kind[j], vbit[j], P, Q, enq_c, deq_c, sc.low, sl.w0[j],
+                 sl.w1[j], sl.hi[j]);
+      sl.enq |= static_cast<uint32_t>(kind[j] == 1) << j;
+      sl.deq |= static_cast<uint32_t>((sl.w0[j] | sl.w1[j]) != 0u) << j;
+      if (j == es) sl.comp = pack_completion(kind[j], vbit[j], as[j]);
+    }
+    sl.live_deq = __reduce_or_sync(kFull, sl.deq);
+  }
+}
+
+// one Gauss-Seidel sweep over slots J .. MAX_C - 1, in place on this lane's
+// words D: the enqueue slots of `enq` (ENQ) or the dequeue slots by their
+// masks; `live` is the warp's union of the slots the sweep moves
+template <int LOG_W, int J, bool ENQ>
+__device__ __forceinline__ void queue_sweep(
+    uint32_t (&D)[WarpShape<LOG_W>::M],
+    const uint32_t (&valid)[WarpShape<LOG_W>::MAX_C][WarpShape<LOG_W>::M],
+    uint32_t enq, uint32_t live, int gl) {
+  using Sh = WarpShape<LOG_W>;
+  if constexpr (J < Sh::MAX_C) {
+    constexpr int M = Sh::M;
+    if (live >> J & 1u) {
+      uint32_t x[M], t[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        x[m] = ENQ ? ((enq >> J & 1u) ? D[m] : 0u) : D[m] & valid[J][m];
+      }
+      slot_image<LOG_W, J>(x, t, gl);
+#pragma unroll
+      for (int m = 0; m < M; ++m) D[m] |= t[m];
+    }
+    queue_sweep<LOG_W, J + 1, ENQ>(D, valid, enq, live, gl);
+  }
+}
+
+// completion of slot es on this lane's words, for an active history (the
+// others keep D), as warp_complete does it but without branches: word k of
+// the new D is word k shifted down by 2^es and masked (es < 5), or word
+// k | 2^(es-5) where k lacks that bit (from lane gl ^ 2^(es-5) while that
+// is in the group, else this lane's word m | 2^(es-5) / G), none when
+// es >= C.  `low` is the table of low_has (lo_mask(j) = ~low[1 << j]).
+// Returns whether this lane's words of the new D are nonzero.
+template <int LOG_W>
+__device__ __forceinline__ bool queue_complete(
+    uint32_t (&D)[WarpShape<LOG_W>::M], bool active, int es, int C,
+    int lane, int gl, const uint32_t* low) {
+  using Sh = WarpShape<LOG_W>;
+  constexpr int M = Sh::M;
+  const bool in = active && es < C;  // es >= 0 when active
+  const bool in_word = in && es < 5;
+  const int b = in && !in_word ? 1 << (es - 5) : 0;  // es - 5 < 7
+  const int sh = in_word ? 1 << es : 0;
+  const uint32_t lm =
+      !active ? 0xFFFFFFFFu
+              : (!in ? 0u
+                     : (in_word ? ~low[1u << es & 31u]
+                                : (b < Sh::G && (gl & b) ? 0u : 0xFFFFFFFFu)));
+  const int from = b < Sh::G ? lane ^ b : lane;
+  const int wm = b < Sh::G ? 0 : b / Sh::G;  // a word of this lane (M > 1)
+  uint32_t nd[M];
+  bool nonzero = false;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    uint32_t y = __shfl_sync(kFull, D[m], from);
+#pragma unroll
+    for (int w = 1; w < M; w <<= 1) {
+      if (wm == w) y = (m & w) ? 0u : D[m | w];
+    }
+    nd[m] = (y >> sh) & lm;
+    nonzero |= nd[m] != 0u;
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) D[m] = nd[m];
+  return nonzero;
+}
+
+template <int LOG_W>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32) dense_queue_kernel(
     const int32_t* __restrict__ init_state, const int32_t* __restrict__ ev_slot,
     const int8_t* __restrict__ cand_slot, const int8_t* __restrict__ cand_f,
     const int16_t* __restrict__ cand_a, uint8_t* __restrict__ ok,
-    int32_t* __restrict__ failed_at, uint8_t* __restrict__ overflow, int E,
-    int C) {
-  __shared__ uint32_t buf[2][kMaxW];
-  __shared__ uint32_t valid[kMaxC * kMaxW];
-  __shared__ int32_t lane[3 * kMaxC];
-  __shared__ int32_t slot_kind[kMaxC];  // 0 inactive or other, 1 enq, 2 deq
-  __shared__ int32_t slot_a[kMaxC];
-  __shared__ uint32_t slot_vbit[kMaxC];
+    int32_t* __restrict__ failed_at, uint8_t* __restrict__ overflow, int B,
+    int E, int C) {
+  using Sh = WarpShape<LOG_W>;
+  constexpr int M = Sh::M;
+  constexpr int MC = Sh::MAX_C;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gl = lane & (Sh::G - 1);
+  const int row = (blockIdx.x * kWarpsPerBlock + warp) * Sh::H +
+                  (lane >> Sh::LOG_G);
+  const bool live_row = row < B;
+  const int64_t ev_base = static_cast<int64_t>(live_row ? row : 0) * E;
+  const uint32_t group =
+      Sh::G == 32 ? kFull : ((1u << Sh::G) - 1u) << (lane & ~(Sh::G - 1));
 
-  const int row = blockIdx.x;
-  const int t = threadIdx.x;
-  const int nt = blockDim.x;
-  const int log_w = C > 5 ? C - 5 : 0;
-  const int W = 1 << log_w;
-  const int64_t ev_base = static_cast<int64_t>(row) * E;
-  uint32_t* cur = buf[0];
-  uint32_t* nxt = buf[1];
+  // the warp's own scratch (QueueScratch)
+  __shared__ uint32_t low_table[kWarpsPerBlock][32];
+  __shared__ uint32_t holders[kWarpsPerBlock][32];
+  __shared__ uint4 words[kWarpsPerBlock][32];
+  const QueueScratch sc{low_table[warp], holders[warp], words[warp]};
+  low_table[warp][lane] = low_has(lane);
+  __syncwarp();
 
-  // every thread carries its own copy of the prefix bitsets: all of them
-  // update them from the same shared values
-  uint32_t enq_c = static_cast<uint32_t>(init_state[row]);
+  uint32_t D[M];  // the empty linset: subset 0, bit 0 of word 0
+#pragma unroll
+  for (int m = 0; m < M; ++m) D[m] = (m == 0 && gl == 0) ? 1u : 0u;
+  uint32_t enq_c = live_row ? static_cast<uint32_t>(init_state[row]) : 0u;
   uint32_t deq_c = 0u;
-  for (int w = t; w < W; w += nt) cur[w] = w == 0 ? 1u : 0u;  // empty linset
-  __syncthreads();
-
-  bool done = false;
+  bool done = !live_row;
   int failed = -1;
-  for (int e = 0; e < E; ++e) {
-    const int es = ev_slot[ev_base + e];  // block-uniform
-    if (es < 0) continue;                 // padding: D and the prefix kept
-
-    const int64_t lane_base = (ev_base + e) * C;
-    if (t < C) {
-      lane[t] = cand_slot[lane_base + t];
-      lane[C + t] = cand_f[lane_base + t];
-      lane[2 * C + t] = cand_a[lane_base + t];
-    }
-    __syncthreads();
-
-    // regroup the lanes by slot (summed, as the reference sums them)
-    if (t < C) {
-      bool active = false;
-      int f = 0, a = 0;
-      for (int l = 0; l < C; ++l) {
-        if (lane[l] == t) {
-          active = true;
-          f += lane[C + l];
-          a += lane[2 * C + l];
-        }
+  // the warp's last non-padding event: past it every history keeps D (at
+  // one lane a history, a lane's scan of its whole row cost more than the
+  // padding events it saved)
+  int last = E - 1;
+  if constexpr (Sh::G > 1) {
+    last = -1;
+    if (live_row) {
+      for (int e = gl; e < E; e += Sh::G) {
+        if (ev_slot[ev_base + e] >= 0) last = e;
       }
-      const uint32_t shift = static_cast<uint32_t>(a - 1);
-      slot_kind[t] = !active ? 0 : (f == F_ENQUEUE ? 1 : (f == F_DEQUEUE ? 2 : 0));
-      slot_a[t] = a;
-      slot_vbit[t] = active && shift < 32u ? 1u << shift : 0u;
     }
-    __syncthreads();
-
-    // each slot's mask of legal source words
-    for (int i = t; i < C * W; i += nt) {
-      const int j = i >> log_w;
-      const int k = i & (W - 1);
-      const int kind = slot_kind[j];
-      uint32_t m = 0u;
-      if (kind == 1) {
-        m = 0xFFFFFFFFu;
-      } else if (kind == 2 && !(deq_c & slot_vbit[j])) {
-        const int a = slot_a[j];
-        uint32_t present = (enq_c & slot_vbit[j]) ? 0xFFFFFFFFu : 0u;
-        uint32_t forbid = 0u;
-        for (int o = 0; o < C; ++o) {
-          if (slot_a[o] != a) continue;
-          if (slot_kind[o] == 1) present |= subset_has(o, k);
-          if (slot_kind[o] == 2 && o != j) forbid |= subset_has(o, k);
-        }
-        m = present & ~forbid;
-      }
-      valid[i] = m;
+    last = __reduce_max_sync(kFull, last);
+  }
+  QueueEvent<LOG_W> next = load_queue_event<LOG_W>(
+      ev_slot, cand_slot, cand_f, cand_a, live_row && last >= 0, ev_base, 0,
+      C, gl);
+  for (int e = 0; e <= last; ++e) {
+    const QueueEvent<LOG_W> cur = next;
+    if (e < last) {  // the next event's loads run under this one's work
+      next = load_queue_event<LOG_W>(ev_slot, cand_slot, cand_f, cand_a,
+                                     live_row, ev_base, e + 1, C, gl);
     }
-    __syncthreads();
+    const bool active = !done && cur.es >= 0;
+    if (!__any_sync(kFull, active)) continue;
 
-    // closure to fixpoint, Jacobi passes capped at C + 2
-    for (int pass = 0; pass < C + 2; ++pass) {
-      int changed = 0;
-      for (int k = t; k < W; k += nt) {
-        uint32_t add = 0u;
-        for (int j = 0; j < C; ++j) {
-          if (j < 5) {
-            add |= ((cur[k] & valid[j * W + k]) & lo_mask(j)) << (1 << j);
-          } else {
-            const int wb = 1 << (j - 5);
-            if (k & wb) add |= cur[k ^ wb] & valid[j * W + (k ^ wb)];
-          }
-        }
-        const uint32_t d = cur[k];
-        const uint32_t dn = d | add;
-        nxt[k] = dn;
-        changed |= dn != d;
+    QueueSlots<MC> sl;
+    queue_regroup<LOG_W>(cur, active, C, enq_c, deq_c, lane, gl, sc, sl);
+    uint32_t valid[MC][M];
+#pragma unroll
+    for (int j = 0; j < MC; ++j) {
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        valid[j][m] = sl.live_deq >> j & 1u
+                          ? slot_mask(sl.w0[j], sl.w1[j], sl.hi[j],
+                                      gl + m * Sh::G)
+                          : 0u;
       }
-      const int any = __syncthreads_or(changed);
-      uint32_t* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-      if (!any) break;
     }
 
-    // completion of slot es: keep configs that linearized it, drop its bit
-    int nonzero = 0;
-    for (int k = t; k < W; k += nt) {
-      uint32_t df = 0u;
-      if (es < C) {
-        if (es < 5) {
-          df = (cur[k] >> (1 << es)) & lo_mask(es);
-        } else {
-          const int wb = 1 << (es - 5);
-          df = (k & wb) ? 0u : cur[k | wb];
-        }
-      }
-      nxt[k] = df;
-      nonzero |= df != 0u;
-    }
-    const int any = __syncthreads_or(nonzero);
-    if (!any) {
+    // the closure: every enqueue slot, then every dequeue slot, one
+    // sweep each (the fixpoint, as argued above)
+    queue_sweep<LOG_W, 0, true>(D, valid, sl.enq,
+                                __reduce_or_sync(kFull, sl.enq), gl);
+    queue_sweep<LOG_W, 0, false>(D, valid, sl.enq, sl.live_deq, gl);
+
+    const bool nonzero =
+        queue_complete<LOG_W>(D, active, cur.es, C, lane, gl, sc.low);
+    const uint32_t votes = __ballot_sync(kFull, nonzero);
+    if (active && !(votes & group)) {
       done = true;
       failed = e;
-      break;
+    } else if (active && cur.es < C) {  // the completing op joins the prefix
+      const uint32_t bit = sl.comp & 4u ? 1u << (sl.comp >> 3) : 0u;
+      if ((sl.comp & 3u) == 1u) enq_c |= bit;
+      if ((sl.comp & 3u) == 2u) deq_c |= bit;
     }
-    if (es < C) {  // the completing op joins the prefix
-      if (slot_kind[es] == 1) enq_c |= slot_vbit[es];
-      if (slot_kind[es] == 2) deq_c |= slot_vbit[es];
-    }
-    uint32_t* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+    if (__all_sync(kFull, done)) break;
   }
 
-  if (t == 0) {
+  if (live_row && gl == 0) {
     ok[row] = done ? 0 : 1;
     failed_at[row] = failed;
     overflow[row] = 0;
   }
+}
+
+template <int LOG_W>
+int launch_queue(const void* init_state, const void* ev_slot,
+                 const void* cand_slot, const void* cand_f, const void* cand_a,
+                 void* ok, void* failed_at, void* overflow, int B, int E,
+                 int C, cudaStream_t stream) {
+  using Sh = WarpShape<LOG_W>;
+  const int rows_per_block = kWarpsPerBlock * Sh::H;
+  const int blocks = (B + rows_per_block - 1) / rows_per_block;
+  dense_queue_kernel<LOG_W><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const int32_t*>(init_state),
+      static_cast<const int32_t*>(ev_slot),
+      static_cast<const int8_t*>(cand_slot),
+      static_cast<const int8_t*>(cand_f), static_cast<const int16_t*>(cand_a),
+      static_cast<uint8_t*>(ok), static_cast<int32_t*>(failed_at),
+      static_cast<uint8_t*>(overflow), B, E, C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1167,14 +1463,22 @@ extern "C" int dense_queue_launch(const void* init_state, const void* ev_slot,
   if (B < 0 || E < 0 || C < 1 || C > kMaxC) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int W = C > 5 ? 1 << (C - 5) : 1;
-  const int threads = ((W + 31) / 32) * 32;
-  dense_queue_kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(init_state),
-      static_cast<const int32_t*>(ev_slot),
-      static_cast<const int8_t*>(cand_slot),
-      static_cast<const int8_t*>(cand_f), static_cast<const int16_t*>(cand_a),
-      static_cast<uint8_t*>(ok), static_cast<int32_t*>(failed_at),
-      static_cast<uint8_t*>(overflow), E, C);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DENSE_QUEUE_CASE(L)                                                   \
+  case L:                                                                     \
+    return launch_queue<L>(init_state, ev_slot, cand_slot, cand_f, cand_a,   \
+                           ok, failed_at, overflow, B, E, C, st);
+  switch (C > 5 ? C - 5 : 0) {
+    DENSE_QUEUE_CASE(0)
+    DENSE_QUEUE_CASE(1)
+    DENSE_QUEUE_CASE(2)
+    DENSE_QUEUE_CASE(3)
+    DENSE_QUEUE_CASE(4)
+    DENSE_QUEUE_CASE(5)
+    DENSE_QUEUE_CASE(6)
+    default:
+      return launch_queue<7>(init_state, ev_slot, cand_slot, cand_f, cand_a,
+                             ok, failed_at, overflow, B, E, C, st);
+  }
+#undef DENSE_QUEUE_CASE
 }

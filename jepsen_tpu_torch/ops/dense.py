@@ -58,7 +58,8 @@ Three forms of the one function live here:
   32/W histories per warp with no block barriers; the other families, and
   register shapes past :data:`WARP_MAX_SW`, one thread block per history
   with per-target lists of live sources; both update D in place; the
-  queue automaton beside them), one per family, each with its launch
+  queue automaton beside them, in the warp design without the state
+  axis, :func:`queue_design`), one per family, each with its launch
   counter (:func:`design` says which design a shape runs).
 - :class:`DenseChecker`, the module the engine calls: the kernel for CUDA
   tensors, the plain version for CPU tensors, nothing else.
@@ -111,6 +112,10 @@ QUEUE = "unordered-queue"
 #: × packed subset words) is at most this, every other shape its block
 #: design (``kWarpMaxSW`` in ``csrc/dense_automaton.cu``)
 WARP_MAX_SW = 4096
+
+#: the most lanes of a warp one history of the warp designs takes
+#: (``kLogMaxGroup`` in ``csrc/dense_automaton.cu``: 2^5)
+MAX_GROUP_LANES = 32
 
 #: word mask of the 32-bit lanes the int64 words carry
 _U32 = 0xFFFFFFFF
@@ -203,6 +208,16 @@ def design(fam: str, S: int, C: int) -> str:
     if fam == "register" and S * _n_words(C) <= WARP_MAX_SW:
         return "warp"
     return "block"
+
+
+def queue_design(C: int) -> dict:
+    """The shape of the queue automaton's launch at ``C`` slots (K2's
+    warp design): ``lanes_per_history`` G = min(W, 32), so
+    ``histories_per_warp`` 32 / G and ``words_per_lane`` W / G."""
+    W = _n_words(C)
+    G = min(W, MAX_GROUP_LANES)
+    return {"lanes_per_history": G, "histories_per_warp": 32 // G,
+            "words_per_lane": W // G}
 
 
 def applicable(spec_name: str, C: int, V) -> bool:
@@ -598,7 +613,11 @@ def dense_queue_reference(
     and the fixpoint compare per word.  Per completion: shift, AND and
     emptiness OR per word (slot < 5), or the emptiness OR per live word.
     Not counted: loads and stores, building the masks, and the pass that
-    only confirms the fixpoint."""
+    only confirms the fixpoint.  It also gains ``"max_passes"``, as
+    :func:`dense_check_reference` reports it: the most closure passes that
+    changed D on any row at any event (at most C, so the C + 2 cap never
+    binds: the passes end on the least fixpoint, which the kernel's two
+    ordered sweeps reach too)."""
     dev = ev_slot.device
     B, E = ev_slot.shape
     C = cand_slot.shape[2]
@@ -621,6 +640,7 @@ def dense_queue_reference(
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     failed_at = torch.full((B,), -1, dtype=torch.int32, device=dev)
     int_ops = 0
+    max_passes = 0
     if work is not None:  # ops to fold one slot's mask into a pass
         slot_cost = torch.where(slots < 5, 4 * W, W)[None, :]
 
@@ -665,7 +685,7 @@ def dense_queue_reference(
         uidx_b = uidx[None].expand(n, C, W)
         Dc = D[rows]
         on = torch.ones((n,), dtype=torch.bool, device=dev)
-        for _ in range(max_closure):
+        for n_pass in range(max_closure):
             U = (torch.gather(Dc[:, None, :] & valid, 2, uidx_b)
                  & umask_b) << ushl_b
             add = U[:, 0]
@@ -679,6 +699,7 @@ def dense_queue_reference(
             on = changed
             if not bool(on.any()):
                 break
+            max_passes = max(max_passes, n_pass + 1)
 
         # --- completion, then the completing op joins the prefix ---
         Ds = torch.gather(Dc[:, None, :].expand(n, C, W), 2,
@@ -699,6 +720,7 @@ def dense_queue_reference(
 
     if work is not None:
         work["int_ops"] = work.get("int_ops", 0) + int_ops
+        work["max_passes"] = max(work.get("max_passes", 0), max_passes)
     return ~done, failed_at, torch.zeros((B,), dtype=torch.bool, device=dev)
 
 

@@ -305,11 +305,27 @@ def _check_flags(ok: torch.Tensor, overflow: torch.Tensor) -> None:
         raise ValueError("ok and overflow must match in shape and device")
 
 
+#: up to this many rows one thread block counts a shard, past it a grid
+#: (``VERDICT_STATS_SINGLE_MAX_ROWS`` in ``csrc/verdict_stats.cu``)
+STATS_SINGLE_MAX_ROWS = 32768
+
+
+def stats_design(B: int) -> str:
+    """Which launch of the verdict-stats kernel ``B`` rows take:
+    ``"single"`` (one block) or ``"grid"`` (blocks of partials summed by
+    the last to finish)."""
+    return "single" if B <= STATS_SINGLE_MAX_ROWS else "grid"
+
+
 class VerdictStatsKernel:
     """Wrapper of the hand-written CUDA reduction ``csrc/verdict_stats.cu``
     (replaces ``jepsen_tpu/parallel/mesh.py:verdict_stats``'s sums).  Takes
-    CUDA tensors only, launches on the current stream without
-    synchronising, and counts its launches in :attr:`launches`."""
+    CUDA tensors only, of any alignment, launches once on the current
+    stream of their device without synchronising (zero rows too: the
+    kernel writes the zeros), and counts its launches in
+    :attr:`launches`.  Past :data:`STATS_SINGLE_MAX_ROWS` rows the
+    launches on one device share its kernel's ticket, so they must be
+    ordered on one stream, as one caller's are."""
 
     name = "verdict_stats"
 
@@ -337,15 +353,17 @@ class VerdictStatsKernel:
         counts = torch.empty((3,), dtype=torch.int64, device=dev)
         fn = self._entry()
         B = ok.shape[0]
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(ok.data_ptr(), overflow.data_ptr(), B,
-                     counts.data_ptr(), stream)
+        args = (ok.data_ptr(), overflow.data_ptr(), B, counts.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if torch.cuda.current_device() == dev.index:
+            err = fn(*args)
+        else:  # the launch goes to the calling thread's current device
+            with torch.cuda.device(dev):
+                err = fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err} "
                                f"(B={B})")
-        if B:
-            self.launches += 1
+        self.launches += 1
         return counts
 
 

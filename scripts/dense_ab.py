@@ -14,7 +14,14 @@ per shape: the median of 7 CUDA-event timings after 2 warm-ups, taken in
 turns old, new, new, old, and whether the outputs are byte-equal.  With
 ``--switch`` it also times the checkout's source built with every value
 of the warp/block switch (``DENSE_WARP_MAX_WORDS``) on the register
-shapes.  Needs one CUDA device and ``nvcc``.
+shapes.  The unordered-queue automaton (K2, ``dense_queue_launch``) is
+timed the same way at ``chip_smoke.py`` phase 18's shapes: its 16384-row
+flagship (E 64, C 8) and that workload at C 1, 6 and 12 (64 histories
+of as many processes, tiled to 16384 rows), each line also with
+``*_graph_ms`` (launches captured in a CUDA graph and replayed: the
+device's time) and the design (``dense.queue_design``).  ``--family
+queue`` times the queue alone, ``--family register`` the others alone.
+Needs one CUDA device and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -99,6 +106,48 @@ def launcher(path: Path):
     return run
 
 
+def queue_launcher(path: Path):
+    """``run(arrays)`` calling ``path``'s ``dense_queue_launch`` on the
+    current stream."""
+    import torch
+
+    fn = ctypes.CDLL(str(path)).dense_queue_launch
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(arrays):
+        B, E, C = arrays[2].shape
+        dev = arrays[0].device
+        out = (torch.empty((B,), dtype=torch.bool, device=dev),
+               torch.empty((B,), dtype=torch.int32, device=dev),
+               torch.empty((B,), dtype=torch.bool, device=dev))
+        err = fn(*(t.data_ptr() for t in arrays), *(t.data_ptr() for t in out),
+                 B, E, C, torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"{path.name}: CUDA error {err}")
+        return out
+    return run
+
+
+def queue_shapes(device):
+    """(name, arrays on ``device``) of the queue automaton at phase 18's
+    flagship and at C 1, 6 and 12, tiled to as many rows."""
+    import numpy as np
+    import chip_smoke as cs
+
+    flag, _ = cs.queue_flagship()
+    B = flag[0].shape[0]
+    out = [("queue-flagship", flag)]
+    for C in (1, 6, 12):
+        hs, ms = cs.queue_histories(48110 + C, 64, n_procs=C)
+        arrays, _ = cs.queue_arrays(hs, ms, C)
+        reps = -(-B // arrays[0].shape[0])
+        out.append((f"queue-C{C}", tuple(np.concatenate([a] * reps)[:B]
+                                         for a in arrays)))
+    return [(name, cs.to_device(a, device)) for name, a in out]
+
+
 def turn_ms(run, args, reps=7, warmup=2):
     """Median ms of ``reps`` CUDA-event-timed launches after ``warmup``."""
     import numpy as np
@@ -162,8 +211,13 @@ def time_ab(args) -> None:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     src = _build.SOURCES["dense_automaton"]
-    libs = {"old": launcher(build(Path(args.parent), "parent")),
-            "new": launcher(build(src, "checkout"))}
+    paths = {"old": build(Path(args.parent), "parent"),
+             "new": build(src, "checkout")}
+    if args.family in ("all", "queue"):
+        time_queue(paths, device, card)
+    if args.family == "queue":
+        return
+    libs = {k: launcher(p) for k, p in paths.items()}
     if args.switch:
         libs["block"] = launcher(build(src, "checkout_block",
                                        ["DENSE_WARP_MAX_SW=0"]))
@@ -189,11 +243,42 @@ def time_ab(args) -> None:
             raise RuntimeError(f"{name}: outputs differ between builds")
 
 
+def time_queue(paths, device, card) -> None:
+    """Old against new for the queue automaton at :func:`queue_shapes`."""
+    import chip_smoke as cs
+    from jepsen_tpu_torch.ops import dense
+
+    libs = {k: queue_launcher(p) for k, p in paths.items()}
+    for name, arrays in queue_shapes(device):
+        call = (arrays,)
+        outs = {k: [t.cpu().numpy().tobytes() for t in run(*call)]
+                for k, run in libs.items()}
+        equal = outs["old"] == outs["new"]
+        turns = [(k, turn_ms(libs[k], call)) for k in ("old", "new", "new",
+                                                       "old")]
+        graphs = [(k, cs.graph_ms(libs[k], call, launches=5))
+                  for k in ("old", "new", "new", "old")]
+        C = int(arrays[2].shape[2])
+        print(json.dumps({
+            "shape": name, "family": dense.QUEUE,
+            "rows": int(arrays[0].shape[0]), "E": int(arrays[1].shape[1]),
+            "C": C, "design": dense.queue_design(C), "turns_ms": turns,
+            **{f"{k}_ms": sorted(t for kk, t in turns if kk == k)
+               for k in ("old", "new")},
+            **{f"{k}_graph_ms": sorted(t for kk, t in graphs if kk == k)
+               for k in ("old", "new")},
+            "byte_equal": equal, "card": card}), flush=True)
+        if not equal:
+            raise RuntimeError(f"{name}: outputs differ between builds")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", choices=("sass", "time"))
     ap.add_argument("--parent", required=True)
     ap.add_argument("--switch", action="store_true")
+    ap.add_argument("--family", choices=("all", "queue", "register"),
+                    default="all")
     args = ap.parse_args()
     if args.mode == "sass":
         sass(args)

@@ -11,6 +11,10 @@ devices, as the reference's tests use virtual host devices.
 - The plain ``verdict_stats`` against the reference's, and over sharded
   outputs of a batch that does not divide the mesh: a padding row counted
   as valid would show.  Tolerance: exact (integer counts).
+- A plain twin of the CUDA kernel's word-wise count (16-byte alignment,
+  per-byte truth of 32-bit words, head and tail bytes) against the plain
+  version at every start offset, bytes other than 0 and 1 included, and
+  ``stats_design`` against the kernel source's switch.
 
 The CUDA kernel is held against the plain version on the card by
 ``chip_smoke.py`` (phase 20).
@@ -18,6 +22,8 @@ The CUDA kernel is held against the plain version on the card by
 
 import json
 import random
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -258,3 +264,82 @@ def test_verdict_stats_kernel_refuses_cpu_tensors():
         mesh_mod.shard_counts(ok.int(), ~ok)
     assert int(mesh_mod.verdict_stats(ok, ~ok)["valid"]) == 4
     assert mesh_mod.VERDICT_STATS.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's word-wise count (csrc/verdict_stats.cu)
+# ---------------------------------------------------------------------------
+
+
+def _true_bytes(words):
+    """``__vcmpne4(w, 0) & 0x01010101``: bit 0 of each byte of the uint32
+    words set where that byte is nonzero."""
+    t = words | words >> 4
+    t |= t >> 2
+    t |= t >> 1
+    return t & np.uint32(0x01010101)
+
+
+def _stats_twin(ok_u8, ovf_u8, ok_at, ovf_at):
+    """A plain twin of the kernel's count of two byte arrays that start at
+    addresses ``ok_at`` and ``ovf_at`` mod 16: when the two agree, the
+    bytes before the first 16-byte boundary and after the last one by
+    one, the body as 32-bit words four true bytes at a time; else every
+    byte by itself.  Returns [valid, invalid, unknown]."""
+    B = len(ok_u8)
+
+    def count(o, v):
+        on, vn = _true_bytes(o), _true_bytes(v)
+        return (int(np.bitwise_count(on & ~vn).sum()),
+                int(np.bitwise_count(vn).sum()))
+
+    def by_byte(lo, hi):
+        return count(ok_u8[lo:hi].astype(np.uint32),
+                     ovf_u8[lo:hi].astype(np.uint32))
+
+    if (ok_at ^ ovf_at) & 15:
+        valid, unknown = by_byte(0, B)
+    else:
+        head = min((16 - ok_at) & 15, B)
+        tail = head + (B - head) // 16 * 16
+        body = count(ok_u8[head:tail].view("<u4"), ovf_u8[head:tail].view("<u4"))
+        edges = [by_byte(0, head), by_byte(tail, B)]
+        valid = body[0] + sum(x[0] for x in edges)
+        unknown = body[1] + sum(x[1] for x in edges)
+    return [valid, B - valid - unknown, unknown]
+
+
+@pytest.mark.parametrize("B", [0, 1, 15, 17, 16384, 10 ** 6])
+def test_word_wise_count_equals_plain_version(B):
+    """The twin against ``verdict_stats_reference`` on bool tensors viewed
+    from bytes other than 0 and 1 as well, at every start offset 0-15 of
+    each array (all pairs up to 16384 rows; at 10^6, each offset of one
+    array beside another of the other)."""
+    r = np.random.default_rng(4700 + B)
+    buf_ok = r.choice(np.array([0, 1, 2, 0x80, 0xFF, 0], np.uint8), B + 16)
+    buf_ovf = r.choice(np.array([0, 0, 0, 1, 7, 0x40], np.uint8), B + 16)
+    pairs = ([(i, j) for i in range(16) for j in range(16)] if B <= 16384
+             else [(i, (7 * i + 3) % 16) for i in range(16)])
+    for i, j in pairs:
+        ok_u8, ovf_u8 = buf_ok[i:i + B], buf_ovf[j:j + B]
+        want = mesh_mod.verdict_stats_reference(
+            torch.from_numpy(ok_u8).view(torch.bool),
+            torch.from_numpy(ovf_u8).view(torch.bool)).tolist()
+        assert want == mesh_mod.verdict_stats_reference(
+            torch.from_numpy(ok_u8 != 0), torch.from_numpy(ovf_u8 != 0)
+        ).tolist()
+        assert _stats_twin(ok_u8, ovf_u8, i, j) == want, (i, j)
+
+
+def test_stats_design_matches_the_kernel_source():
+    """``mesh.stats_design`` mirrors the launch's switch: one block up to
+    VERDICT_STATS_SINGLE_MAX_ROWS rows, a grid past them."""
+    src = Path(mesh_mod.__file__).parents[1] / "ops" / "csrc" / \
+        "verdict_stats.cu"
+    m = re.search(r"#define VERDICT_STATS_SINGLE_MAX_ROWS (\d+)",
+                  src.read_text())
+    assert m and int(m.group(1)) == mesh_mod.STATS_SINGLE_MAX_ROWS
+    n = mesh_mod.STATS_SINGLE_MAX_ROWS
+    assert mesh_mod.stats_design(16384) == "single"
+    assert mesh_mod.stats_design(n) == "single"
+    assert mesh_mod.stats_design(n + 1) == "grid"

@@ -2,7 +2,10 @@
 against the JAX kernel (``jepsen_tpu.ops.dense.make_dense_fn(
 "unordered-queue", ...)``, jitted on the CPU) on the same numpy inputs,
 and against the port's direct checker and frontier search; the queue
-generator against the reference's.
+generator against the reference's; a plain twin of the CUDA kernel's
+arithmetic (slot masks from the P_j / Q_j slot sets, the closure as an
+enqueue sweep and a dequeue sweep) against the JAX kernel; ``max_passes`` ≤ C on the plain version; and
+``dense.queue_design`` against the kernel source.
 
 Tolerance: byte-equal.  Every output (ok, failed_at, overflow) is an
 integer or a bool, so the arrays are compared byte for byte.  The CUDA
@@ -13,6 +16,8 @@ kernel is held against this plain version on the card by
 import importlib.util
 import os
 import random
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -203,3 +208,154 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_counts_apart():
     dense.make_dense_fn("unordered-queue", arrays[1].shape[1], 4, 0,
                         torch.device("cpu"))(*tensors)
     assert {f: k.launches for f, k in dense.DENSE_KERNELS.items()} == before
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's warp design (csrc/dense_automaton.cu, dense_queue_kernel)
+# ---------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+
+
+def _low_has(x):
+    """OR of has(o, .) over the slots o < 5 of the set x."""
+    r = 0
+    for o in range(5):
+        if x >> o & 1:
+            r |= ~dense._LOMASK[o] & _U32
+    return r
+
+
+def _slot_words(kind, vbit, P, Q, enq_c, deq_c):
+    """The kernel's ``slot_words``: (w0, w1, hi) of a dequeue slot, zeros
+    for any other."""
+    if kind == 2 and not deq_c & vbit:
+        notq = ~_low_has(Q) & _U32
+        enq_done = enq_c & vbit != 0
+        p_hi = 0 if enq_done else P >> 5
+        w0 = notq if enq_done else _low_has(P) & notq
+        w1 = notq if enq_done or p_hi else 0
+        return w0, w1, p_hi | (Q >> 5) << 8
+    return 0, 0, 0
+
+
+def _image(D, x, j, k):
+    """Slot j's subset map of the words x (the image holds slot j)."""
+    if j < 5:
+        return ((x & dense._LOMASK[j]) << (1 << j)) & _U32
+    wb = 1 << (j - 5)
+    return np.where(k & wb, x[k ^ wb], 0)
+
+
+def _queue_twin(arrays):
+    """A plain twin of the kernel's arithmetic, one row at a time: the
+    dequeue slots' masks from the P_j / Q_j slot sets (three words a
+    slot), the closure as one sweep over the enqueue slots and one over
+    the dequeue slots, completion, the prefix bitsets.  Returns (ok,
+    failed_at, stale): stale counts the events where one more closure
+    pass over every slot would still have changed D (the two sweeps not
+    at the fixpoint)."""
+    init, ev, cs, cf, ca, _ = (np.asarray(a) for a in arrays)
+    B, E, C = cs.shape
+    W = max(1, (1 << C) // 32)
+    k = np.arange(W, dtype=np.int64)
+    ok = np.ones(B, bool)
+    failed_at = np.full(B, -1, np.int32)
+    stale = 0
+    for row in range(B):
+        D = np.zeros(W, np.int64)
+        D[0] = 1
+        enq_c, deq_c = int(init[row]) & _U32, 0
+        for e in range(E):
+            es = int(ev[row, e])
+            if es < 0:
+                continue
+            kind, a, vbit = [0] * C, [0] * C, [0] * C
+            for j in range(C):
+                lanes = [l for l in range(C) if cs[row, e, l] == j]
+                f = sum(int(cf[row, e, l]) for l in lanes)
+                a[j] = sum(int(ca[row, e, l]) for l in lanes)
+                if lanes:
+                    kind[j] = {F_ENQUEUE: 1, F_DEQUEUE: 2}.get(f, 0)
+                    vbit[j] = 1 << a[j] - 1 if 1 <= a[j] <= 32 else 0
+            valid = []
+            for j in range(C):
+                P = sum(1 << o for o in range(C)
+                        if kind[o] == 1 and a[o] == a[j])
+                Q = sum(1 << o for o in range(C)
+                        if kind[o] == 2 and a[o] == a[j] and o != j)
+                w0, w1, hi = _slot_words(kind[j], vbit[j], P, Q, enq_c,
+                                         deq_c)
+                valid.append(np.where((hi >> 8) & k, 0,
+                                      np.where(hi & 0xFF & k, w1, w0)))
+            for j in range(C):  # the enqueue sweep
+                if kind[j] == 1:
+                    D = D | _image(D, D, j, k)
+            for j in range(C):  # the dequeue sweep
+                D = D | _image(D, D & valid[j], j, k)
+            after = D.copy()
+            for j in range(C):
+                moves = D if kind[j] == 1 else D & valid[j]
+                after |= _image(D, moves, j, k)
+            stale += int((after != D).any())
+            if es >= C:
+                D = np.zeros_like(D)
+            elif es < 5:
+                D = (D >> (1 << es)) & dense._LOMASK[es]
+            else:
+                wb = 1 << (es - 5)
+                D = np.where(k & wb, 0, D[k | wb])
+            if not D.any():
+                ok[row], failed_at[row] = False, e
+                break
+            if kind[es] == 1:
+                enq_c |= vbit[es]
+            if kind[es] == 2:
+                deq_c |= vbit[es]
+    return ok, failed_at, stale
+
+
+@pytest.mark.parametrize("C", range(1, 13))
+def test_kernel_twin_equals_jax_kernel(C):
+    """The kernel's mask formula and its closure of two ordered sweeps,
+    held byte for byte against the reference's build_dense_queue (and the
+    plain version) on the generator's corpus, invalid and crashed
+    histories included, and on random codes; no event ends its sweeps
+    short of the fixpoint."""
+    for arrays in (_corpus(C, 4700 + C)[2],
+                   _random_codes(5100 + C, B=12, E=24, C=C)):
+        ours = _assert_plain_equals_jax(arrays, C)
+        ok, failed_at, stale = _queue_twin(arrays)
+        assert ok.tobytes() == ours[0].tobytes()
+        assert failed_at.tobytes() == ours[1].tobytes()
+        assert stale == 0
+
+
+@pytest.mark.parametrize("C", range(1, 13))
+def test_closure_settles_within_c_passes(C):
+    """No event needs more than C closure passes that change D, so the
+    reference's C + 2 cap never binds: its passes stop at the least
+    fixpoint, which any order of the same updates that ends there (the
+    kernel's two sweeps) reaches too."""
+    cpu = torch.device("cpu")
+    for arrays, floor in ((_corpus(C, 5200 + C, n=12, n_ops=40)[2], 1),
+                          (_random_codes(5300 + C, B=24, C=C), 0)):
+        work: dict = {}
+        dense.dense_queue_reference(
+            *carry.batch_from_reference(*arrays, device=cpu), work=work)
+        assert floor <= work["max_passes"] <= C
+
+
+def test_queue_design_matches_the_kernel_source():
+    """``dense.queue_design`` mirrors the launch: G = min(W, 2^kLogMaxGroup)
+    lanes a history, 32 / G histories a warp, W / G words a lane."""
+    src = (Path(dense.__file__).parent / "csrc" / "dense_automaton.cu")
+    m = re.search(r"constexpr int kLogMaxGroup = (\d+);", src.read_text())
+    assert m and 1 << int(m.group(1)) == dense.MAX_GROUP_LANES
+    shapes = {C: tuple(dense.queue_design(C)[key] for key in (
+        "lanes_per_history", "histories_per_warp", "words_per_lane"))
+        for C in range(1, 13)}
+    assert {shapes[C] for C in range(1, 6)} == {(1, 32, 1)}
+    assert shapes[6] == (2, 16, 1) and shapes[8] == (8, 4, 1)
+    assert shapes[10] == (32, 1, 1)
+    assert shapes[11] == (32, 1, 2) and shapes[12] == (32, 1, 4)
