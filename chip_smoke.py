@@ -163,6 +163,32 @@ line.
     rows beside an empty kernel's (the floor of a launch), the design,
     registers and spills, the bound by bytes (2B + 24), the plain time
     and ``library_ms`` (three ``torch.count_nonzero`` calls).
+21. checker seam — phase 4's 1024 histories as one keyed history (history
+    i's values wrapped as ``KV(i, v)``, its processes offset by i × its
+    process count, one un-keyed nemesis op at its head: 1024 keys of
+    1000-op cas-register histories, 8 of them past the slot cap) through
+    ``check_safe(compose({"linear": independent.batched_linearizable(
+    cas_register(0), slot_cap=8)}), ...)``, once with obs off and once
+    with obs on (histories/s of both beside phase 4's: what the seam and
+    the flight recorder cost).  Every key's verdict must equal phase 4's,
+    no ``"error"`` anywhere, ``failures`` the invalid keys,
+    ``batch-stats`` with ``"gpu"`` and ``"oracle-fallback"`` rows, dense
+    launches in both runs; with obs on the ``checker/Compose``,
+    ``checker/BatchedLinearizable``, ``engine/pipeline`` and
+    ``engine/dispatch`` spans and ``jepsen_kernel_dispatches_total
+    {engine="dense"}`` > 0, exported to ``build/obs/`` and passed through
+    the port's validators.  Then ``linearizable(model)`` ("auto", on the
+    card) on one phase-4 history and one phase-8 frontier history (the
+    frontier kernel must launch), an invalid history with a store
+    identity (its ``linear.svg`` must be written under ``build/store/``),
+    and ``"race"`` on 4 histories past the slot cap (the CPU oracle's
+    verdicts; its arms are waited for).
+22. profile — ``obs.profiling.capture`` (``torch.profiler``, CPU and CUDA
+    activity) around phase 21's batched run with obs on, into
+    ``build/profile/``: the trace must be there and list
+    ``register_warp_kernel`` with device time > 0; the line gives the
+    window's wall seconds, the kernels' summed device seconds and their
+    ratio, the device's busy share of the seam run.
 
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -171,17 +197,21 @@ The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
+import os
 import random
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
-from jepsen_tpu_torch import elle, models, synth
+from jepsen_tpu_torch import checker as checker_mod
+from jepsen_tpu_torch import elle, independent, models, obs, synth
 from jepsen_tpu_torch.checker import linear
 from jepsen_tpu_torch.elle import core as elle_core
 from jepsen_tpu_torch.elle import cycles as elle_cycles
@@ -189,6 +219,9 @@ from jepsen_tpu_torch.elle import encode as elle_encode
 from jepsen_tpu_torch.elle import graph as elle_graph
 from jepsen_tpu_torch.elle import rw_register as elle_rw
 from jepsen_tpu_torch.engine import decompose, execution
+from jepsen_tpu_torch.history import History, Op
+from jepsen_tpu_torch.obs import export as obs_export
+from jepsen_tpu_torch.obs import profiling
 from jepsen_tpu_torch.ops import (_build, cycles, dense, encode,
                                   step_kernels, wgl)
 from jepsen_tpu_torch.parallel import mesh as mesh_mod
@@ -1932,6 +1965,193 @@ def stats_phase(mesh, device, card, flagship, f_arrays, ptxas=""):
     }
 
 
+# ---------------------------------------------------------------------------
+# the Checker seam (phase 21) and the profile of its run (22)
+# ---------------------------------------------------------------------------
+
+
+def keyed_history(hs) -> History:
+    """Phase 4's histories as one keyed history, built in one pass: an
+    un-keyed nemesis op at the head, then history i's ops with values
+    ``KV(i, v)`` and processes offset by i × its process count.  Set-up,
+    not the seam: the cyclic collector is paused while two million ops
+    (which hold no cycles) are allocated, two thirds of the build
+    otherwise."""
+    ops = [Op("info", "nemesis", "start", None, 0)]
+    gc.disable()
+    try:
+        for i, h in enumerate(hs):
+            off = i * (1 + max(op.process for op in h))
+            ops.extend(Op(op.type, op.process + off, op.f,
+                          independent.KV(i, op.value), op.time, -1,
+                          **op.extra)
+                       for op in h)
+    finally:
+        gc.enable()
+    return History(ops).index_ops()
+
+
+def error_paths(x, path="") -> list:
+    """Where an ``"error"`` key sits anywhere in a result."""
+    found = []
+    if isinstance(x, dict):
+        for k, v in x.items():
+            if k == "error":
+                found.append(f"{path}/error")
+            found += error_paths(v, f"{path}/{k}")
+    elif isinstance(x, (list, tuple)):
+        for i, v in enumerate(x):
+            found += error_paths(v, f"{path}/{i}")
+    return found
+
+
+def seam_run(keyed):
+    """One ``check_safe`` → ``compose`` → ``batched_linearizable`` run on
+    the keyed history: ``(result, seconds, dense launches)``."""
+    chk = checker_mod.compose({"linear": independent.batched_linearizable(
+        models.cas_register(0), slot_cap=8)})
+    dense.DENSE_AUTOMATON.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = checker_mod.check_safe(chk, {"store?": False}, keyed)
+    seconds = time.perf_counter() - t0
+    return out, seconds, dense.DENSE_AUTOMATON.launches
+
+
+def check_seam_result(out, results, launches, what):
+    require(not error_paths(out), f"{what}: errors at {error_paths(out)}")
+    lin = out["linear"]
+    n = len(results)
+    require(sorted(lin["results"]) == list(range(n)),
+            f"{what}: keys {len(lin['results'])} != {n}")
+    for i in range(n):
+        require(lin["results"][i]["valid?"] == results[i]["valid?"],
+                f"{what}: key {i} says {lin['results'][i]['valid?']}, "
+                f"phase 4 said {results[i]['valid?']}")
+    invalid = sorted((i for i in range(n) if results[i]["valid?"] is not
+                      True), key=str)
+    require(lin["failures"] == invalid, f"{what}: failures differ")
+    engines = lin["batch-stats"]["engines"]
+    require(engines.get("gpu", 0) > 0 and engines.get("oracle-fallback", 0)
+            > 0, f"{what}: batch-stats engines {engines}")
+    require(launches > 0, f"{what}: the dense kernel never launched")
+    return engines
+
+
+def checker_seam_phase(card, model, hs, results, e2e_rate, f_hs,
+                       f_results):
+    """Phase 21: the Checker seam at full width, obs off and on; the
+    single-history ``linearizable`` routes; the witness; the race."""
+    t0 = time.perf_counter()
+    keyed = keyed_history(hs)
+    build_s = time.perf_counter() - t0
+    require(len(independent.history_keys(keyed)) == len(hs),
+            "the keyed history lost keys")
+    obs.disable()
+    off, off_s, off_launches = seam_run(keyed)
+    engines = check_seam_result(off, results, off_launches, "obs off")
+    obs.enable(reset=True)
+    on, on_s, on_launches = seam_run(keyed)
+    check_seam_result(on, results, on_launches, "obs on")
+    spans = {s.name for s in obs.tracer().finished()}
+    want = {"checker/Compose", "checker/BatchedLinearizable",
+            "engine/pipeline", "engine/dispatch"}
+    require(want <= spans, f"spans missing: {sorted(want - spans)}")
+    dispatches = sum(d["value"] for d in obs.registry().snapshot()
+                     if d["name"] == "jepsen_kernel_dispatches_total"
+                     and d["labels"].get("engine") == "dense")
+    require(dispatches > 0, "jepsen_kernel_dispatches_total{engine=dense} "
+            "is 0")
+    paths = obs.export_all("build/obs")
+    for check, key in ((obs_export.validate_chrome_trace, "trace"),
+                       (obs_export.validate_prometheus, "metrics")):
+        bad = check(paths[key])
+        require(bad is None, f"exported {key} invalid: {bad}")
+    summary = obs.summary()
+
+    # one history each through linearizable's "auto" route on the card
+    lin = checker_mod.linearizable(model)
+    j = next(i for i, r in enumerate(results)
+             if r["engine"] == "gpu" and r["valid?"] is False)
+    r = lin.check({}, hs[j])
+    require(r["valid?"] == results[j]["valid?"] and r["engine"] == "gpu",
+            f"linearizable on history {j}: {r}")
+    jf = next(i for i, r in enumerate(f_results)
+              if r["engine"] == "gpu" and r.get("kernel") == "frontier")
+    wgl.FRONTIER_SEARCH.launches = 0
+    rf = lin.check({}, f_hs[jf])
+    require(rf["valid?"] == f_results[jf]["valid?"]
+            and rf.get("kernel") == "frontier",
+            f"linearizable on frontier history {jf}: {rf}")
+    require(wgl.FRONTIER_SEARCH.launches > 0,
+            "linearizable never launched the frontier kernel")
+
+    # a failing history with a store identity writes its witness
+    stamp = time.strftime("%Y%m%dT%H%M%S")
+    rw = lin.check({"name": "chip_smoke", "start-time": stamp,
+                    "store-base": "build/store"}, hs[j])
+    require(rw["valid?"] is False and os.path.isfile(rw.get("witness", "")),
+            f"no linear.svg for history {j}: {rw.get('witness-error')}")
+
+    # the race last: wait for both arms of every race before going on
+    racers = [i for i, r in enumerate(results)
+              if r["engine"] == "oracle-fallback"][:4]
+    before = set(threading.enumerate())
+    race = checker_mod.linearizable(model, algorithm="race")
+    winners = []
+    for i in racers:
+        rr = race.check({}, hs[i])
+        require(rr["valid?"] == results[i]["valid?"],
+                f"race on history {i}: {rr['valid?']}, the oracle said "
+                f"{results[i]['valid?']}")
+        winners.append(rr["engine"])
+    for t in set(threading.enumerate()) - before:
+        t.join(timeout=checker_mod.RACE_LOSER_WAIT_S)
+    n = len(hs)
+    emit(phase="checker_seam", keys=n, ops=len(keyed),
+         keyed_build_s=build_s, seconds_obs_off=off_s,
+         histories_per_s_obs_off=n / off_s, seconds_obs_on=on_s,
+         histories_per_s_obs_on=n / on_s, phase4_histories_per_s=e2e_rate,
+         launches_obs_off=off_launches, launches_obs_on=on_launches,
+         dense_dispatches_total=dispatches, batch_stats_engines=engines,
+         spans=len(obs.tracer()), spans_dropped=obs.tracer().dropped,
+         obs_summary_engines=summary.get("engines"),
+         engine_occupancy=summary.get("engine-occupancy"),
+         linearizable=[j, jf], witness=rw["witness"], race=racers,
+         race_winners=winners, card=card)
+    return keyed
+
+
+def profile_phase(card, keyed, device):
+    """Phase 22: ``torch.profiler`` around phase 21's batched run with obs
+    on; the device's busy share of the window."""
+    obs.enable(reset=True)
+    box = {}
+    manifest = profiling.capture(
+        "build/profile", label="checker_seam", device=device,
+        work=lambda: box.update(run=seam_run(keyed)))
+    require(manifest["trace"] is not None,
+            f"torch.profiler captured no trace: "
+            f"{manifest.get('trace_error')}")
+    out, seconds, launches = box["run"]
+    require(not error_paths(out) and launches > 0,
+            "the profiled seam run failed or never launched the dense "
+            "kernel")
+    kernels = manifest["kernels"]
+    register = sum(v for k, v in kernels.items()
+                   if "register_warp_kernel" in k)
+    require(register > 0, "the profile lists no register_warp_kernel "
+            f"device time (kernels: {sorted(kernels)[:8]})")
+    busy = sum(kernels.values())
+    wall = manifest["wall_seconds"]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    emit(phase="profile", wall_s=wall, seam_seconds=seconds,
+         kernel_device_s=busy, register_warp_kernel_s=register,
+         device_busy_share=busy / wall, launches=launches,
+         kernels={k: v for k, v in top}, n_kernel_names=len(kernels),
+         memory=manifest["memory"], card=card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -2153,6 +2373,13 @@ def main() -> int:
     # -- 20. verdict statistics over the shards ------------------------------
     stats_entry = stats_phase(mesh, device, card,
                               (arrays_np, checker, ok), f_arrays, ptxas)
+
+    # -- 21. the Checker seam and the flight recorder -------------------------
+    keyed = checker_seam_phase(card, model, hs, results, len(hs) / e2e_s,
+                               f_hs, f_results)
+
+    # -- 22. the device's busy share of the seam run --------------------------
+    profile_phase(card, keyed, device)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

@@ -4,7 +4,9 @@ A copy of :mod:`jepsen_tpu.checker.linear` (same verdicts and result
 dicts): the search, the search-free direct checkers for the lock family,
 the permit semaphore and the unordered queue
 (:mod:`.locks_direct`), and the per-key decomposition of models that
-declare a partition.  Only the reference's telemetry span stays out.
+declare a partition, and the reference's telemetry: each oracle run
+opens an ``engine/oracle`` span and feeds ``jepsen_oracle_seconds`` and
+``jepsen_engine_analyses_total`` (:mod:`..obs`).
 
 Event-driven just-in-time linearization (the knossos.linear / knossos.wgl
 algorithm family the reference consumes at checker.clj:199-203):
@@ -39,6 +41,7 @@ import threading as _threading
 import time as _time
 from typing import Any, Dict, FrozenSet, Iterable, Optional, Set, Tuple
 
+from .. import obs
 from ..history import History, INVOKE, OK, FAIL, INFO, Op
 from ..models import Model
 
@@ -440,6 +443,38 @@ def analysis_async(
 
 
 def analysis(
+    model: Model,
+    history: History,
+    pure_fs: Iterable[Any] = (),
+    max_configs: int = DEFAULT_MAX_CONFIGS,
+    witness: bool = False,
+    budget_s: Optional[float] = None,
+) -> dict:
+    """Telemetry wrapper over :func:`_analysis_impl` (the documented entry
+    point — same signature, same result): each oracle run gets an
+    ``engine/oracle`` span plus counters and its latency, so a run reports
+    how much work the CPU search absorbed."""
+    if not obs.enabled():
+        return _analysis_impl(
+            model, history, pure_fs, max_configs, witness, budget_s
+        )
+    with obs.span("engine/oracle", cat="engine") as sp:
+        r = _analysis_impl(
+            model, history, pure_fs, max_configs, witness, budget_s
+        )
+        sp.set("valid", r.get("valid?"))
+        sp.set("algorithm", r.get("algorithm", "search"))
+        sp.set("op-count", r.get("op-count", ""))
+    obs.observe("jepsen_oracle_seconds", sp.duration_s())
+    obs.count(
+        "jepsen_engine_analyses_total",
+        engine="oracle",
+        algorithm=str(r.get("algorithm", "search")),
+    )
+    return r
+
+
+def _analysis_impl(
     model: Model,
     history: History,
     pure_fs: Iterable[Any] = (),

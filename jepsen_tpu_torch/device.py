@@ -39,3 +39,22 @@ def resolve(device: DeviceLike = None) -> torch.device:
         raise ValueError(f"unsupported device type {dev.type!r} (cuda or cpu)")
     return dev
 
+
+
+def carry_current(fn):
+    """``fn`` bound to the calling thread's current CUDA device: a wrapper
+    that makes that device current on whichever thread runs it.  PyTorch
+    keeps the current device per thread, so work handed to a pool or a
+    daemon thread with no device would otherwise resolve ``None`` to the
+    pool thread's own current device, not the caller's.  Without an
+    initialised CUDA context there is nothing to carry (every thread
+    starts on the same default device) and ``fn`` comes back as it is."""
+    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+        return fn
+    index = torch.cuda.current_device()
+
+    def on_callers_device(*args, **kwargs):
+        with torch.cuda.device(index):
+            return fn(*args, **kwargs)
+
+    return on_callers_device

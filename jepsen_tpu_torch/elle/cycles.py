@@ -31,6 +31,7 @@ from typing import Any, Dict, List, Optional, Set
 import numpy as np
 
 from .. import device as device_mod
+from .. import obs
 from .graph import (
     Graph,
     INDETERMINATE,
@@ -424,12 +425,32 @@ def screen_for_graphs(graphs: List[Graph], executor=None, device=None):
             for enc, res in zip(encs, results)]
 
 
-def _classify_screened(graphs: List[Graph], executor=None, device=None
-                       ) -> List[Dict[str, list]]:
+def _count_route(route: str, n: int) -> None:
+    """``jepsen_elle_screen_route_total``: graphs served by each route."""
+    if n and obs.enabled():
+        obs.count("jepsen_elle_screen_route_total", n, route=route)
+
+
+def _classify_screened(graphs: List[Graph], executor=None, device=None,
+                       count: bool = True) -> List[Dict[str, list]]:
     """Classify with device screens; graphs the screens could not take
-    classify unscreened."""
+    classify unscreened.  ``count=False`` for a calibration probe (its
+    caller is served the CPU answers, and counts them so)."""
+    from . import encode as encode_mod
+
     screens = screen_for_graphs(graphs, executor=executor, device=device)
-    return [classify(g, s) for g, s in zip(graphs, screens)]
+    out = [classify(g, s) for g, s in zip(graphs, screens)]
+    if count and obs.enabled():
+        n_cpu = sum(1 for s in screens if s is None)
+        _count_route("device", len(screens) - n_cpu)
+        _count_route("cpu", n_cpu)
+        # the screen proved a cycle: Tarjan and the witness search still
+        # run for this graph
+        n_fallback = sum(1 for s in screens
+                         if s is not None and s.members(encode_mod.ALL_MASK))
+        if n_fallback:
+            obs.count("jepsen_elle_witness_fallback_total", n_fallback)
+    return out
 
 
 def classify_graphs(
@@ -456,6 +477,7 @@ def classify_graphs(
     if n == 0:
         return []
     if route == "cpu":
+        _count_route("cpu", n)
         return [classify(g) for g in graphs]
 
     screenable = [
@@ -463,14 +485,17 @@ def classify_graphs(
         if 2 <= len(g.vertices) <= DEVICE_SCREEN_MAX_VERTICES
     ]
     out: List[Optional[Dict[str, list]]] = [None] * n
-    for i in sorted(set(range(n)) - set(screenable)):
+    rest = sorted(set(range(n)) - set(screenable))
+    for i in rest:
         out[i] = classify(graphs[i])
+    _count_route("cpu", len(rest))
     sub = [graphs[i] for i in screenable]
 
     if route == "device":
         screened = _classify_screened(sub, executor=executor, device=device)
     elif len(sub) < ELLE_SCREEN_MIN_BATCH:
         screened = [classify(g) for g in sub]
+        _count_route("cpu", len(sub))
     else:
         dev = (executor.device if executor is not None
                else device_mod.resolve(device))
@@ -482,12 +507,15 @@ def classify_graphs(
                                           device=dev)
         elif choice == "cpu":
             screened = [classify(g) for g in sub]
+            _count_route("cpu", len(sub))
         else:
             screened = _calibrate(
                 _CLASSIFY_CHOICE, key, lambda: [classify(g) for g in sub],
                 lambda: _classify_screened(sub, executor=executor,
-                                           device=dev),
+                                           device=dev, count=False),
                 "classify screens")
+            # the calibration batch is served the CPU answers
+            _count_route("cpu", len(sub))
     for i, r in zip(screenable, screened):
         out[i] = r
     return out  # type: ignore[return-value]

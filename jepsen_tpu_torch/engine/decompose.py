@@ -28,17 +28,26 @@ runs ahead of ``wgl.plan_bucket``:
   partition is named as ``failed-partition``.
 
 The pass is on by default (``check_batch(..., decomposed=False)`` turns
-it off per call).  The reference's verdict WAL, streaming-ingest and
-telemetry seams serve its checker daemon and are not ported, nor is its
-per-run interning of sub-models: each sub-history builds its own.
+it off per call).  It counts what it did in :mod:`..obs` under the
+reference's names (``jepsen_engine_decomposed_total`` by route,
+``jepsen_engine_partitions_total``, the
+``jepsen_engine_partition_fanout`` histogram).  The reference's verdict
+WAL and streaming-ingest seams serve its checker daemon and are not
+ported, nor is its per-run interning of sub-models (so it has no
+``jepsen_engine_decompose_cache_evictions_total``): each sub-history
+builds its own.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from .. import obs
 from ..history import FAIL, INVOKE, History
 from .planning import RunContext
+
+#: bucket bounds of the partitions-per-history histogram
+FANOUT_BUCKETS = (2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 1024.0)
 
 #: sentinel key for failed op pairs: dropped from every partition, the
 #: same treatment ``linear.prepare`` gives them undecomposed
@@ -191,7 +200,9 @@ class DecomposedRun:
     sub-verdicts of each decomposed history."""
 
     def __init__(self, model, histories: Sequence, *,
-                 oracle_fallback: bool = True, enabled: bool = True):
+                 oracle_fallback: bool = True,
+                 oracle_budget_s: Optional[float] = None,
+                 enabled: bool = True):
         self.model = model
         self._histories = histories
         self.n = len(histories)
@@ -199,14 +210,19 @@ class DecomposedRun:
         self._parts_of: Dict[int, List[Tuple[Any, int]]] = {}
         self._active = bool(enabled and partitioner(model) is not None
                             and routing_gain_possible(model))
-        self._oracle_fallback = oracle_fallback
+        self._kw = {"oracle_fallback": oracle_fallback,
+                    "oracle_budget_s": oracle_budget_s}
         self.main_ctx: Optional[RunContext] = None
         self.sub_ctx: Optional[RunContext] = None
+        #: histories split, and the sub-histories they split into
+        self.n_decomposed = 0
+        self.n_partitions = 0
 
     def feed(self):
         """Generator: classify and split the histories one at a time,
         yielding ``(ctx, idx)`` for each planner row the moment it
         exists, so the split interleaves with encode and dispatch."""
+        rec = obs.enabled()
         for i, h in enumerate(self._histories):
             parts = split_history(self.model, h) if self._active else None
             if parts is None or len(parts) <= 1:
@@ -214,18 +230,28 @@ class DecomposedRun:
                 # result dict: the history passes through whole
                 self._pass_idx.append(i)
                 if self.main_ctx is None:
-                    self.main_ctx = RunContext(
-                        self.model, [], oracle_fallback=self._oracle_fallback)
+                    self.main_ctx = RunContext(self.model, [], **self._kw)
+                if rec and self._active:
+                    obs.count("jepsen_engine_decomposed_total",
+                              route="passthrough")
                 yield self.main_ctx, self.main_ctx.append(h)
                 continue
             slots = []
             for key, submodel, subh in parts:
                 if self.sub_ctx is None:
-                    self.sub_ctx = RunContext(
-                        submodel, [], models=[],
-                        oracle_fallback=self._oracle_fallback)
+                    self.sub_ctx = RunContext(submodel, [], models=[],
+                                              **self._kw)
                 slots.append((key, self.sub_ctx.append(subh, submodel)))
             self._parts_of[i] = slots
+            self.n_partitions += len(slots)
+            self.n_decomposed += 1
+            if rec:
+                obs.count("jepsen_engine_decomposed_total",
+                          route="decomposed")
+                obs.count("jepsen_engine_partitions_total", len(slots))
+                obs.registry().histogram(
+                    "jepsen_engine_partition_fanout", buckets=FANOUT_BUCKETS,
+                ).observe(len(slots))
             for _key, idx in slots:
                 yield self.sub_ctx, idx
 

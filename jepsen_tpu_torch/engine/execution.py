@@ -16,16 +16,33 @@ Both classes are **owner-thread confined**: ``submit``/``drain`` must
 come from the thread that created them (checked at run time).  The
 oracle worker pool interacts with execution only through the futures
 each :class:`~jepsen_tpu_torch.engine.planning.RunContext` holds.
+
+Telemetry (:mod:`..obs`, the reference's names), none of it a device
+sync — each time is read where the engine already waits:
+
+- ``engine/dispatch`` span around each retire's wait, its seconds in
+  ``jepsen_engine_bubble_seconds``, and the peak in-flight depth in
+  ``jepsen_engine_inflight_depth``;
+- ``jepsen_kernel_dispatches_total`` by kernel and phase, and
+  ``jepsen_kernel_{compile,execute}_seconds`` from dispatch to settle:
+  "compile" is the first dispatch of a kernel at a row shape (on the
+  card it includes the ``nvcc`` build of a first use), "execute" every
+  later one;
+- ``jepsen_engine_shard_pad_rows_total``, and under a mesh the live
+  share of each device's rows, ``jepsen_engine_device_occupancy_ratio``.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from .. import obs
 
 #: default bound on concurrently in-flight device dispatches; 1 = the
 #: strictly serial dispatch-sync-dispatch path
@@ -120,6 +137,42 @@ def _collect(outs):
     return InFlight(events, host, outs)
 
 
+_claim_lock = threading.Lock()
+
+#: dispatch shapes claimed so far per Elle plan kind (a history plan's
+#: checker keeps its own)
+_PLAN_SHAPES: Dict[tuple, set] = {}
+
+
+def dispatch_owner(plan):
+    """What a plan's first-dispatch claims belong to: a history plan's
+    checker, cached per kernel shape (a rebuilt checker compiles anew, as
+    the reference's per-executable claim does), or — for an Elle plan,
+    rebuilt per call — its kind, vertex bucket, filter profile and mode."""
+    if hasattr(plan, "settle_rows"):
+        return (type(plan).__name__, plan.E, plan.mode,
+                getattr(plan, "masks", None), getattr(plan, "nonadj", None))
+    return plan.fn
+
+
+def claim_first_dispatch(owner, shape) -> bool:
+    """True exactly once per :func:`dispatch_owner` and dispatch
+    ``shape``: the first dispatch is the "compile" phase of the kernel
+    telemetry, every later one "execute"."""
+    with _claim_lock:
+        if isinstance(owner, tuple):
+            shapes = _PLAN_SHAPES.setdefault(owner, set())
+        else:
+            shapes = getattr(owner, "_obs_dispatched_shapes", None)
+            if shapes is None:
+                shapes = set()
+                object.__setattr__(owner, "_obs_dispatched_shapes", shapes)
+        if shape in shapes:
+            return False
+        shapes.add(shape)
+        return True
+
+
 class DispatchWindow:
     """A bounded window of in-flight device dispatches.
 
@@ -145,6 +198,11 @@ class DispatchWindow:
         #: (key, in-flight out), oldest first
         self._inflight: deque = deque()
         self._owner = threading.get_ident()
+        #: dispatches so far, the most in flight at once, and the host
+        #: seconds spent blocked on a retiring dispatch
+        self.submitted = 0
+        self.peak_depth = 0
+        self.bubble_s = 0.0
 
     def _check_owner(self) -> None:
         if threading.get_ident() != self._owner:
@@ -154,17 +212,31 @@ class DispatchWindow:
                 "results back through Futures, never drive the window)"
             )
 
-    def submit(self, key, thunk) -> None:
+    def submit(self, key, thunk, attrs: Optional[dict] = None) -> None:
         """Dispatch one unit of device work, first retiring the oldest
-        entries until there is room."""
+        entries until there is room.  ``attrs`` label the entry's
+        ``engine/dispatch`` span."""
         self._check_owner()
         while len(self._inflight) >= self.window:
             self._retire()
-        self._inflight.append((key, thunk()))
+        self._inflight.append((key, thunk(), attrs))
+        self.submitted += 1
+        depth = len(self._inflight)
+        if depth > self.peak_depth:
+            self.peak_depth = depth
+        obs.gauge_max("jepsen_engine_inflight_depth", depth)
 
     def _retire(self) -> None:
-        key, out = self._inflight.popleft()
-        mat = _materialize(out)
+        key, out, attrs = self._inflight.popleft()
+        t0 = time.perf_counter()
+        if obs.enabled():
+            with obs.span("engine/dispatch", cat="engine", **(attrs or {})):
+                mat = _materialize(out)
+        else:
+            mat = _materialize(out)
+        wait = time.perf_counter() - t0
+        self.bubble_s += wait
+        obs.observe("jepsen_engine_bubble_seconds", wait)
         if self.on_retire is not None:
             self.on_retire(key, mat)
 
@@ -232,7 +304,8 @@ class Executor:
         self.max_dispatch = (wgl.DEFAULT_MAX_DISPATCH if max_dispatch is None
                              else max_dispatch)
         self._win = DispatchWindow(window, on_retire=self._settle_chunk)
-        #: chunk_id -> (plan, padded host arrays, rows, live row count)
+        #: chunk_id -> (plan, padded host arrays, rows, live row count,
+        #: telemetry phase, dispatch time)
         self._chunks: Dict[int, tuple] = {}
         self._next_chunk = 0
         #: chunks whose base pass overflowed, parked until the window drains:
@@ -245,6 +318,23 @@ class Executor:
         #: per device of the placement: live rows and all rows handed to it
         self.dev_rows_live: List[int] = [0] * self.n_devices
         self.dev_rows_total: List[int] = [0] * self.n_devices
+
+    @property
+    def submitted(self) -> int:
+        """Chunks dispatched so far."""
+        return self._win.submitted
+
+    @property
+    def peak_depth(self) -> int:
+        return self._win.peak_depth
+
+    @property
+    def window_size(self) -> int:
+        return self._win.window
+
+    @property
+    def bubble_s(self) -> float:
+        return self._win.bubble_s
 
     @property
     def n_devices(self) -> int:
@@ -262,7 +352,13 @@ class Executor:
     # -- settle path (runs inside window retirement, owner thread) -------
 
     def _settle_chunk(self, chunk_id, mat):
-        plan, arrays, rows, n_live = self._chunks.pop(chunk_id)
+        plan, arrays, rows, n_live, phase, t_dispatch = \
+            self._chunks.pop(chunk_id)
+        if obs.enabled():
+            # dispatch-to-settled latency; under pipelining chunks
+            # overlap, so these sum past the wall clock by design
+            obs.observe(f"jepsen_kernel_{phase}_seconds",
+                        time.perf_counter() - t_dispatch, engine=plan.kernel)
         settle = getattr(plan, "settle_rows", None)
         if settle is not None:
             settle(rows, mat, n_live)
@@ -332,14 +428,25 @@ class Executor:
         chunk_id = self._next_chunk
         self._next_chunk += 1
         n_live, n_rows = len(rows), chunk[0].shape[0]
-        self._chunks[chunk_id] = (plan, chunk, rows, n_live)
+        phase = ("compile" if claim_first_dispatch(
+            dispatch_owner(plan), (str(self.device), n_rows, self.n_devices))
+            else "execute")
+        if obs.enabled():
+            obs.count("jepsen_kernel_dispatches_total", 1,
+                      engine=plan.kernel, phase=phase)
+            if n_rows > n_live:
+                obs.count("jepsen_engine_shard_pad_rows_total",
+                          n_rows - n_live)
+        self._chunks[chunk_id] = (plan, chunk, rows, n_live, phase,
+                                  time.perf_counter())
         self.shard_pad_rows += n_rows - n_live
         shard = n_rows // self.n_devices
         for d in range(self.n_devices):
             self.dev_rows_total[d] += shard
             self.dev_rows_live[d] += min(max(n_live - d * shard, 0), shard)
         self._win.submit(
-            chunk_id, lambda p=plan, c=chunk: self._launch(p, c)
+            chunk_id, lambda p=plan, c=chunk: self._launch(p, c),
+            {"engine": plan.kernel, "rows": n_live, "phase": phase},
         )
 
     def submit(self, pb) -> None:
@@ -394,6 +501,14 @@ class Executor:
         rows only: tail chunks carry neutral padding rows), so a bucket
         pays one padded rerun per rung, not one ladder per chunk."""
         self._win.drain()
+        if obs.enabled() and self.mesh is not None:
+            # per-device occupancy: the live (non-padding) share of the
+            # rows each device was handed; pads sit at the shard tail
+            for d, total in enumerate(self.dev_rows_total):
+                if total:
+                    obs.gauge_set("jepsen_engine_device_occupancy_ratio",
+                                  self.dev_rows_live[d] / total,
+                                  device=str(d))
         pending, self._pending_escalations = self._pending_escalations, []
         merged: Dict[int, List[tuple]] = {}
         for item in pending:

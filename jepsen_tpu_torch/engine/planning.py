@@ -5,7 +5,10 @@ Everything per-run and pure lives here: encoding histories into per-(E,
 C) shape buckets, stacking a bucket into padded arrays and planning its
 kernel route (``wgl.plan_bucket``).  Everything that owns the device
 lives in :mod:`jepsen_tpu_torch.engine.execution`.  The reference's
-tune/obs reads are gone: its defaults are constants or arguments here.
+tuning reads are gone: its defaults are constants or arguments here.
+Settles feed :mod:`..obs` as the reference's do: the time to the first
+verdict and to the first violation, and the per-engine row counts of a
+finished run (:func:`finish_run_telemetry`).
 
 Row identity is an opaque token ``(ctx, idx)``: every planned row carries
 the :class:`RunContext` it belongs to, so the execution layer can route
@@ -16,6 +19,8 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from .. import obs
+
 #: rows a shape bucket accumulates before flushing mid-stream, per device
 #: (the default dispatch cap: ordinary batches flush once per bucket,
 #: larger keyspaces stream — encode of flush k+1 overlaps device work of k)
@@ -24,6 +29,24 @@ DEFAULT_FLUSH_ROWS = 16384
 #: sentinel distinct from every bucket key (``None`` is the legitimate
 #: key of unbucketed mode): this history routed to the oracle pool
 _ROUTED_ORACLE = object()
+
+
+def _note_settle_times(result: dict) -> None:
+    """Record the run's time-to-first-verdict / time-to-violation gauges
+    the moment a slot settles: seconds since the tracer's wall origin,
+    written once — the first settle and the first ``valid? = false``
+    verdict win."""
+    if not obs.enabled():
+        return
+    import time as _time
+
+    reg = obs.registry()
+    dt = _time.time() - obs.tracer().wall_origin
+    if reg.value("jepsen_run_first_verdict_seconds") is None:
+        obs.gauge_set("jepsen_run_first_verdict_seconds", round(dt, 6))
+    if (result.get("valid?") is False
+            and reg.value("jepsen_run_first_violation_seconds") is None):
+        obs.gauge_set("jepsen_run_first_violation_seconds", round(dt, 6))
 
 
 class RunContext:
@@ -44,6 +67,7 @@ class RunContext:
         *,
         models: Optional[List] = None,
         oracle_fallback: bool = True,
+        oracle_budget_s: Optional[float] = None,
     ):
         from ..ops.step_kernels import spec_for
 
@@ -54,8 +78,12 @@ class RunContext:
         self.models = models
         self.spec = spec_for(model)
         self.oracle_fallback = oracle_fallback
+        #: wall-time bound of each oracle search (None: unbounded)
+        self.oracle_budget_s = oracle_budget_s
         self.results: List[Optional[dict]] = [None] * len(self.histories)
         self.oracle_futs: Dict[int, Tuple[Any, str]] = {}
+        #: budgeted searches, run serially at :meth:`drain_oracles`
+        self.oracle_deferred: List[Tuple[int, str]] = []
 
     def model_for(self, idx: int):
         """The model history ``idx`` checks against (encode's initial
@@ -77,16 +105,26 @@ class RunContext:
 
     def assign(self, idx: int, result: dict) -> None:
         self.results[idx] = result
+        _note_settle_times(result)
 
     def route_oracle(self, idx: int, engine_tag: str,
                      unresolved_tag: str) -> None:
         """Queue one history for the CPU oracle worker pool (running
         concurrently with device work), or tag it unknown when the caller
-        runs the oracle itself (``oracle_fallback=False``)."""
+        runs the oracle itself (``oracle_fallback=False``).
+
+        Budgeted searches (``oracle_budget_s``) are not overlapped: the
+        budget is a wall-clock deadline, and worker threads sharing the
+        interpreter would burn it faster than a serial search, flipping
+        verdicts to "unknown".  They run one after another at
+        :meth:`drain_oracles`, as in the reference."""
         from ..checker import linear
 
         if not self.oracle_fallback:
             self.assign(idx, {"valid?": "unknown", "engine": unresolved_tag})
+            return
+        if self.oracle_budget_s is not None:
+            self.oracle_deferred.append((idx, engine_tag))
             return
         self.oracle_futs[idx] = (
             linear.analysis_async(
@@ -97,9 +135,20 @@ class RunContext:
         )
 
     def drain_oracles(self) -> None:
-        """Collect the concurrent oracle verdicts."""
+        """Collect the concurrent oracle verdicts, then run the budgeted
+        searches serially (see :meth:`route_oracle`)."""
+        from ..checker import linear
+
         for idx, (fut, engine_tag) in self.oracle_futs.items():
             r = fut.result()
+            r["engine"] = engine_tag
+            self.assign(idx, r)
+        pure = self.spec.pure_fs if self.spec else ()
+        for idx, engine_tag in self.oracle_deferred:
+            r = linear.analysis(
+                self.model_for(idx), self.histories[idx], pure_fs=pure,
+                budget_s=self.oracle_budget_s,
+            )
             r["engine"] = engine_tag
             self.assign(idx, r)
 
@@ -150,6 +199,10 @@ class Planner:
         self.max_closure = max_closure
         self.bucketed = bucketed
         self.flush_rows = max(1, n_devices) * DEFAULT_FLUSH_ROWS
+        #: distinct shape buckets of finished streams, and bucket flushes
+        #: planned (a bucket that streams mid-input flushes more than once)
+        self.n_buckets = 0
+        self.n_flushes = 0
 
     def encode_one(self, ctx: RunContext, idx: int):
         """Encode one history of ``ctx`` against its own model
@@ -207,6 +260,7 @@ class Planner:
             batch.init_state, batch.ev_slot, batch.cand_slot,
             batch.cand_f, batch.cand_a, batch.cand_b,
         )
+        self.n_flushes += 1
         plan = wgl.plan_bucket(
             self.model, self.spec, arrays, device=self.device,
             frontier=self.frontier,
@@ -259,6 +313,7 @@ class BucketStream:
             pb = p.plan_rows(key, *self.buckets[key])
             if pb is not None:
                 planned.append(pb)
+        p.n_buckets += len(self.order)
         self.finished = True
         planned.sort(key=estimated_cost, reverse=True)
         yield from planned
@@ -282,3 +337,20 @@ def estimated_cost(pb: PlannedBucket) -> float:
         return float(rows) * plan.E * plan.E * max(1, plan.frontier)
     words = max(1, -(-plan.E // 32))
     return float(rows * plan.frontier * (plan.C + 1) * words)
+
+
+def finish_run_telemetry(results: Sequence[Optional[dict]]) -> None:
+    """Per-history engine-outcome counters of a finished run
+    (``jepsen_engine_rows_total``): device rows count under their kernel
+    name, everything else under its engine tag."""
+    from ..ops import wgl
+
+    if not (obs.enabled() and results):
+        return
+    stats = wgl.batch_stats([r for r in results if r is not None])
+    for eng, cnt in stats["engines"].items():
+        if eng == "gpu":
+            continue
+        obs.count("jepsen_engine_rows_total", cnt, engine=eng)
+    for k, cnt in stats["kernels"].items():
+        obs.count("jepsen_engine_rows_total", cnt, engine=k)

@@ -62,6 +62,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from . import _build
 from .dense import WORD_LANES, pack_words_np, word_count
 
@@ -658,6 +659,29 @@ class ScreenResult:
         self.walks = walks
 
 
+def _settle_closure_obs(plan, rounds: np.ndarray, n_live: int) -> None:
+    """Record one settled dispatch's closure evidence (the reference's
+    names): rounds run against the plan's full ladder (the earlyexit
+    savings; zero in "fixed" mode), the live share of the dispatched
+    planes, the arithmetic that ran (the port has one: 32-bit packed
+    words), the live share of the carried word lanes, and the boolean
+    operations the rounds stand for (~2·n³ per plane weight and round)."""
+    if not obs.enabled() or rounds.size == 0:
+        return
+    used = int(rounds[: max(1, n_live)].max())
+    obs.count("jepsen_cycles_closure_rounds_total", used, mode=plan.mode)
+    obs.count("jepsen_cycles_closure_rounds_saved_total",
+              max(0, plan.rounds_full - used), mode=plan.mode)
+    obs.gauge_set("jepsen_cycles_packed_plane_occupancy",
+                  n_live / rounds.shape[0])
+    obs.count("jepsen_cycles_impl_total", 1, impl="packed32")
+    obs.gauge_set("jepsen_cycles_word_lane_occupancy",
+                  plan.E / (word_count(plan.E) * WORD_LANES))
+    obs.count("jepsen_cycles_closure_flops_total",
+              int(2.0 * float(plan.E) ** 3 * plan.frontier * used
+                  * max(1, n_live)), mode=plan.mode)
+
+
 class CyclePlan:
     """Self-settling Executor plan for the has-cycle screen: one
     ``(B, n, n)`` uint8 adjacency input, one cyclic flag (and the rounds)
@@ -685,6 +709,7 @@ class CyclePlan:
         return mesh_mod.sharded_elle(self.fn, mesh, arrays[0], 2)
 
     def settle_rows(self, rows, mat, n_live: int) -> None:
+        _settle_closure_obs(self, np.asarray(mat[1]), n_live)
         flags = np.asarray(mat[0])[:n_live]
         for row, (sink, idx) in enumerate(rows):
             sink[idx] = bool(flags[row])
@@ -727,6 +752,7 @@ class ScreenPlan:
         return mesh_mod.sharded_elle(self.fn, mesh, arrays[0], 3)
 
     def settle_rows(self, rows, mat, n_live: int) -> None:
+        _settle_closure_obs(self, np.asarray(mat[2]), n_live)
         members = np.asarray(mat[0])[:n_live]
         walks = np.asarray(mat[1])[:n_live]
         for row, (sink, idx) in enumerate(rows):
@@ -746,9 +772,18 @@ def _submit_elle_buckets(planned, window, executor, device) -> None:
     ex = executor if executor is not None else execution.Executor(
         window, device=device_mod.resolve(device))
     planned.sort(key=planning.estimated_cost, reverse=True)
+    sub0 = ex.submitted
+    total_rows = 0
     for pb in planned:
+        total_rows += len(pb.rows)
         ex.submit(pb)
     ex.drain()
+    n_disp = ex.submitted - sub0
+    if obs.enabled() and n_disp:
+        obs.registry().histogram(
+            "jepsen_elle_graphs_per_dispatch",
+            buckets=(1.0, 4.0, 16.0, 64.0, 256.0, 1024.0, 4096.0, 16384.0),
+        ).observe(total_rows / n_disp)
 
 
 # ---------------------------------------------------------------------------

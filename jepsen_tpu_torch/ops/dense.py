@@ -68,6 +68,7 @@ Three forms of the one function live here:
 from __future__ import annotations
 
 import ctypes
+import threading
 from functools import lru_cache
 from typing import Optional, Tuple, Union
 
@@ -75,6 +76,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import obs
 from . import _build
 from .step_kernels import (
     F_ACQUIRE, F_CAS, F_DEQUEUE, F_ENQUEUE, F_PACQUIRE, F_RACQUIRE,
@@ -967,6 +969,21 @@ class DenseChecker(nn.Module):
         return self.reference(*arrays)
 
 
+_claim_lock = threading.Lock()
+
+
+def count_kernel_build(fn) -> bool:
+    """True exactly once per cached checker object (the dense and frontier
+    factories share it): the cache returns one object per live shape, so
+    marking the object counts distinct builds — what
+    ``jepsen_kernel_builds_total`` counts."""
+    with _claim_lock:
+        if getattr(fn, "_obs_build_counted", False):
+            return False
+        object.__setattr__(fn, "_obs_build_counted", True)
+        return True
+
+
 def make_dense_fn(spec_name: str, E: int, C: int, V: Shape,
                   device: torch.device) -> DenseChecker:
     """The cached :class:`DenseChecker` for a shape, its buffers on
@@ -978,7 +995,11 @@ def make_dense_fn(spec_name: str, E: int, C: int, V: Shape,
     shares one module."""
     if spec_name == QUEUE:
         V = 0
-    return _make_dense_fn_cached(spec_name, E, C, V, torch.device(device))
+    fn = _make_dense_fn_cached(spec_name, E, C, V, torch.device(device))
+    if count_kernel_build(fn):
+        obs.count("jepsen_kernel_builds_total", engine="dense",
+                  spec=spec_name)
+    return fn
 
 
 @lru_cache(maxsize=64)

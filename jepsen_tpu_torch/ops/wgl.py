@@ -50,6 +50,15 @@ semantics: every duplicate config is removed, the lowest lane of each
 class survives, survivors keep lane order.  Device results keep the
 reference's dict schema with ``"engine": "gpu"`` where the reference
 writes ``"tpu"``.
+
+Telemetry (:mod:`..obs`, the reference's names): a checker's first build
+(``jepsen_kernel_builds_total``), each planned bucket's route
+(``jepsen_engine_routed_total``, ``jepsen_engine_batch_rows_total``), the
+frontier's capacity high-water, safe dispatch and memory-budget share
+(``jepsen_frontier_high_water``, ``jepsen_frontier_safe_dispatch``,
+``jepsen_frontier_dispatch_budget_used_ratio``) and each escalation
+rung's rows and timed dispatch (``jepsen_engine_escalations_total``,
+engine ``"frontier-escalated"``).
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ import numpy as np
 import torch
 
 from .. import models as m
+from .. import obs
 from ..history import History
 from . import _build
 from . import dense as dense_mod
@@ -121,6 +131,14 @@ LINEAR_FRONTIER_SPECS = frozenset(
 #: the unordered queue factors per value into a greedy matching
 #: (checker/locks_direct.py), so the reference never dispatches it
 DIRECT_FIRST_SPECS = frozenset({"unordered-queue"})
+
+
+def supported(model: m.Model) -> bool:
+    """True when the model has a device step (a spec of the table): the
+    ``linearizable`` checker's ``"auto"`` takes the device route for it."""
+    from .step_kernels import spec_for
+
+    return spec_for(model) is not None
 
 
 def _dense_domain(n_values):
@@ -586,7 +604,11 @@ def make_check_fn(spec_name: str, E: int, C: int, F: int, max_closure: int,
     the reference's per-shape jit cache).  ``device`` is taken for parity
     with :func:`.dense.make_dense_fn` and not used: the checker runs where
     its inputs lie."""
-    return _checker(spec_name, E, C, F, max_closure)
+    fn = _checker(spec_name, E, C, F, max_closure)
+    if dense_mod.count_kernel_build(fn):
+        obs.count("jepsen_kernel_builds_total", engine="frontier",
+                  spec=spec_name)
+    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -674,9 +696,27 @@ def plan_bucket(model, spec, arrays, *, device,
         plan.kernel = "frontier"
         plan.fn = (None if spec.dense_only
                    else make_check_fn(spec.name, E, C, frontier, mc, device))
-    plan.disp = (0 if plan.fn is None else
-                 min(max_dispatch,
-                     getattr(plan.fn, "safe_dispatch", max_dispatch)))
+    plan.disp = disp = (0 if plan.fn is None else
+                        min(max_dispatch,
+                            getattr(plan.fn, "safe_dispatch", max_dispatch)))
+    if obs.enabled():
+        B0 = arrays[0].shape[0]
+        # a bucket counts as device traffic only when a kernel will
+        # dispatch it: no checker, or no row fitting, is the oracle's
+        routed = plan.kernel if plan.fn is not None and disp > 0 \
+            else "oracle"
+        obs.count("jepsen_engine_routed_total", engine=routed,
+                  spec=spec.name)
+        obs.count("jepsen_engine_batch_rows_total", B0, engine=routed)
+        if routed == "frontier":
+            obs.gauge_max("jepsen_frontier_high_water", frontier)
+            obs.gauge_set("jepsen_frontier_safe_dispatch", disp)
+            # high-water: the peak share of the dispatch memory budget
+            obs.gauge_max(
+                "jepsen_frontier_dispatch_budget_used_ratio",
+                frontier_row_bytes(frontier, E, C) * min(B0, disp)
+                / FRONTIER_DISPATCH_BUDGET,
+            )
     return plan
 
 
@@ -702,6 +742,31 @@ def _run_rows(fn, arrays, device, disp: int, mesh=None):
         outs.append(tuple(np.concatenate([s.cpu().numpy() for s in o])
                           for o in shards))
     return tuple(np.concatenate([o[i] for o in outs]) for i in range(3))
+
+
+def _timed_run_rows(fn, arrays, device, disp: int, mesh, engine: str):
+    """:func:`_run_rows` with the engine's dispatch telemetry: an
+    ``engine/dispatch`` span, ``jepsen_kernel_{compile,execute}_seconds``
+    (compile: the checker's first dispatch at this shape) and
+    ``jepsen_kernel_dispatches_total``.  The run is synchronous already,
+    so timing it adds no wait."""
+    if not obs.enabled():
+        return _run_rows(fn, arrays, device, disp, mesh)
+    from ..engine import execution
+
+    B = arrays[0].shape[0]
+    n_dev = 1 if mesh is None else mesh.size
+    first = execution.claim_first_dispatch(
+        fn, (str(device), min(B, disp), n_dev))
+    phase = "compile" if first else "execute"
+    with obs.span("engine/dispatch", cat="engine", engine=engine, rows=B,
+                  phase=phase) as sp:
+        out = _run_rows(fn, arrays, device, disp, mesh)
+    obs.observe(f"jepsen_kernel_{phase}_seconds", sp.duration_s(),
+                engine=engine)
+    obs.count("jepsen_kernel_dispatches_total", max(1, -(-B // disp)),
+              engine=engine, phase=phase)
+    return out
 
 
 def overflow_rows(arrays, overflow: np.ndarray):
@@ -751,8 +816,11 @@ def escalate_overflows(plan: BucketPlan, arrays, ok: np.ndarray,
         bad, sub = overflow_rows(arrays, overflow)
         n_bad = len(bad)
         ESCALATIONS[capacity] = ESCALATIONS.get(capacity, 0) + n_bad
-        ok2, failed2, ovf2 = (x[:n_bad] for x in
-                              _run_rows(fn2, sub, device, disp2, mesh))
+        obs.gauge_max("jepsen_frontier_high_water", capacity)
+        obs.count("jepsen_engine_escalations_total", n_bad,
+                  capacity=str(capacity))
+        ok2, failed2, ovf2 = (x[:n_bad] for x in _timed_run_rows(
+            fn2, sub, device, disp2, mesh, "frontier-escalated"))
         ok[bad] = ok2
         failed_at[bad] = failed2
         overflow[bad] = ovf2
@@ -769,6 +837,7 @@ def check_batch(
     oracle_fallback: bool = True,
     sufficient_rung: bool = True,
     max_dispatch: int = DEFAULT_MAX_DISPATCH,
+    oracle_budget_s: Optional[float] = None,
     window: Optional[int] = None,
     bucketed: bool = True,
     decomposed: bool = True,
@@ -823,6 +892,7 @@ def check_batch(
         oracle_fallback=oracle_fallback,
         sufficient_rung=sufficient_rung,
         max_dispatch=max_dispatch,
+        oracle_budget_s=oracle_budget_s,
         window=window,
         bucketed=bucketed,
         decomposed=decomposed,

@@ -35,7 +35,13 @@ _IMPORT_ALL = textwrap.dedent("""
                      "jepsen_tpu_torch.checker.locks_direct",
                      "jepsen_tpu_torch.engine.decompose",
                      "jepsen_tpu_torch.parallel",
-                     "jepsen_tpu_torch.parallel.mesh"):
+                     "jepsen_tpu_torch.parallel.mesh",
+                     "jepsen_tpu_torch.checker",
+                     "jepsen_tpu_torch.independent",
+                     "jepsen_tpu_torch.obs",
+                     "jepsen_tpu_torch.obs.profiling",
+                     "jepsen_tpu_torch.store",
+                     "jepsen_tpu_torch.workloads.cycle"):
         assert required in names, required
     for name in names:
         importlib.import_module(name)
@@ -55,8 +61,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     )
     assert out.returncode == 0, out.stderr
     # every module of the port, the lock checkers, the decomposition
-    # front-end and the mesh included
-    assert int(out.stdout.split()[-1]) >= 23
+    # front-end, the mesh, the checker seam, the independent lift, obs
+    # and the cycle workloads included
+    assert int(out.stdout.split()[-1]) >= 46
 
 
 def test_the_refusal_matches_names_exactly():
