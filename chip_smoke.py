@@ -189,6 +189,20 @@ line.
     ``register_warp_kernel`` with device time > 0; the line gives the
     window's wall seconds, the kernels' summed device seconds and their
     ratio, the device's busy share of the seam run.
+23. tuning — the CUDA probe (``platform.probe_accelerator``) must pass;
+    ``tune.run_tune(profile="smoke")`` writes its artifact into a
+    temporary directory, keyed to the card's name, with budget checks and
+    no breach; the line gives the picks beside the pinned defaults, the
+    measured configs, the cost table and the tuner's launches of K1, K4,
+    K7 (and K1m's).  Then, with that artifact active, phase 4's corpus
+    through ``check_batch``: every verdict (``valid?``, ``failed-event``,
+    kernel, engine) must equal phase 4's untuned one.  Again with a
+    dispatch journal in the temporary directory and a drift sentinel: one
+    schema-valid journal row per settled dispatch, each a cache hit whose
+    cost is on ``execute_s``, every row scored; the sentinel's snapshot
+    is printed.  The calibration, the journal and the sentinel are
+    cleared afterwards (the script starts with calibration disabled, so
+    no ``calibration.json`` in the working directory steers any phase).
 
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -211,16 +225,19 @@ import numpy as np
 import torch
 
 from jepsen_tpu_torch import checker as checker_mod
-from jepsen_tpu_torch import elle, independent, models, obs, synth
+from jepsen_tpu_torch import elle, independent, models, obs, synth, tune
+from jepsen_tpu_torch import platform as platform_mod
 from jepsen_tpu_torch.checker import linear
 from jepsen_tpu_torch.elle import core as elle_core
 from jepsen_tpu_torch.elle import cycles as elle_cycles
 from jepsen_tpu_torch.elle import encode as elle_encode
 from jepsen_tpu_torch.elle import graph as elle_graph
 from jepsen_tpu_torch.elle import rw_register as elle_rw
-from jepsen_tpu_torch.engine import decompose, execution
+from jepsen_tpu_torch.engine import decompose, execution, planning
 from jepsen_tpu_torch.history import History, Op
+from jepsen_tpu_torch.obs import drift as obs_drift
 from jepsen_tpu_torch.obs import export as obs_export
+from jepsen_tpu_torch.obs import journal as obs_journal
 from jepsen_tpu_torch.obs import profiling
 from jepsen_tpu_torch.ops import (_build, cycles, dense, encode,
                                   step_kernels, wgl)
@@ -2152,6 +2169,127 @@ def profile_phase(card, keyed, device):
          memory=manifest["memory"], card=card)
 
 
+# ---------------------------------------------------------------------------
+# the tuner (phase 23)
+# ---------------------------------------------------------------------------
+
+
+def verdict_tuple(r: dict) -> tuple:
+    return (r["valid?"], r.get("failed-event"), r.get("kernel"),
+            r.get("engine"))
+
+
+#: the wrappers of the kernels on the tuner's path, by table row
+TUNER_KERNELS = {
+    "K1": lambda: dense.DENSE_AUTOMATON,
+    "K1m": lambda: dense.DENSE_KERNELS["multi-register"],
+    "K4": lambda: wgl.FRONTIER_SEARCH,
+    "K7": lambda: cycles.SCREEN,
+}
+
+
+def dense_dispatches() -> float:
+    reg = obs.registry()
+    return sum(reg.value("jepsen_kernel_dispatches_total", engine="dense",
+                         phase=p) or 0 for p in ("compile", "execute"))
+
+
+def tuning_phase(card, model, hs, results):
+    """Phase 23: the probe, the smoke tuner on the card, phase 4's corpus
+    tuned against untuned, then journalled and drift-scored."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    ok, probe_err = platform_mod.probe_accelerator()
+    require(ok, f"the CUDA probe failed: {probe_err}")
+    probe_s = time.perf_counter() - t0
+    kind = torch.cuda.get_device_name()
+    want = [verdict_tuple(r) for r in results]
+    defaults = {"window": execution.DEFAULT_WINDOW,
+                "flush_rows": planning.DEFAULT_FLUSH_ROWS,
+                "row_bucket": execution.ROW_BUCKET,
+                "closure_mode": cycles.DEFAULT_CLOSURE_MODE}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
+        before = {k: w().launches for k, w in TUNER_KERNELS.items()}
+        path, data = tune.run_tune(
+            out_path=os.path.join(tmp, "calibration.json"), profile="smoke",
+            activate=False)
+        tuner_launches = {k: w().launches - before[k]
+                          for k, w in TUNER_KERNELS.items()}
+        sweep = data["sweep"]
+        require(data["device_kind"] == kind,
+                f"the artifact is keyed to {data['device_kind']!r}, not the "
+                f"card's {kind!r}")
+        require(sweep["budget_checks"] > 0 and sweep["budget_breaches"] == 0,
+                f"budget checks {sweep['budget_checks']}, breaches "
+                f"{sweep['budget_breaches']}")
+        require(data["cost_table"], "the smoke tuner measured no cost point")
+        require(all(tuner_launches[k] > 0 for k in ("K1", "K4", "K7")),
+                f"the tuner's path missed a kernel: {tuner_launches}")
+        emit(phase="tuning", step="tune", probe_ok=ok, probe_s=probe_s,
+             device_kind=data["device_kind"], n_devices=data["n_devices"],
+             calibration=data["calibration_id"], params=data["params"],
+             defaults=defaults, measured_configs=sweep["measured_configs"],
+             trail=sweep["trail"], budget_checks=sweep["budget_checks"],
+             budget_breaches=sweep["budget_breaches"],
+             tune_wall_s=sweep["wall_s"], launches=tuner_launches,
+             cost_table=data["cost_table"], card=card)
+
+        tune.use(path)  # vetted against the card and the code
+        try:
+            cal = tune.active()
+            require(cal is not None
+                    and cal.calibration_id == data["calibration_id"],
+                    "the tuned artifact did not load")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tuned = wgl.check_batch(model, hs, slot_cap=8)
+            tuned_s = time.perf_counter() - t1
+            differ = [i for i, r in enumerate(tuned)
+                      if verdict_tuple(r) != want[i]]
+            require(not differ, f"tuned verdicts differ from phase 4's at "
+                    f"{differ[:8]}")
+            emit(phase="tuning", step="tuned_vs_untuned",
+                 histories=len(hs), seconds=tuned_s,
+                 histories_per_s=len(hs) / tuned_s, equal=True, card=card)
+
+            jpath = os.path.join(tmp, "dispatch-journal.jsonl")
+            obs.enable(reset=True)
+            obs_journal.configure(jpath)
+            sentinel = obs_drift.configure()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            journalled = wgl.check_batch(model, hs, slot_cap=8)
+            journal_s = time.perf_counter() - t1
+            require([verdict_tuple(r) for r in journalled] == want,
+                     "journalled verdicts differ from phase 4's")
+            rows = list(obs_journal.read_rows(jpath, strict=True))
+            dispatches = dense_dispatches()
+            require(len(rows) == dispatches > 0,
+                    f"{len(rows)} journal rows for {dispatches} dispatches")
+            require(all(obs_journal.validate_row(r) for r in rows),
+                    "a journal row fails the schema")
+            require(all(r["cache"] == "hit" and r["execute_s"] > 0
+                        and r["compile_s"] == 0 for r in rows),
+                    "a journal row's cost is not on execute_s")
+            require(all(r["calibration"] == cal.calibration_id
+                        for r in rows), "a journal row names no calibration")
+            snap = sentinel.snapshot()
+            require(snap["rows_scored"] == len(rows),
+                    f"the sentinel scored {snap['rows_scored']} of "
+                    f"{len(rows)} rows")
+            emit(phase="tuning", step="journal", rows=len(rows),
+                 dispatches=dispatches, seconds=journal_s,
+                 rows_per_dispatch=[r["rows"] for r in rows],
+                 execute_s=[r["execute_s"] for r in rows],
+                 retune_recommended=tune.retune_recommended(),
+                 drift=snap, card=card)
+        finally:
+            obs_journal.configure(None)
+            obs_drift.disable()
+            tune.use(None)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -2159,6 +2297,9 @@ def main() -> int:
         return 1
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    # no calibration.json in the working directory steers any phase; phase
+    # 23 activates its own artifact
+    tune.use(None)
 
     # -- 1. build and device ------------------------------------------------
     t0 = time.perf_counter()
@@ -2380,6 +2521,9 @@ def main() -> int:
 
     # -- 22. the device's busy share of the seam run --------------------------
     profile_phase(card, keyed, device)
+
+    # -- 23. the tuner, the journal and the drift sentinel --------------------
+    tuning_phase(card, model, hs, results)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

@@ -29,7 +29,14 @@ sync — each time is read where the engine already waits:
   card it includes the ``nvcc`` build of a first use), "execute" every
   later one;
 - ``jepsen_engine_shard_pad_rows_total``, and under a mesh the live
-  share of each device's rows, ``jepsen_engine_device_occupancy_ratio``.
+  share of each device's rows, ``jepsen_engine_device_occupancy_ratio``;
+- when a dispatch journal is configured (:mod:`..obs.journal`), one row
+  per settled chunk, scored by the drift sentinel when one is active
+  (:mod:`..obs.drift`); nothing is built or written without a journal.
+
+The window depth and the row-bucket floor resolve as argument > active
+calibration (:mod:`..tune.artifact`) > :data:`DEFAULT_WINDOW` /
+:data:`ROW_BUCKET` (:func:`default_window`, :func:`row_bucket_floor`).
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..obs import drift as obs_drift
+from ..obs import journal as obs_journal
 
 #: default bound on concurrently in-flight device dispatches; 1 = the
 #: strictly serial dispatch-sync-dispatch path
@@ -54,29 +63,55 @@ DEFAULT_WINDOW = 4
 ROW_BUCKET = 64
 
 
-def row_bucket_target(n: int) -> int:
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def row_bucket_floor(row_bucket: Optional[int] = None) -> int:
+    """The resolved minimum dispatch row bucket: ``row_bucket`` (rounded
+    up to a power of two, so the geometric ladder stays intact) > the
+    active calibration > :data:`ROW_BUCKET`."""
+    from ..tune import artifact as _cal
+
+    if row_bucket is not None:
+        row_bucket = _pow2_at_least(max(1, int(row_bucket)))
+    return _cal.resolve_knob(row_bucket, lambda cal: cal.row_bucket(),
+                             ROW_BUCKET)
+
+
+def default_window(window: Optional[int] = None) -> int:
+    """The resolved in-flight window: ``window`` > the active calibration
+    > :data:`DEFAULT_WINDOW`."""
+    from ..tune import artifact as _cal
+
+    if window is not None:
+        window = max(1, int(window))
+    return _cal.resolve_knob(window, lambda cal: max(1, cal.window()),
+                             DEFAULT_WINDOW)
+
+
+def row_bucket_target(n: int, floor: Optional[int] = None) -> int:
     """Row count → its stable dispatch shape: the next power of two,
-    floored at :data:`ROW_BUCKET`."""
-    target = ROW_BUCKET
+    floored at ``floor`` (default :func:`row_bucket_floor`)."""
+    target = row_bucket_floor() if floor is None else floor
     while target < n:
         target *= 2
     return target
 
 
-def _pow2_at_least(x: int) -> int:
-    return 1 << max(0, int(x) - 1).bit_length()
-
-
-def shard_row_target(n: int, n_shards: int) -> int:
+def shard_row_target(n: int, n_shards: int,
+                     floor: Optional[int] = None) -> int:
     """Row count → its stable dispatch shape on an ``n_shards``-device
     mesh: the per-shard row count rounds up to a power of two, floored so
-    that the whole chunk never drops below :data:`ROW_BUCKET` rows (a
-    tiny batch pays the same neutral rows spread over the mesh, not
-    :data:`ROW_BUCKET` per device).  ``n_shards = 1`` is
+    that the whole chunk never drops below ``floor`` rows (default
+    :func:`row_bucket_floor`; a tiny batch pays the same neutral rows
+    spread over the mesh, not ``floor`` per device).  ``n_shards = 1`` is
     :func:`row_bucket_target`; the result is a multiple of ``n_shards``."""
+    if floor is None:
+        floor = row_bucket_floor()
     if n_shards <= 1:
-        return row_bucket_target(n)
-    per_floor = _pow2_at_least(max(1, -(-ROW_BUCKET // n_shards)))
+        return row_bucket_target(n, floor)
+    per_floor = _pow2_at_least(max(1, -(-floor // n_shards)))
     per = max(per_floor, _pow2_at_least(max(1, -(-n // n_shards))))
     return n_shards * per
 
@@ -192,8 +227,7 @@ class DispatchWindow:
         window: Optional[int] = None,
         on_retire: Optional[Callable[[Any, tuple], None]] = None,
     ):
-        self.window = max(1, int(window) if window is not None
-                          else DEFAULT_WINDOW)
+        self.window = default_window(window)
         self.on_retire = on_retire
         #: (key, in-flight out), oldest first
         self._inflight: deque = deque()
@@ -274,7 +308,9 @@ class Executor:
     into n equal shards (:func:`shard_row_target`), padded with neutral
     rows, one CUDA event per shard.  The padding and live rows each
     device was handed are kept in :attr:`shard_pad_rows`,
-    :attr:`dev_rows_live` and :attr:`dev_rows_total`.  A chunk with
+    :attr:`dev_rows_live` and :attr:`dev_rows_total`, the peak rows in
+    flight on one device per (kernel, E, C, F, cap) in
+    :attr:`chip_row_accounting`.  A chunk with
     overflowed rows is parked and escalates at :meth:`drain`, with the
     window empty.  A bucket with no device checker (routed to the
     oracle) or whose cap is 0 (not even one row fits) settles inline:
@@ -285,7 +321,8 @@ class Executor:
     def __init__(self, window: Optional[int] = None, *,
                  device: Optional[torch.device] = None, mesh=None,
                  escalation=None, sufficient_rung: bool = True,
-                 max_dispatch: Optional[int] = None):
+                 max_dispatch: Optional[int] = None,
+                 row_bucket: Optional[int] = None):
         from ..ops import wgl
         from ..parallel import mesh as mesh_mod
 
@@ -303,9 +340,11 @@ class Executor:
         self.sufficient_rung = sufficient_rung
         self.max_dispatch = (wgl.DEFAULT_MAX_DISPATCH if max_dispatch is None
                              else max_dispatch)
+        #: the resolved row-bucket floor (:func:`row_bucket_floor`)
+        self.row_bucket = row_bucket_floor(row_bucket)
         self._win = DispatchWindow(window, on_retire=self._settle_chunk)
         #: chunk_id -> (plan, padded host arrays, rows, live row count,
-        #: telemetry phase, dispatch time)
+        #: telemetry phase, dispatch time, rows per device, accounting key)
         self._chunks: Dict[int, tuple] = {}
         self._next_chunk = 0
         #: chunks whose base pass overflowed, parked until the window drains:
@@ -318,6 +357,15 @@ class Executor:
         #: per device of the placement: live rows and all rows handed to it
         self.dev_rows_live: List[int] = [0] * self.n_devices
         self.dev_rows_total: List[int] = [0] * self.n_devices
+        #: rows in flight on one device, and their peak against the plan's
+        #: per-device cap, keyed by (kernel, E, C, F, cap): a frontier
+        #: shape's peak stays within its cap at any window depth, a dense
+        #: one within cap × window (the tuner's budget evidence)
+        self._chip_rows_inflight: Dict[tuple, int] = {}
+        self.chip_row_accounting: Dict[tuple, dict] = {}
+        #: extra journal fields the caller owns (``coalesced``,
+        #: ``trace_id``)
+        self.journal_context: Dict[str, Any] = {}
 
     @property
     def submitted(self) -> int:
@@ -352,13 +400,17 @@ class Executor:
     # -- settle path (runs inside window retirement, owner thread) -------
 
     def _settle_chunk(self, chunk_id, mat):
-        plan, arrays, rows, n_live, phase, t_dispatch = \
-            self._chunks.pop(chunk_id)
+        (plan, arrays, rows, n_live, phase, t_dispatch, chip_rows,
+         acct_key) = self._chunks.pop(chunk_id)
+        self._chip_rows_inflight[acct_key] -= chip_rows
+        elapsed = time.perf_counter() - t_dispatch
         if obs.enabled():
             # dispatch-to-settled latency; under pipelining chunks
             # overlap, so these sum past the wall clock by design
-            obs.observe(f"jepsen_kernel_{phase}_seconds",
-                        time.perf_counter() - t_dispatch, engine=plan.kernel)
+            obs.observe(f"jepsen_kernel_{phase}_seconds", elapsed,
+                        engine=plan.kernel)
+        if obs_journal.active() is not None:
+            self._journal_dispatch(plan, phase, n_live, elapsed)
         settle = getattr(plan, "settle_rows", None)
         if settle is not None:
             settle(rows, mat, n_live)
@@ -370,6 +422,39 @@ class Executor:
                 (plan, arrays, rows, ok, failed_at, overflow))
         else:
             self._assign_rows(plan, rows, ok, failed_at, overflow)
+
+    def _journal_dispatch(self, plan, phase: str, n_live: int,
+                          elapsed: float) -> None:
+        """One schema-v1 journal row per settled chunk, then the drift
+        sentinel's score of it.  Best-effort: ``emit`` drops a row it
+        cannot write, and a dispatch never fails for the journal."""
+        from ..tune import artifact as _cal
+
+        cal = _cal.active()
+        compile_hit = phase == "compile"
+        ctx = self.journal_context
+        row = obs_journal.emit(
+            kernel=str(plan.kernel),
+            E=int(plan.E),
+            C=int(plan.C),
+            F=int(plan.frontier),
+            rows=int(n_live),
+            n_devices=int(self.n_devices),
+            mesh_shape=[self.n_devices] if self.mesh is not None else [1],
+            window=int(self.window_size),
+            compile_s=round(elapsed, 6) if compile_hit else 0.0,
+            execute_s=0.0 if compile_hit else round(elapsed, 6),
+            coalesced=int(ctx.get("coalesced", 1)),
+            cache="miss" if compile_hit else "hit",
+            closure_mode=str(getattr(plan, "mode", "") or ""),
+            union="",
+            calibration=cal.calibration_id if cal is not None else "",
+            trace_id=str(ctx.get("trace_id", "") or ""),
+        )
+        if row is not None:
+            sentinel = obs_drift.active()
+            if sentinel is not None:
+                sentinel.observe_row(row)
 
     def _settle_rows(self, plan, arrays, rows, ok, failed_at, overflow):
         """Escalate a chunk's overflows on the device, then assign verdicts
@@ -437,15 +522,31 @@ class Executor:
             if n_rows > n_live:
                 obs.count("jepsen_engine_shard_pad_rows_total",
                           n_rows - n_live)
-        self._chunks[chunk_id] = (plan, chunk, rows, n_live, phase,
-                                  time.perf_counter())
         self.shard_pad_rows += n_rows - n_live
         shard = n_rows // self.n_devices
         for d in range(self.n_devices):
             self.dev_rows_total[d] += shard
             self.dev_rows_live[d] += min(max(n_live - d * shard, 0), shard)
+        # per-device budget accounting, keyed by the plan's shape and its
+        # cap (the same kernel at another cap is another ledger entry)
+        key = (plan.kernel, plan.E, plan.C, plan.frontier, plan.disp)
+        acct = self.chip_row_accounting.setdefault(
+            key, {"kernel": plan.kernel, "peak_chip_rows": 0,
+                  "chip_cap": plan.disp})
+        self._chunks[chunk_id] = (plan, chunk, rows, n_live, phase,
+                                  time.perf_counter(), shard, key)
+
+        def thunk():
+            # counted inside the thunk: submit retires older chunks first
+            # (their settles decrement), so counting earlier would
+            # overstate the peak by a retired chunk
+            cur = self._chip_rows_inflight.get(key, 0) + shard
+            self._chip_rows_inflight[key] = cur
+            acct["peak_chip_rows"] = max(acct["peak_chip_rows"], cur)
+            return self._launch(plan, chunk)
+
         self._win.submit(
-            chunk_id, lambda p=plan, c=chunk: self._launch(p, c),
+            chunk_id, thunk,
             {"engine": plan.kernel, "rows": n_live, "phase": phase},
         )
 
@@ -481,7 +582,8 @@ class Executor:
         # -two row bucket (per shard), a long one to full cap-row chunks
         # (the tail too), so a bucket never launches at a per-tail-size
         # shape, and every chunk splits into equal shards
-        target = min(cap, shard_row_target(B, self.n_devices))
+        target = min(cap, shard_row_target(B, self.n_devices,
+                                           self.row_bucket))
         pad_fills = getattr(plan, "pad_fills", wgl._PAD_FILLS)
         for lo in range(0, B, cap):
             hi = min(lo + cap, B)

@@ -4,11 +4,13 @@
 Everything per-run and pure lives here: encoding histories into per-(E,
 C) shape buckets, stacking a bucket into padded arrays and planning its
 kernel route (``wgl.plan_bucket``).  Everything that owns the device
-lives in :mod:`jepsen_tpu_torch.engine.execution`.  The reference's
-tuning reads are gone: its defaults are constants or arguments here.
-Settles feed :mod:`..obs` as the reference's do: the time to the first
-verdict and to the first violation, and the per-engine row counts of a
-finished run (:func:`finish_run_telemetry`).
+lives in :mod:`jepsen_tpu_torch.engine.execution`.  The streaming
+flush threshold resolves as argument > active calibration
+(:mod:`..tune.artifact`) > :data:`DEFAULT_FLUSH_ROWS`, and
+:func:`estimated_cost` serves the calibration's measured cost table when
+one is active.  Settles feed :mod:`..obs` as the reference's do: the
+time to the first verdict and to the first violation, and the
+per-engine row counts of a finished run (:func:`finish_run_telemetry`).
 
 Row identity is an opaque token ``(ctx, idx)``: every planned row carries
 the :class:`RunContext` it belongs to, so the execution layer can route
@@ -25,6 +27,18 @@ from .. import obs
 #: (the default dispatch cap: ordinary batches flush once per bucket,
 #: larger keyspaces stream — encode of flush k+1 overlaps device work of k)
 DEFAULT_FLUSH_ROWS = 16384
+
+
+def flush_rows_default(flush_rows: Optional[int] = None) -> int:
+    """The resolved streaming flush threshold (per device): ``flush_rows``
+    > the active calibration > :data:`DEFAULT_FLUSH_ROWS`."""
+    from ..tune import artifact as _cal
+
+    if flush_rows is not None:
+        flush_rows = max(1, int(flush_rows))
+    return _cal.resolve_knob(flush_rows, lambda cal: max(1, cal.flush_rows()),
+                             DEFAULT_FLUSH_ROWS)
+
 
 #: sentinel distinct from every bucket key (``None`` is the legitimate
 #: key of unbucketed mode): this history routed to the oracle pool
@@ -172,9 +186,9 @@ class PlannedBucket:
 class Planner:
     """Pure per-run planning: stream host encode into per-(E, C) shape
     buckets and plan each flush's kernel route on ``device``.  The flush
-    threshold is a per-device feed rate: on an ``n_devices`` mesh a flush
-    fans out over every device, so it waits for ``n_devices`` ×
-    :data:`DEFAULT_FLUSH_ROWS` rows."""
+    threshold (:func:`flush_rows_default` of ``flush_rows``) is a
+    per-device feed rate: on an ``n_devices`` mesh a flush fans out over
+    every device, so it waits for ``n_devices`` × that many rows."""
 
     def __init__(
         self,
@@ -186,6 +200,7 @@ class Planner:
         frontier: int,
         max_closure: Optional[int] = None,
         bucketed: bool = True,
+        flush_rows: Optional[int] = None,
         n_devices: int = 1,
     ):
         from ..ops.step_kernels import spec_for
@@ -198,7 +213,7 @@ class Planner:
         self.frontier = frontier
         self.max_closure = max_closure
         self.bucketed = bucketed
-        self.flush_rows = max(1, n_devices) * DEFAULT_FLUSH_ROWS
+        self.flush_rows = max(1, n_devices) * flush_rows_default(flush_rows)
         #: distinct shape buckets of finished streams, and bucket flushes
         #: planned (a bucket that streams mid-input flushes more than once)
         self.n_buckets = 0
@@ -241,6 +256,21 @@ class Planner:
         acc[0].append(e)
         acc[1].append((ctx, idx))
         return key
+
+    def encode_buckets(self, ctx: RunContext):
+        """Encode every history of ``ctx`` into raw (unstacked) shape
+        buckets: ``(buckets, order)`` with ``buckets[key] = (encs,
+        tokens)``; unencodable histories go to the oracle at once.  The
+        tuner's cost table plans single buckets from these."""
+        return self.encode_rows(ctx, range(len(ctx.histories)))
+
+    def encode_rows(self, ctx: RunContext, idxs):
+        """:meth:`encode_buckets` restricted to the given indices."""
+        buckets: Dict[Any, Tuple[list, list]] = {}
+        order: List[Any] = []
+        for idx in idxs:
+            self._accumulate(ctx, idx, buckets, order)
+        return buckets, order
 
     def plan_rows(self, key, encs: list, rows: list) -> Optional[PlannedBucket]:
         """Stack one bucket's encoded histories and plan its kernel
@@ -320,17 +350,27 @@ class BucketStream:
 
 
 def estimated_cost(pb: PlannedBucket) -> float:
-    """Per-bucket device-cost proxy the dispatch order ranks by: rows × E
-    for the dense automaton (a fixed-width scan), rows × F·(C+1)·⌈E/32⌉
-    for the frontier search (its closure's candidate lanes over the
-    event scan), rows × E²·F for the Elle screens (the n × n closure over
-    the profile's plane weight F), 0 for a bucket the oracle takes.  It
-    reads no value domain, so the pairs of the composite automata pass
-    through.  It only ranks buckets; it never changes a verdict."""
+    """Per-bucket device-cost estimate the dispatch order ranks by.  With
+    a calibration active (:mod:`..tune.artifact`) it is the cost table's
+    interpolated seconds for the bucket's (kernel, E, C, F, rows).
+    Untuned, it is the analytic proxy: rows × E for the dense automaton
+    (a fixed-width scan), rows × F·(C+1)·⌈E/32⌉ for the frontier search
+    (its closure's candidate lanes over the event scan), rows × E²·F for
+    the Elle screens (the n × n closure over the profile's plane weight
+    F).  A bucket the oracle takes costs 0 either way.  It reads no value
+    domain, so the pairs of the composite automata pass through.  It only
+    ranks buckets; it never changes a verdict."""
     plan = pb.plan
     rows = len(pb.rows)
     if plan.fn is None or plan.disp == 0:
         return 0.0
+    from ..tune import artifact as _cal
+
+    cal = _cal.active()
+    if cal is not None:
+        c = cal.cost(plan.kernel, plan.E, plan.C, plan.frontier, rows)
+        if c is not None:
+            return c
     if plan.kernel == "dense":
         return float(rows * plan.E)
     if plan.kernel == "cycles":

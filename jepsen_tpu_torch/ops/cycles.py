@@ -68,6 +68,9 @@ from .dense import WORD_LANES, pack_words_np, word_count
 
 CLOSURE_MODES = ("fixed", "earlyexit")
 
+#: the closure mode when neither the caller nor a calibration picks one
+DEFAULT_CLOSURE_MODE = "fixed"
+
 #: device memory one screen dispatch may hold (its relation bytes, its
 #: outputs and the per-plane round scratch): the frontier search's 4 GiB
 #: (``wgl.FRONTIER_DISPATCH_BUDGET``), 5% of an H100's 80 GB, so a window
@@ -120,6 +123,18 @@ def _check_mode(mode: str) -> None:
     if mode not in CLOSURE_MODES:
         raise ValueError(f"closure mode {mode!r} is not one of "
                          f"{CLOSURE_MODES}")
+
+
+def closure_mode(mode: Optional[str] = None) -> str:
+    """The resolved closure mode of the engine's screens: ``mode`` > the
+    active calibration's ``closure_mode`` (:mod:`..tune.artifact`) >
+    :data:`DEFAULT_CLOSURE_MODE`.  Both modes give the same closure."""
+    from ..tune import artifact as _cal
+
+    if mode is not None:
+        _check_mode(mode)
+    return _cal.resolve_knob(mode, lambda cal: cal.closure_mode(),
+                             DEFAULT_CLOSURE_MODE)
 
 
 # ---------------------------------------------------------------------------
@@ -692,10 +707,9 @@ class CyclePlan:
     pad_fills = (0,)
     __slots__ = ("fn", "disp", "E", "C", "frontier", "mode", "rounds_full")
 
-    def __init__(self, n: int, mode: str = "fixed",
+    def __init__(self, n: int, mode: Optional[str] = None,
                  max_dispatch: Optional[int] = None):
-        _check_mode(mode)
-        self.mode = mode
+        self.mode = mode = closure_mode(mode)
         self.fn = functools.partial(has_cycle, mode=mode)
         self.E, self.C, self.frontier = n, 0, 1
         self.rounds_full = closure_rounds(n)
@@ -727,14 +741,14 @@ class ScreenPlan:
                  "mode", "rounds_full")
 
     def __init__(self, n: int, masks: Tuple[int, ...],
-                 nonadj: Tuple[Tuple[int, int], ...], mode: str = "fixed",
+                 nonadj: Tuple[Tuple[int, int], ...],
+                 mode: Optional[str] = None,
                  max_dispatch: Optional[int] = None):
         from ..elle import encode as encode_mod
 
-        _check_mode(mode)
         self.masks = tuple(masks)
         self.nonadj = tuple(nonadj)
-        self.mode = mode
+        self.mode = mode = closure_mode(mode)
         self.fn = functools.partial(screen, masks=self.masks,
                                     nonadj=self.nonadj, mode=mode)
         self.E, self.C = n, 0
@@ -881,13 +895,14 @@ def _np_packed_has_cycle(rw: np.ndarray, n: int) -> np.ndarray:
 
 def has_cycle_batch(mats: Sequence[np.ndarray], window: Optional[int] = None,
                     executor=None, max_dispatch: Optional[int] = None,
-                    device=None, mode: str = "fixed") -> np.ndarray:
+                    device=None, mode: Optional[str] = None) -> np.ndarray:
     """Which of these adjacency matrices contain a cycle?  Matrices bucket
     by padded size (:func:`_bucket`), and each bucket dispatches through
     the engine :class:`~jepsen_tpu_torch.engine.execution.Executor`
     (``executor=``, else one on ``device`` with ``window``) under
     :func:`cycles_max_dispatch`; a bucket whose cap is 0 is decided on the
-    host by the word-packed numpy closure."""
+    host by the word-packed numpy closure.  ``mode`` resolves through
+    :func:`closure_mode`."""
     from ..engine import planning
 
     out = np.zeros(len(mats), dtype=bool)
@@ -923,14 +938,15 @@ def has_cycle_batch(mats: Sequence[np.ndarray], window: Optional[int] = None,
 
 def screen_graphs(encs: Sequence, window: Optional[int] = None,
                   executor=None, max_dispatch: Optional[int] = None,
-                  device=None, mode: str = "fixed"
+                  device=None, mode: Optional[str] = None
                   ) -> List[Optional[ScreenResult]]:
     """The full transactional screens of a batch of encoded graphs
     (:class:`jepsen_tpu_torch.elle.encode.EncodedGraph`): bucket by
     (vertex bucket, filter profile), stack each bucket into one
     ``(B, n, n)`` relation batch and dispatch it through the Executor.
     Graphs whose profile has cap 0 come back ``None`` — the caller keeps
-    them on the CPU path."""
+    them on the CPU path.  ``mode`` resolves through :func:`closure_mode`
+    (argument > calibration > ``"fixed"``)."""
     from ..elle import encode as encode_mod
     from ..engine import planning
 

@@ -41,7 +41,14 @@ _IMPORT_ALL = textwrap.dedent("""
                      "jepsen_tpu_torch.obs",
                      "jepsen_tpu_torch.obs.profiling",
                      "jepsen_tpu_torch.store",
-                     "jepsen_tpu_torch.workloads.cycle"):
+                     "jepsen_tpu_torch.workloads.cycle",
+                     "jepsen_tpu_torch.platform",
+                     "jepsen_tpu_torch.obs.journal",
+                     "jepsen_tpu_torch.obs.drift",
+                     "jepsen_tpu_torch.tune",
+                     "jepsen_tpu_torch.tune.__main__",
+                     "jepsen_tpu_torch.tune.artifact",
+                     "jepsen_tpu_torch.tune.calibrate"):
         assert required in names, required
     for name in names:
         importlib.import_module(name)
@@ -61,9 +68,10 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     )
     assert out.returncode == 0, out.stderr
     # every module of the port, the lock checkers, the decomposition
-    # front-end, the mesh, the checker seam, the independent lift, obs
-    # and the cycle workloads included
-    assert int(out.stdout.split()[-1]) >= 46
+    # front-end, the mesh, the checker seam, the independent lift, obs,
+    # the cycle workloads, the probe, the journal, the drift sentinel and
+    # the tuner included
+    assert int(out.stdout.split()[-1]) >= 53
 
 
 def test_the_refusal_matches_names_exactly():
