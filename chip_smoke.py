@@ -43,9 +43,13 @@ line.
    domain leaves the dense envelope), E ≈ 768, C = 8, at F = 128 and at
    F = 512.  Byte-equal on every output (tolerance: exact).
 7. frontier edges — the same comparison at C = 16 (crash-heavy
-   10-process histories), on the rows of that batch that overflowed,
-   padded as the escalation ladder pads them, at its first rung's
-   capacity (F = 512), at the sufficient rung's capacity (C = 4),
+   10-process histories); at its first rung's capacity (F = 512) the
+   kernel runs on every row of that batch that overflowed, padded as the
+   escalation ladder pads them, and is held against the plain version on
+   a fixed subset of those rows (the first of each outcome the full run
+   gave, then the first rows, 8 in all, padded the same way; the
+   subset's outputs must also equal the full run's); then at the
+   sufficient rung's capacity (C = 4),
    with two linset words (slot ids moved past 32), with max_closure = 2,
    and on one random batch per step function (register, cas-register,
    mutex, reentrant mutex, multi-register, unordered queue) at F = 16.
@@ -203,6 +207,26 @@ line.
     is printed.  The calibration, the journal and the sentinel are
     cleared afterwards (the script starts with calibration disabled, so
     no ``calibration.json`` in the working directory steers any phase).
+24. checker service — ``serve.spawn_daemon`` starts ``python -m
+    jepsen_tpu_torch.serve`` on the card with its default admission bound
+    and a temporary WAL under ``build/`` (seconds to ``/healthz``); its
+    first request (64 of phase 4's histories) is timed cold.  Four client threads send
+    a quarter of phase 4's corpus each at once (``serve.check_batch``):
+    every result must equal phase 4's, the clients must have made no
+    fallback, ``/status`` must show coalesced dispatches, and the
+    daemon's K1 launches (its own counters, read from ``/status`` before
+    and after) must be fewer than four separate in-process runs of the
+    same quarters make; the line adds the wire's host cost of one
+    quarter (the request's build and its decode, in this process).  Then
+    256 of phase 8's frontier histories and
+    its 8 crash-heavy ones: K4 must launch in the daemon, an escalation
+    rung must run there, every result must equal phase 8's.  Phase 16's
+    list-append graphs through ``serve.screen_graphs`` must equal the
+    in-process device screens, K7 launching in the daemon.  A 64-key
+    history of phase 21's form through ``check_safe`` with
+    ``linearizable(algorithm="service")`` under the independent lift must
+    equal the in-process lift key for key, with no fallback.  ``POST
+    /shutdown`` must drain and the process exit 0.
 
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -601,11 +625,19 @@ def random_batch(spec: str, seed: int, B=128, E=64, C=8, amin=0, amax=None,
     ca = np.zeros((B, E, C), np.int16)
     cb = np.zeros((B, E, C), np.int16)
 
+    seen = {}
+
     def run(state, op):
-        s2, ok = step(*(torch.tensor([x], dtype=dt) for x, dt in zip(
-            (state,) + op, (torch.int32, torch.int8, torch.int16,
-                            torch.int16))))
-        return int(s2[0]), bool(ok[0])
+        # the step is pure: one call per distinct (state, op) — set-up on
+        # the host, which took most of phase 7's time when every open op
+        # of every event paid a tensor call
+        key = (state,) + op
+        out = seen.get(key)
+        if out is None:
+            s2, ok = step(*(torch.tensor([x], dtype=dt) for x, dt in zip(
+                key, (torch.int32, torch.int8, torch.int16, torch.int16))))
+            out = seen[key] = (int(s2[0]), bool(ok[0]))
+        return out
 
     for row in range(B):
         state, open_ops = 0, {}
@@ -736,6 +768,62 @@ def frontier_compare(name, spec, arrays, F, mc, device, work=None):
          invalid=int((~ok).sum()), overflowed=int(ovf.sum()),
          max_abs_err=err, plain_s=plain_s, tolerance="exact (byte-equal)")
     return (ok, failed_at, ovf), plain_s, err
+
+
+#: rows of the C16 escalation rung that phase 7 holds against the plain
+#: version (the kernel runs on all of them)
+RUNG_COMPARED_ROWS = 8
+
+
+def rung_outcome(ok, ovf) -> np.ndarray:
+    """Per row: "overflow", "valid" or "invalid"."""
+    return np.where(ovf, "overflow", np.where(ok, "valid", "invalid"))
+
+
+def rung_subset_compare(name, arrays, overflow, F, mc, device):
+    """The first escalation rung's shape: the kernel on every overflowed
+    row of ``arrays`` (padded as ``escalate_overflows`` pads them), and
+    against its plain version on a fixed subset of them — the first row
+    of every outcome the kernel gave the full set, then the first rows in
+    order up to :data:`RUNG_COMPARED_ROWS` — padded the same way.  The
+    subset's kernel outputs must equal the full run's on its rows.
+    Returns the max error."""
+    bad, full = wgl.overflow_rows(arrays, overflow)
+    B, E, C = full[2].shape
+    checker = wgl.make_check_fn("cas-register", E, C, F, mc, device)
+    f_ok, f_failed, f_ovf = (x.cpu().numpy()
+                             for x in checker(*to_device(full, device)))
+    outcomes = rung_outcome(f_ok, f_ovf)[:len(bad)]
+    pick = {int(np.argmax(outcomes == o)) for o in set(outcomes)}
+    for i in range(len(bad)):
+        if len(pick) >= RUNG_COMPARED_ROWS:
+            break
+        pick.add(i)
+    pick = sorted(pick)
+    mask = np.zeros(len(overflow), bool)
+    mask[bad[pick]] = True
+    sub_bad, sub = wgl.overflow_rows(arrays, mask)
+    require(list(sub_bad) == list(bad[pick]), "subset rows out of order")
+    (ok, failed_at, ovf), plain_s, err = compare(checker,
+                                                 to_device(sub, device))
+    n = len(pick)
+    for what, k, f in (("ok", ok, f_ok), ("failed_at", failed_at, f_failed),
+                       ("overflow", ovf, f_ovf)):
+        require((k[:n] == f[pick]).all(), f"{name}: the subset's {what} "
+                "differs from the full run's on the same rows")
+    sub_outcomes = rung_outcome(ok[:n], ovf[:n])
+    require(set(sub_outcomes) == set(outcomes),
+            f"{name}: the subset lacks an outcome of the full set")
+    emit(phase="frontier_edge", case=name, spec="cas-register", rows=int(B),
+         compared_rows=int(sub[0].shape[0]), E=int(E), C=int(C), F=F,
+         max_closure=mc, design=wgl.frontier_design(F, int(C)),
+         outcomes={o: int((outcomes == o).sum()) for o in set(outcomes)},
+         compared_outcomes={o: int((sub_outcomes == o).sum())
+                            for o in set(sub_outcomes)},
+         invalid=int((~f_ok[:len(bad)]).sum()),
+         overflowed=int(f_ovf[:len(bad)].sum()), max_abs_err=err,
+         plain_s=plain_s, tolerance="exact (byte-equal)")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -1372,7 +1460,7 @@ def elle_kernel_phase(device, la_hs, rw_hs):
 
 def elle_phases(device, card, ptxas=""):
     """Phases 15-17; returns the ``{"kernels": [...]}`` entries of the
-    has-cycle and screen kernels."""
+    has-cycle and screen kernels, and the list-append corpus."""
     la_hs = elle_histories("append", 47100)
     rw_hs = elle_histories("wr", 47200)
 
@@ -1485,7 +1573,7 @@ def elle_phases(device, card, ptxas=""):
         "bound_ms": sc_bound,
         "bound_by": sc_by,
         "library_ms": sc_lib_ms,
-    }]
+    }], la_hs
 
 
 # ---------------------------------------------------------------------------
@@ -2170,6 +2258,229 @@ def profile_phase(card, keyed, device):
 
 
 # ---------------------------------------------------------------------------
+# the checker service (phase 24)
+# ---------------------------------------------------------------------------
+
+#: the service's client threads, and the frontier histories it is sent
+SERVICE_CLIENTS = 4
+SERVICE_FRONTIER_ROWS = 256
+SERVICE_KEYS = 64
+SERVICE_PROBE_ROWS = 64
+
+
+def daemon_delta(after: dict, before: dict) -> dict:
+    """Per-wrapper launches the daemon made between two ``/status``
+    reads."""
+    return {k: v - before["kernel_launches"].get(k, 0)
+            for k, v in after["kernel_launches"].items()
+            if v - before["kernel_launches"].get(k, 0)}
+
+
+def timed_check(client, model, hs, **opts):
+    from jepsen_tpu_torch import serve
+
+    t0 = time.perf_counter()
+    out = serve.check_batch(model, hs, client=client, **opts)
+    return out, time.perf_counter() - t0
+
+
+def service_phase(card, model, hs, results, e2e_rate, f_hs, f_results,
+                  la_hs, device):
+    """Phase 24: the resident checker service in a child process."""
+    import tempfile
+
+    from jepsen_tpu_torch import serve
+    from jepsen_tpu_torch.elle import list_append as elle_la
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_",
+                                     dir="build") as tmp:
+        t0 = time.perf_counter()
+        client = serve.spawn_daemon(
+            wal=os.path.join(tmp, "verdict-wal.jsonl"), coalesce_wait=0.25,
+            wait_s=300, log_path=os.path.join(tmp, "daemon.log"))
+        ready_s = time.perf_counter() - t0
+        clients = [client]
+        try:
+            probe = hs[:SERVICE_PROBE_ROWS]
+            out, cold_s = timed_check(client, model, probe, slot_cap=8)
+            require(out == results[:SERVICE_PROBE_ROWS],
+                    "service: the first request differs from phase 4")
+            cold_diag = dict(client.last_diag)
+            require(cold_diag.get("cold_dispatches", 0) > 0,
+                    "service: the cold daemon's first request was warm")
+
+            # -- four clients at once, a quarter of phase 4 each --------
+            quarter = -(-len(hs) // SERVICE_CLIENTS)
+            parts = [hs[i:i + quarter] for i in range(0, len(hs), quarter)]
+            separate = 0
+            for part in parts:
+                dense.DENSE_AUTOMATON.launches = 0
+                wgl.check_batch(model, part, slot_cap=8)
+                separate += dense.DENSE_AUTOMATON.launches
+            pool = [serve.ServiceClient(port=client.port) for _ in parts]
+            clients += pool
+            got = [None] * len(parts)
+            errors = []
+            barrier = threading.Barrier(len(parts))
+
+            def send(i):
+                try:
+                    barrier.wait(timeout=60)
+                    got[i] = serve.check_batch(model, parts[i],
+                                               client=pool[i], slot_cap=8)
+                except Exception as e:  # noqa: BLE001 — re-raised below
+                    errors.append(repr(e))
+
+            st0 = client.status()
+            threads = [threading.Thread(target=send, args=(i,))
+                       for i in range(len(parts))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            served_s = time.perf_counter() - t0
+            st1 = client.status()
+            require(not errors, f"service: client errors {errors}")
+            merged = [r for part in got for r in part]
+            require(merged == results,
+                    "service: the four clients' results differ from "
+                    "phase 4's")
+            fallbacks = {k: v for c in pool for k, v in c.fallbacks.items()}
+            require(not fallbacks, f"service: fallbacks {fallbacks}")
+            coalesced = (st1["coalesced_dispatches"]
+                         - st0["coalesced_dispatches"])
+            require(coalesced > 0, "service: no dispatch was shared")
+            k1 = daemon_delta(st1, st0).get("dense/register", 0)
+            require(0 < k1 < separate,
+                    f"service: {k1} K1 launches in the daemon, {separate} "
+                    "in four separate runs")
+            rows = st1["dispatch_rows"].get("dense", 0) - \
+                st0["dispatch_rows"].get("dense", 0)
+            # the wire's host cost of one quarter, in this process: the
+            # client's request build, and the daemon's decode of it
+            t0 = time.perf_counter()
+            body = serve.protocol.check_request(model, parts[0],
+                                                {"slot_cap": 8})
+            wire_encode_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            serve.protocol.histories_from_wire(
+                serve.protocol.decode_body(body)["histories"])
+            wire_decode_s = time.perf_counter() - t0
+            emit(phase="service", step="coalesce", clients=len(parts),
+                 histories=len(hs), ready_s=ready_s,
+                 seconds=served_s, histories_per_s=len(hs) / served_s,
+                 phase4_histories_per_s=e2e_rate, k1_launches=k1,
+                 k1_launches_separate=separate,
+                 rows_per_launch=rows / k1,
+                 coalesced_requests=st1["coalesced"] - st0["coalesced"],
+                 coalesced_dispatches=coalesced,
+                 batches=st1["batches"] - st0["batches"],
+                 quarter_wire_bytes=len(body),
+                 quarter_wire_encode_s=wire_encode_s,
+                 quarter_wire_decode_s=wire_decode_s,
+                 first_request_s=cold_s, first_request=cold_diag, card=card)
+
+            # -- phase 8's frontier rows, the crash-heavy ones included ---
+            pick = list(range(SERVICE_FRONTIER_ROWS)) + \
+                list(range(len(f_hs) - 8, len(f_hs)))
+            st0 = client.status()
+            f_out, f_s = timed_check(client, model, [f_hs[i] for i in pick])
+            st1 = client.status()
+            require(f_out == [f_results[i] for i in pick],
+                    "service: frontier results differ from phase 8's")
+            f_delta = daemon_delta(st1, st0)
+            rungs = {k: v - st0["escalations"].get(k, 0)
+                     for k, v in st1["escalations"].items()
+                     if v - st0["escalations"].get(k, 0)}
+            require(f_delta.get("frontier_search", 0) > 0,
+                    "service: K4 never launched in the daemon")
+            require(rungs, "service: no escalation rung ran in the daemon")
+            emit(phase="service", step="frontier", histories=len(pick),
+                 seconds=f_s, launches=f_delta, escalations=rungs,
+                 batch_stats=wgl.batch_stats(f_out), card=card)
+
+            # -- phase 16's list-append graphs through /elle ---------------
+            opts = {"workload": "list-append",
+                    "consistency-models": ["strict-serializable"]}
+            encs = [elle_encode.encode_graph(elle_la.prepare(h, opts)[0])
+                    for h in la_hs]
+            st0 = client.status()
+            t0 = time.perf_counter()
+            via = serve.screen_graphs(encs, client=client)
+            e_s = time.perf_counter() - t0
+            st1 = client.status()
+            require(via is not None, f"service: /elle failed "
+                    f"({client.fallbacks})")
+            local = cycles.screen_graphs(encs, device=device)
+            for i, (a, b) in enumerate(zip(via, local)):
+                require((a is None) == (b is None), f"service: graph {i} "
+                        "screened on one side only")
+                if a is None:
+                    continue
+                require(sorted(a.members) == sorted(b.members)
+                        and all((a.members[m] == b.members[m]).all()
+                                for m in a.members)
+                        and sorted(a.walks) == sorted(b.walks)
+                        and all((a.walks[q] == b.walks[q]).all()
+                                for q in a.walks),
+                        f"service: graph {i}'s screens differ")
+            e_delta = daemon_delta(st1, st0)
+            require(e_delta.get("cycles_screen", 0) > 0,
+                    "service: K7 never launched in the daemon")
+            emit(phase="service", step="elle", graphs=len(encs),
+                 seconds=e_s, launches=e_delta,
+                 screened=sum(r is not None for r in via), card=card)
+
+            # -- linearizable(algorithm="service") under the lift ----------
+            keys = list(range(SERVICE_KEYS - 8)) + \
+                list(range(len(hs) - 8, len(hs)))
+            keyed = keyed_history([hs[i] for i in keys])
+            test = {"store?": False}
+            st0 = client.status()
+            t0 = time.perf_counter()
+            lin = checker_mod.check_safe(independent.checker(
+                checker_mod.linearizable(model, algorithm="service",
+                                         client=client)), test, keyed)
+            lin_s = time.perf_counter() - t0
+            st1 = client.status()
+            ref = checker_mod.check_safe(independent.checker(
+                checker_mod.linearizable(model)), test, keyed)
+            require(not error_paths(lin), f"service: linearizable errors at "
+                    f"{error_paths(lin)}")
+            require(not client.fallbacks,
+                    f"service: fallbacks {client.fallbacks}")
+            differ = [k for k in ref["results"]
+                      if lin["results"].get(k) != ref["results"][k]]
+            require(not differ, f"service: {len(differ)} keys differ from "
+                    f"the in-process lift, first {differ[:1]}: "
+                    f"{lin['results'].get(differ[0]) if differ else None} "
+                    f"against {ref['results'][differ[0]] if differ else None}")
+            for j, i in enumerate(keys):
+                require(lin["results"][j]["valid?"] == results[i]["valid?"],
+                        f"service: key {j} says "
+                        f"{lin['results'][j]['valid?']}, phase 4 said "
+                        f"{results[i]['valid?']}")
+            emit(phase="service", step="linearizable", keys=len(keys),
+                 seconds=lin_s, requests=st1["requests"] - st0["requests"],
+                 coalesced_requests=st1["coalesced"] - st0["coalesced"],
+                 launches=daemon_delta(st1, st0), valid=lin["valid?"],
+                 card=card)
+
+            # -- drain and exit ------------------------------------------
+            require(client.shutdown()["ok"], "service: /shutdown refused")
+            rc = client.spawned.wait(timeout=300)
+            require(rc == 0, f"service: the daemon exited {rc}")
+            emit(phase="service", step="drain", exit_code=rc,
+                 phase_seconds=time.perf_counter() - t_phase, card=card)
+        finally:
+            for c in clients:
+                if c.spawned is not None and c.spawned.poll() is None:
+                    serve.client._reap(c.spawned)
+
+
+# ---------------------------------------------------------------------------
 # the tuner (phase 23)
 # ---------------------------------------------------------------------------
 
@@ -2434,12 +2745,12 @@ def main() -> int:
         "C16", "cas-register", hc, wgl.DEFAULT_FRONTIER, 17, device)
     f_err = max(f_err, e_err)
     require(hc_ovf.any(), "no C = 16 row overflowed at the base capacity")
-    # the first escalation rung's own shape: the overflowed rows, padded
-    # as escalate_overflows pads them, at F × the first factor
-    _, hc_rung = wgl.overflow_rows(hc, hc_ovf)
+    # the first escalation rung's own shape: the overflowed rows at F ×
+    # the first factor, compared on a fixed subset
+    f_err = max(f_err, rung_subset_compare(
+        "C16-rung", hc, hc_ovf,
+        wgl.DEFAULT_FRONTIER * wgl.ESCALATION_FACTORS[0], 17, device))
     edges = [
-        ("C16-rung", "cas-register", hc_rung,
-         wgl.DEFAULT_FRONTIER * wgl.ESCALATION_FACTORS[0], 17),
         ("sufficient", "cas-register", suff, suff_F, 5),
         ("W2", "cas-register", two_word(short), wgl.DEFAULT_FRONTIER, 41),
         ("max_closure=2", "cas-register", short, wgl.DEFAULT_FRONTIER, 2),
@@ -2502,7 +2813,7 @@ def main() -> int:
     err = max(err, owner_err)
 
     # -- 15-17. the Elle screens -------------------------------------------
-    elle_entries = elle_phases(device, card, ptxas)
+    elle_entries, la_hs = elle_phases(device, card, ptxas)
 
     # -- 18. the unordered-queue automaton ----------------------------------
     queue_entry = queue_phase(device, card, ptxas)
@@ -2524,6 +2835,10 @@ def main() -> int:
 
     # -- 23. the tuner, the journal and the drift sentinel --------------------
     tuning_phase(card, model, hs, results)
+
+    # -- 24. the resident checker service ---------------------------------------
+    service_phase(card, model, hs, results, len(hs) / e2e_s, f_hs,
+                  f_results, la_hs, device)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

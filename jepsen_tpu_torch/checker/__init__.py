@@ -16,10 +16,15 @@ Differences from the reference, by design:
   results carry ``"engine": "gpu"`` where the reference writes ``"tpu"``
   (the race arm's included).
 - ``"auto"`` resolves to ``"gpu"`` when :func:`~..ops.wgl.supported`
-  says the model has a device step, else ``"oracle"``.  There is no
-  resident checker service yet: ``algorithm="service"`` raises, it never
-  falls back silently, and so does an unknown algorithm (the reference
-  runs the oracle for any name it does not know).
+  says the model has a device step, else ``"oracle"``; it never resolves
+  to the service.  ``algorithm="service"`` runs the analysis on the
+  resident checker daemon (:mod:`..serve`) through the
+  :class:`~..serve.client.ServiceClient` the caller passes as
+  ``client=`` (there is no environment switch), and raises without one.
+  The client's fallback to the in-process engine is counted on it and
+  tagged ``"service-fallback"`` in the result.  An unknown algorithm
+  raises (the reference runs the oracle for any name it does not
+  know).
 - ``linearizable(..., device=)`` is passed to every device call:
   ``None`` runs on the current CUDA device (and raises without CUDA),
   ``"cpu"`` runs the plain PyTorch versions.
@@ -181,7 +186,7 @@ RACE_LOSER_WAIT_S = 60.0
 
 #: the algorithms :func:`linearizable` takes; ``"tpu"`` is the
 #: reference's name of the device route
-ALGORITHMS = ("auto", "gpu", "tpu", "oracle", "race")
+ALGORITHMS = ("auto", "gpu", "tpu", "oracle", "race", "service")
 
 
 class _Linearizable(Checker):
@@ -278,17 +283,16 @@ class _Linearizable(Checker):
         pure_fs=("read",),
         oracle_budget_s=None,
         device=None,
+        client=None,
     ):
         if model is None:
             raise ValueError(
                 "The linearizable checker requires a model. It received None."
             )
-        if algorithm == "service":
+        if algorithm == "service" and client is None:
             raise ValueError(
-                "algorithm='service' needs the resident checker service, "
-                "which the port does not have yet; use 'auto', 'gpu', "
-                "'oracle' or 'race'"
-            )
+                "algorithm='service' needs the resident checker service: "
+                "pass client=ServiceClient(...) naming its address")
         if algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {algorithm!r}: one of "
                              f"{ALGORITHMS}")
@@ -302,6 +306,8 @@ class _Linearizable(Checker):
         self.oracle_budget_s = oracle_budget_s
         #: where the device route runs (None: the current CUDA device)
         self.device = device
+        #: the checker daemon's client of the "service" route
+        self.client = client
 
     def check(self, test, history, opts=None):
         algorithm = self.algorithm
@@ -325,6 +331,17 @@ class _Linearizable(Checker):
                 self.model, history, oracle_budget_s=self.oracle_budget_s,
                 window=(test or {}).get("engine-window"),
                 mesh=mesh_mod.resolve_mesh(test or {}),
+                device=self.device,
+            )
+        elif algorithm == "service":
+            from ..serve import client as serve_client
+
+            # the daemon when it serves the history; a budgeted search
+            # (deadline semantics) or a refusal runs in-process, counted
+            a = serve_client.analysis(
+                self.model, history, client=self.client,
+                oracle_budget_s=self.oracle_budget_s,
+                window=(test or {}).get("engine-window"),
                 device=self.device,
             )
         else:
@@ -369,15 +386,18 @@ def linearizable(
     pure_fs=("read",),
     oracle_budget_s=None,
     device=None,
+    client=None,
 ) -> Checker:
     """Validate linearizability against a model.  algorithm: "auto" (the
     device route when the model has a device step, else the oracle),
     "gpu" (alias "tpu"), "oracle", or "race" (device and oracle
     concurrently, first definite verdict wins — knossos's competition
-    mode).  "service" raises: the resident checker service is not ported
-    yet.  ``oracle_budget_s`` bounds the exponential CPU search's wall
+    mode), or "service" (the checker daemon behind ``client``, a
+    :class:`~jepsen_tpu_torch.serve.client.ServiceClient`; raises without
+    one).  ``oracle_budget_s`` bounds the exponential CPU search's wall
     time; past it the verdict is an honest "unknown".  ``device`` is
     passed to every device call (None: the current CUDA device, raising
     without CUDA; "cpu": the plain PyTorch versions).
     (reference: checker.clj:185-216)"""
-    return _Linearizable(model, algorithm, pure_fs, oracle_budget_s, device)
+    return _Linearizable(model, algorithm, pure_fs, oracle_budget_s, device,
+                         client)

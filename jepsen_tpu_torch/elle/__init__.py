@@ -35,17 +35,19 @@ def _workload_module(opts: dict):
     raise KeyError(f"unknown elle workload {workload!r}")
 
 
-def check(opts: Optional[dict], history: History, device=None) -> dict:
+def check(opts: Optional[dict], history: History, device=None,
+          client=None) -> dict:
     """Elle-style entry point: opts include ``workload`` ("list-append"
     or "rw-register"), plus ``consistency-models`` / ``anomalies`` and
     ``screen-route``; the screens run on ``device`` (default: the current
-    CUDA device)."""
+    CUDA device), or on the checker daemon behind ``client`` (a
+    :class:`~jepsen_tpu_torch.serve.client.ServiceClient`)."""
     opts = opts or {}
-    return _workload_module(opts).check(history, opts, device)
+    return _workload_module(opts).check(history, opts, device, client)
 
 
 def check_batch(opts: Optional[dict], histories, device=None,
-                executor=None) -> list:
+                executor=None, client=None) -> list:
     """Batched Elle analysis: all histories' dependency graphs are built
     first, then screened together through
     :func:`jepsen_tpu_torch.elle.cycles.classify_graphs` — graphs from
@@ -57,14 +59,19 @@ def check_batch(opts: Optional[dict], histories, device=None,
     routing (default: self-calibrating auto).  rw-register's per-key
     version-graph screen runs in ``prepare`` on ``device`` (the
     executor's device when one is given).  Per-history results are
-    byte-identical to :func:`check` and to the reference's."""
+    byte-identical to :func:`check` and to the reference's.  With
+    ``client`` the screens run on the checker daemon (``POST /elle``);
+    when it does not answer they run in-process and every result carries
+    ``"service-fallback"`` with the reason."""
     opts = opts or {}
     mod = _workload_module(opts)
     if executor is not None:
         device = executor.device
     preps = [mod.prepare(h, opts, device) for h in histories]
+    fell: list = []
     cyc = cycles.classify_graphs(
         [p[0] for p in preps], route=opts.get("screen-route"),
-        executor=executor, device=device,
+        executor=executor, device=device, client=client, fallbacks=fell,
     )
-    return [mod.finish(p, c) for p, c in zip(preps, cyc)]
+    return cycles.tag_fallback(
+        [mod.finish(p, c) for p, c in zip(preps, cyc)], fell)

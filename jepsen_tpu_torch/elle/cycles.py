@@ -409,20 +409,43 @@ class GraphScreen:
         return got
 
 
-def screen_for_graphs(graphs: List[Graph], executor=None, device=None):
+def screen_for_graphs(graphs: List[Graph], executor=None, device=None,
+                      client=None, fallbacks: Optional[list] = None):
     """Encode and screen a batch of dependency graphs through the
     engine's :class:`~jepsen_tpu_torch.engine.execution.Executor`
-    (``executor=``, else a local one on ``device``): one
+    (``executor=``, else a local one on ``device``), or on the checker
+    daemon behind ``client`` (``POST /elle``, where the graphs share
+    dispatches with other runs'; a failed call is counted on the client,
+    its reason appended to ``fallbacks``, and screens locally): one
     :class:`GraphScreen` (or ``None`` — that graph stays on the CPU) per
     input."""
     from . import encode as encode_mod
     from ..ops import cycles as ops_cycles
 
     encs = [encode_mod.encode_graph(g) for g in graphs]
-    results = ops_cycles.screen_graphs(encs, executor=executor,
-                                       device=device)
+    results = None
+    if client is not None:
+        from ..serve import client as serve_client
+
+        results = serve_client.screen_graphs(encs, client=client,
+                                             fallbacks=fallbacks)
+    if results is None:
+        results = ops_cycles.screen_graphs(encs, executor=executor,
+                                           device=device)
     return [GraphScreen(enc, res) if res is not None else None
             for enc, res in zip(encs, results)]
+
+
+def tag_fallback(results: List[dict], fallbacks: List[str]) -> List[dict]:
+    """Mark analyses whose screens the checker daemon did not answer
+    (``fallbacks`` as :func:`classify_graphs` filled it) with
+    ``"service-fallback"``, as the service seam marks its in-process
+    runs."""
+    if fallbacks:
+        from ..serve.client import tag_fallback as tag
+
+        tag(results, fallbacks[-1])
+    return results
 
 
 def _count_route(route: str, n: int) -> None:
@@ -432,13 +455,16 @@ def _count_route(route: str, n: int) -> None:
 
 
 def _classify_screened(graphs: List[Graph], executor=None, device=None,
-                       count: bool = True) -> List[Dict[str, list]]:
+                       count: bool = True, client=None,
+                       fallbacks: Optional[list] = None
+                       ) -> List[Dict[str, list]]:
     """Classify with device screens; graphs the screens could not take
     classify unscreened.  ``count=False`` for a calibration probe (its
     caller is served the CPU answers, and counts them so)."""
     from . import encode as encode_mod
 
-    screens = screen_for_graphs(graphs, executor=executor, device=device)
+    screens = screen_for_graphs(graphs, executor=executor, device=device,
+                                client=client, fallbacks=fallbacks)
     out = [classify(g, s) for g, s in zip(graphs, screens)]
     if count and obs.enabled():
         n_cpu = sum(1 for s in screens if s is None)
@@ -458,6 +484,8 @@ def classify_graphs(
     route: Optional[str] = None,
     executor=None,
     device=None,
+    client=None,
+    fallbacks: Optional[list] = None,
 ) -> List[Dict[str, list]]:
     """Batched :func:`classify`: screen every graph's relation-filter
     cycle structure on the device in shared engine dispatches, then pay
@@ -469,7 +497,10 @@ def classify_graphs(
     (else raises) and pins the faster.  Graphs past
     :data:`DEVICE_SCREEN_MAX_VERTICES` (or below 2 vertices) always
     classify on the CPU; with no ``device`` and no CUDA, any route that
-    would screen raises."""
+    would screen raises.  With ``client`` (a
+    :class:`~jepsen_tpu_torch.serve.client.ServiceClient`) the device
+    screens run on the checker daemon; when it does not answer they run
+    in-process and the reason is appended to ``fallbacks``."""
     route = (route or "auto").lower()
     if route not in ROUTES:
         raise ValueError(f"screen route {route!r} is not one of {ROUTES}")
@@ -492,7 +523,8 @@ def classify_graphs(
     sub = [graphs[i] for i in screenable]
 
     if route == "device":
-        screened = _classify_screened(sub, executor=executor, device=device)
+        screened = _classify_screened(sub, executor=executor, device=device,
+                                      client=client, fallbacks=fallbacks)
     elif len(sub) < ELLE_SCREEN_MIN_BATCH:
         screened = [classify(g) for g in sub]
         _count_route("cpu", len(sub))
@@ -504,7 +536,8 @@ def classify_graphs(
         choice = _CLASSIFY_CHOICE.get(key)
         if choice == "device":
             screened = _classify_screened(sub, executor=executor,
-                                          device=dev)
+                                          device=dev, client=client,
+                                          fallbacks=fallbacks)
         elif choice == "cpu":
             screened = [classify(g) for g in sub]
             _count_route("cpu", len(sub))
@@ -512,7 +545,9 @@ def classify_graphs(
             screened = _calibrate(
                 _CLASSIFY_CHOICE, key, lambda: [classify(g) for g in sub],
                 lambda: _classify_screened(sub, executor=executor,
-                                           device=dev, count=False),
+                                           device=dev, count=False,
+                                           client=client,
+                                           fallbacks=fallbacks),
                 "classify screens")
             # the calibration batch is served the CPU answers
             _count_route("cpu", len(sub))

@@ -329,13 +329,15 @@ def finish(prep, cyc_anomalies: Dict[str, list]) -> dict:
 
 
 def check(history: History, opts: Optional[dict] = None,
-          device=None) -> dict:
+          device=None, client=None) -> dict:
     """Full list-append analysis.  opts: consistency-models (list of
     model names, default ["strict-serializable"]), or anomalies (explicit
     list to look for); ``screen-route`` forces the cycle screens'
     device/cpu routing (default: self-calibrating auto) on ``device``."""
     prep = prepare(history, opts, device)
+    fell: list = []
     cyc = cycles_mod.classify_graphs(
-        [prep[0]], route=(opts or {}).get("screen-route"), device=device
+        [prep[0]], route=(opts or {}).get("screen-route"), device=device,
+        client=client, fallbacks=fell,
     )[0]
-    return finish(prep, cyc)
+    return cycles_mod.tag_fallback([finish(prep, cyc)], fell)[0]

@@ -389,10 +389,12 @@ def finish(prep, cyc_anomalies) -> dict:
 
 
 def check(history: History, opts: Optional[dict] = None,
-          device=None) -> dict:
+          device=None, client=None) -> dict:
     """Full rw-register analysis; same opts as list_append.check."""
     prep = prepare(history, opts, device)
+    fell: list = []
     cyc = cycles_mod.classify_graphs(
-        [prep[0]], route=(opts or {}).get("screen-route"), device=device
+        [prep[0]], route=(opts or {}).get("screen-route"), device=device,
+        client=client, fallbacks=fell,
     )[0]
-    return finish(prep, cyc)
+    return cycles_mod.tag_fallback([finish(prep, cyc)], fell)[0]

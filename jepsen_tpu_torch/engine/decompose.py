@@ -31,15 +31,22 @@ The pass is on by default (``check_batch(..., decomposed=False)`` turns
 it off per call).  It counts what it did in :mod:`..obs` under the
 reference's names (``jepsen_engine_decomposed_total`` by route,
 ``jepsen_engine_partitions_total``, the
-``jepsen_engine_partition_fanout`` histogram).  The reference's verdict
-WAL and streaming-ingest seams serve its checker daemon and are not
-ported, nor is its per-run interning of sub-models (so it has no
-``jepsen_engine_decompose_cache_evictions_total``): each sub-history
-builds its own.
+``jepsen_engine_partition_fanout`` histogram, and
+``jepsen_engine_decompose_cache_evictions_total`` when a run's sub-model
+interning (:class:`SubmodelCache`) evicts).
+
+The resident checker service (:mod:`jepsen_tpu_torch.serve`) drives a run
+through the same object: :meth:`DecomposedRun.streams` tags the two
+planning streams so same-tag buckets coalesce across runs,
+:meth:`~DecomposedRun.attach_wal` sends every settled slot to the verdict
+WAL, :meth:`~DecomposedRun.replay` pre-fills slots a previous daemon
+life settled, and :meth:`~DecomposedRun.extend` grows a run by new
+histories.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from .. import obs
@@ -48,6 +55,9 @@ from .planning import RunContext
 
 #: bucket bounds of the partitions-per-history histogram
 FANOUT_BUCKETS = (2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 1024.0)
+
+#: sub-models a run interns (:class:`SubmodelCache`) before evicting
+DECOMPOSE_CACHE_SIZE = 1024
 
 #: sentinel key for failed op pairs: dropped from every partition, the
 #: same treatment ``linear.prepare`` gives them undecomposed
@@ -74,7 +84,37 @@ def routing_gain_possible(model) -> bool:
     return spec is None or spec.name not in wgl.DIRECT_FIRST_SPECS
 
 
-def split_history(model, history):
+class SubmodelCache:
+    """Bounded per-run interning of ``model.subhistory_model(key)``: an
+    LRU of at most ``cap`` entries, evictions counted as
+    ``jepsen_engine_decompose_cache_evictions_total``, so a wide keyspace
+    shows in the run's metrics instead of its memory."""
+
+    __slots__ = ("model", "cap", "_map", "evictions")
+
+    def __init__(self, model, cap: int = DECOMPOSE_CACHE_SIZE):
+        self.model = model
+        self.cap = max(1, cap)
+        self._map: OrderedDict = OrderedDict()
+        self.evictions = 0
+
+    def get(self, key):
+        try:
+            sub = self._map[key]
+        except KeyError:
+            sub = self._map[key] = self.model.subhistory_model(key)
+            if len(self._map) > self.cap:
+                self._map.popitem(last=False)
+                self.evictions += 1
+                obs.count("jepsen_engine_decompose_cache_evictions_total")
+            return sub
+        except TypeError:  # an unhashable key: build, never intern
+            return self.model.subhistory_model(key)
+        self._map.move_to_end(key)
+        return sub
+
+
+def split_history(model, history, submodel_for=None):
     """Split one history into per-partition sub-histories, or return None
     when it must pass through undecomposed (the model declares no
     partition, or some op's partition is undeterminable).
@@ -87,7 +127,8 @@ def split_history(model, history):
     events are skipped exactly as ``linear.prepare`` skips them, and each
     partition keeps its events in real-time order.  Ops enter
     sub-histories through ``model.partition_op``; originals are never
-    mutated."""
+    mutated.  ``submodel_for(key)`` builds the sub-models (default
+    ``model.subhistory_model``; a run passes its :class:`SubmodelCache`)."""
     key_fn = partitioner(model)
     if key_fn is None:
         return None
@@ -137,7 +178,8 @@ def split_history(model, history):
             sub = parts[k] = History()
             order.append(k)
         sub.append(model.partition_op(op, k))
-    return [(k, model.subhistory_model(k), parts[k]) for k in order]
+    build = submodel_for or model.subhistory_model
+    return [(k, build(k), parts[k]) for k in order]
 
 
 def merge_partition_results(parts: Sequence[Tuple[Any, dict]]) -> dict:
@@ -191,18 +233,20 @@ def merge_partition_results(parts: Sequence[Tuple[Any, dict]]) -> dict:
 
 class DecomposedRun:
     """One batch's decomposition bookkeeping: the parent result slots plus
-    up to two planning streams, :attr:`main_ctx` (pass-through histories
-    under the parent model: every history when the model declares no
-    partition or ``enabled`` is False) and :attr:`sub_ctx` (the flattened
-    per-partition sub-histories, one seeded sub-model per row).
-    :meth:`feed` yields each planner row as the split makes it;
-    :meth:`results` assigns pass-through results home and ANDs the
-    sub-verdicts of each decomposed history."""
+    up to two planning streams, :attr:`main_ctx` (tag ``"main"``:
+    pass-through histories under the parent model — every history when
+    the model declares no partition or ``enabled`` is False) and
+    :attr:`sub_ctx` (tag ``"sub"``: the flattened per-partition
+    sub-histories, one seeded sub-model per row).  :meth:`feed` yields
+    each planner row as the split makes it (``lazy=True``, the in-process
+    pipeline); an eager run (the default, the service's) splits at
+    construction.  :meth:`results` assigns pass-through results home and
+    ANDs the sub-verdicts of each decomposed history."""
 
     def __init__(self, model, histories: Sequence, *,
                  oracle_fallback: bool = True,
                  oracle_budget_s: Optional[float] = None,
-                 enabled: bool = True):
+                 enabled: bool = True, lazy: bool = False):
         self.model = model
         self._histories = histories
         self.n = len(histories)
@@ -210,6 +254,7 @@ class DecomposedRun:
         self._parts_of: Dict[int, List[Tuple[Any, int]]] = {}
         self._active = bool(enabled and partitioner(model) is not None
                             and routing_gain_possible(model))
+        self.cache = SubmodelCache(model) if self._active else None
         self._kw = {"oracle_fallback": oracle_fallback,
                     "oracle_budget_s": oracle_budget_s}
         self.main_ctx: Optional[RunContext] = None
@@ -217,30 +262,57 @@ class DecomposedRun:
         #: histories split, and the sub-histories they split into
         self.n_decomposed = 0
         self.n_partitions = 0
+        self._fed = False
+        #: split progress: the first history not yet classified
+        self._next_i = 0
+        #: optional ``(tag, idx, result)`` verdict sink (:meth:`attach_wal`)
+        self._settle_sink = None
+        if not lazy:
+            self._ensure_fed()
 
     def feed(self):
         """Generator: classify and split the histories one at a time,
         yielding ``(ctx, idx)`` for each planner row the moment it
-        exists, so the split interleaves with encode and dispatch."""
+        exists, so the split interleaves with encode and dispatch.  On a
+        run already split it yields the existing rows."""
+        if self._fed:
+            for ctx in self.contexts:
+                for idx in range(len(ctx.histories)):
+                    yield ctx, idx
+            return
+        self._fed = True
+        yield from self._split()
+
+    def _split(self):
+        """The restartable split loop: :attr:`_next_i` advances as soon as
+        a history's bookkeeping is complete (before its rows yield), so an
+        abandoned generator never splits a history twice."""
         rec = obs.enabled()
-        for i, h in enumerate(self._histories):
-            parts = split_history(self.model, h) if self._active else None
+        while self._next_i < self.n:
+            i = self._next_i
+            h = self._histories[i]
+            parts = (split_history(self.model, h, self.cache.get)
+                     if self._active else None)
             if parts is None or len(parts) <= 1:
                 # ≤ 1 partition gains nothing and would only re-tag the
                 # result dict: the history passes through whole
                 self._pass_idx.append(i)
                 if self.main_ctx is None:
                     self.main_ctx = RunContext(self.model, [], **self._kw)
+                    self._bind_sink("main", self.main_ctx)
                 if rec and self._active:
                     obs.count("jepsen_engine_decomposed_total",
                               route="passthrough")
-                yield self.main_ctx, self.main_ctx.append(h)
+                idx = self.main_ctx.append(h)
+                self._next_i = i + 1
+                yield self.main_ctx, idx
                 continue
             slots = []
             for key, submodel, subh in parts:
                 if self.sub_ctx is None:
                     self.sub_ctx = RunContext(submodel, [], models=[],
                                               **self._kw)
+                    self._bind_sink("sub", self.sub_ctx)
                 slots.append((key, self.sub_ctx.append(subh, submodel)))
             self._parts_of[i] = slots
             self.n_partitions += len(slots)
@@ -252,19 +324,84 @@ class DecomposedRun:
                 obs.registry().histogram(
                     "jepsen_engine_partition_fanout", buckets=FANOUT_BUCKETS,
                 ).observe(len(slots))
+            self._next_i = i + 1
             for _key, idx in slots:
                 yield self.sub_ctx, idx
+
+    def _ensure_fed(self) -> None:
+        """Finish the split now (a lazy run never fed, or fed part way)."""
+        self._fed = True
+        for _ in self._split():
+            pass
+
+    def extend(self, histories: Sequence) -> List[Tuple[RunContext, int]]:
+        """Append ``histories`` to the run and split just them, returning
+        the new ``(ctx, idx)`` planner rows; earlier rows never split,
+        encode or settle again."""
+        self._ensure_fed()
+        if not isinstance(self._histories, list):
+            self._histories = list(self._histories)
+        self._histories.extend(histories)
+        self.n = len(self._histories)
+        return list(self._split())
 
     @property
     def contexts(self) -> List[RunContext]:
         return [c for c in (self.main_ctx, self.sub_ctx) if c is not None]
 
+    def streams(self) -> List[Tuple[str, RunContext]]:
+        """The tagged planning streams: the service merges same-tag
+        buckets of compatible runs (a tag's spec is fixed by the model)."""
+        self._ensure_fed()
+        return [(tag, ctx) for tag, ctx in (("main", self.main_ctx),
+                                            ("sub", self.sub_ctx))
+                if ctx is not None]
+
+    # -- the verdict WAL seam ----------------------------------------------
+
+    def _bind_sink(self, tag: str, ctx: RunContext) -> None:
+        sink = self._settle_sink
+        if sink is not None:
+            ctx.on_settle = lambda _ctx, idx, result: sink(tag, idx, result)
+
+    def attach_wal(self, sink) -> None:
+        """Install a ``(tag, idx, result)`` verdict sink: every slot that
+        settles from now on, in either stream, is handed to it."""
+        self._settle_sink = sink
+        for tag, ctx in (("main", self.main_ctx), ("sub", self.sub_ctx)):
+            if ctx is not None:
+                self._bind_sink(tag, ctx)
+
+    def replay(self, rows: Dict[Tuple[str, int], dict]) -> int:
+        """Pre-fill result slots from WAL rows ``{(tag, idx): result}``,
+        bypassing the settle hook (a replayed verdict is not written
+        again).  Settled slots are never encoded, so a retried run
+        dispatches only what is still open.  Out-of-range and settled
+        slots are ignored.  Returns the slots filled."""
+        by_tag = dict(self.streams())
+        n = 0
+        for (tag, idx), result in rows.items():
+            ctx = by_tag.get(tag)
+            if ctx is None or not 0 <= idx < len(ctx.results):
+                continue
+            if ctx.results[idx] is None:
+                ctx.results[idx] = result
+                n += 1
+        return n
+
+    def settled_count(self) -> int:
+        """Slots holding verdicts across both streams."""
+        return sum(c.settled_count() for c in self.contexts)
+
     def drain_oracles(self) -> None:
         for ctx in self.contexts:
             ctx.drain_oracles()
 
+    def abandon_oracles(self) -> int:
+        return sum(ctx.abandon_oracles() for ctx in self.contexts)
+
     def results(self) -> List[dict]:
-        """Per-history results in input order (after :meth:`feed` has run
+        """Per-history results in input order (after the split has run
         out and the oracles have drained)."""
         out: List[Optional[dict]] = [None] * self.n
         if self.main_ctx is not None:

@@ -280,6 +280,22 @@ class DispatchWindow:
         while self._inflight:
             self._retire()
 
+    @property
+    def depth(self) -> int:
+        """Dispatches in flight now."""
+        return len(self._inflight)
+
+    def abandon(self) -> int:
+        """Drop every in-flight entry without retiring it (no sync, no
+        ``on_retire``): the recovery path after a dispatch raised, where
+        syncing the survivors could raise the same device fault again.
+        The dropped work finishes (or fails) on the card by itself.
+        Returns the number dropped."""
+        self._check_owner()
+        n = len(self._inflight)
+        self._inflight.clear()
+        return n
+
 
 class Executor:
     """Device-owning execution of planned buckets on one device, or on
@@ -366,6 +382,9 @@ class Executor:
         #: extra journal fields the caller owns (``coalesced``,
         #: ``trace_id``)
         self.journal_context: Dict[str, Any] = {}
+        #: chunk dispatches by telemetry phase: "compile" is a kernel's
+        #: first dispatch at a row shape (cold), "execute" every later one
+        self.phase_counts = {"compile": 0, "execute": 0}
 
     @property
     def submitted(self) -> int:
@@ -516,6 +535,7 @@ class Executor:
         phase = ("compile" if claim_first_dispatch(
             dispatch_owner(plan), (str(self.device), n_rows, self.n_devices))
             else "execute")
+        self.phase_counts[phase] += 1
         if obs.enabled():
             obs.count("jepsen_kernel_dispatches_total", 1,
                       engine=plan.kernel, phase=phase)
@@ -596,6 +616,21 @@ class Executor:
             self._dispatch(plan, chunk, rows[lo:hi])
         if serialize:
             self._win.drain()
+
+    def reset(self) -> int:
+        """Discard every piece of transient dispatch state — the window's
+        in-flight entries (unsynced: :meth:`DispatchWindow.abandon`), the
+        chunk map and the parked escalations — without assigning a
+        verdict, leaving the executor usable.  The service calls it when
+        a batch raised: a window still holding the failed batch's chunks
+        would retire them into the next batch, and its parked escalations
+        would settle into abandoned runs.  Returns the number of
+        dispatches abandoned."""
+        n = self._win.abandon()
+        self._chunks.clear()
+        self._pending_escalations = []
+        self._chip_rows_inflight.clear()
+        return n
 
     def drain(self) -> None:
         """Retire every in-flight dispatch, then run the escalation ladder

@@ -77,7 +77,8 @@ def run(
     device, mesh = mesh_mod.run_placement(device, mesh)
     n_devices = 1 if mesh is None else mesh.size
     dec = DecomposedRun(model, histories, oracle_fallback=oracle_fallback,
-                        oracle_budget_s=oracle_budget_s, enabled=decomposed)
+                        oracle_budget_s=oracle_budget_s, enabled=decomposed,
+                        lazy=True)
     ex = Executor(window, device=device, mesh=mesh, escalation=escalation,
                   sufficient_rung=sufficient_rung, max_dispatch=max_dispatch)
     t0 = time.perf_counter()

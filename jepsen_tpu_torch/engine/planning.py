@@ -14,7 +14,12 @@ per-engine row counts of a finished run (:func:`finish_run_telemetry`).
 
 Row identity is an opaque token ``(ctx, idx)``: every planned row carries
 the :class:`RunContext` it belongs to, so the execution layer can route
-each verdict home.
+each verdict home.  That is what lets the resident checker service
+(:mod:`jepsen_tpu_torch.serve`) merge same-shape raw buckets from many
+runs into shared dispatches (:func:`merge_buckets`): a result slot
+settles once (:meth:`RunContext.assign` is monotone), a settled slot —
+one replayed from the verdict WAL — is never encoded again, and each
+settle can feed the WAL through :attr:`RunContext.on_settle`.
 """
 
 from __future__ import annotations
@@ -39,6 +44,9 @@ def flush_rows_default(flush_rows: Optional[int] = None) -> int:
     return _cal.resolve_knob(flush_rows, lambda cal: max(1, cal.flush_rows()),
                              DEFAULT_FLUSH_ROWS)
 
+
+#: "spec not given" (``None`` is a legitimate spec: a model without one)
+_UNSET = object()
 
 #: sentinel distinct from every bucket key (``None`` is the legitimate
 #: key of unbucketed mode): this history routed to the oracle pool
@@ -72,7 +80,9 @@ class RunContext:
     Thread contract (by phase ordering, not locks): during planning only
     the planning thread touches the context; during execution only the
     executor thread assigns results; the consumer calls
-    :meth:`drain_oracles` and reads :attr:`results` after execution."""
+    :meth:`drain_oracles` and reads :attr:`results` after execution (the
+    service daemon signals the end of execution with a per-request
+    event)."""
 
     def __init__(
         self,
@@ -98,6 +108,9 @@ class RunContext:
         self.oracle_futs: Dict[int, Tuple[Any, str]] = {}
         #: budgeted searches, run serially at :meth:`drain_oracles`
         self.oracle_deferred: List[Tuple[int, str]] = []
+        #: optional ``(ctx, idx, result)`` hook fired once per settled
+        #: slot (the verdict-WAL seam)
+        self.on_settle: Optional[Any] = None
 
     def model_for(self, idx: int):
         """The model history ``idx`` checks against (encode's initial
@@ -118,8 +131,22 @@ class RunContext:
         return idx
 
     def assign(self, idx: int, result: dict) -> None:
+        """Settle one result slot, once: assigning an already-settled
+        slot is a no-op, so a verdict replayed from the WAL wins over a
+        re-dispatch and :attr:`on_settle` fires at most once per slot."""
+        if self.results[idx] is not None:
+            return
         self.results[idx] = result
         _note_settle_times(result)
+        if self.on_settle is not None:
+            self.on_settle(self, idx, result)
+
+    def settled(self, idx: int) -> bool:
+        """Whether slot ``idx`` holds a verdict (replayed or settled)."""
+        return self.results[idx] is not None
+
+    def settled_count(self) -> int:
+        return sum(1 for r in self.results if r is not None)
 
     def route_oracle(self, idx: int, engine_tag: str,
                      unresolved_tag: str) -> None:
@@ -148,6 +175,17 @@ class RunContext:
             engine_tag,
         )
 
+    def abandon_oracles(self) -> int:
+        """Cancel this run's oracle work that has not started (the
+        service's path for a request refused or timed out after planning
+        submitted searches); a running search completes into a discarded
+        future.  Returns the number cancelled."""
+        cancelled = sum(1 for fut, _tag in self.oracle_futs.values()
+                        if fut.cancel())
+        self.oracle_futs.clear()
+        self.oracle_deferred.clear()
+        return cancelled
+
     def drain_oracles(self) -> None:
         """Collect the concurrent oracle verdicts, then run the budgeted
         searches serially (see :meth:`route_oracle`)."""
@@ -159,6 +197,8 @@ class RunContext:
             self.assign(idx, r)
         pure = self.spec.pure_fs if self.spec else ()
         for idx, engine_tag in self.oracle_deferred:
+            if self.settled(idx):
+                continue  # a replayed verdict wins; skip the search
             r = linear.analysis(
                 self.model_for(idx), self.histories[idx], pure_fs=pure,
                 budget_s=self.oracle_budget_s,
@@ -198,6 +238,7 @@ class Planner:
         device,
         max_dispatch: int,
         frontier: int,
+        spec=_UNSET,
         max_closure: Optional[int] = None,
         bucketed: bool = True,
         flush_rows: Optional[int] = None,
@@ -206,7 +247,7 @@ class Planner:
         from ..ops.step_kernels import spec_for
 
         self.model = model
-        self.spec = spec_for(model)
+        self.spec = spec_for(model) if spec is _UNSET else spec
         self.slot_cap = slot_cap
         self.device = device
         self.max_dispatch = max_dispatch
@@ -243,7 +284,11 @@ class Planner:
         """Encode one history into its bucket.  Returns the bucket key
         the history landed in (``None`` IS a valid key in unbucketed
         mode), or :data:`_ROUTED_ORACLE` when it went to the oracle
-        instead — that search starts NOW, on the worker pool."""
+        instead — that search starts NOW, on the worker pool.  A slot
+        that already holds a verdict (replayed from the WAL) is skipped:
+        settled rows never encode or dispatch again."""
+        if ctx.settled(idx):
+            return _ROUTED_ORACLE
         e = self.encode_one(ctx, idx)
         if e is None:
             ctx.route_oracle(idx, "oracle-fallback", "unencodable")
@@ -377,6 +422,27 @@ def estimated_cost(pb: PlannedBucket) -> float:
         return float(rows) * plan.E * plan.E * max(1, plan.frontier)
     words = max(1, -(-plan.E // 32))
     return float(rows * plan.frontier * (plan.C + 1) * words)
+
+
+def merge_buckets(runs) -> Tuple[Dict[Any, Tuple[list, list]], List[Any]]:
+    """Coalesce raw per-run buckets across runs: same-key buckets from
+    ``runs`` (an iterable of ``(buckets, order)`` pairs as
+    :meth:`Planner.encode_buckets` returns them) concatenate in arrival
+    order into one ``(encs, tokens)`` per key, keys in first-seen order —
+    the seam through which the checker service shares dispatches between
+    concurrent runs."""
+    merged: Dict[Any, Tuple[list, list]] = {}
+    merged_order: List[Any] = []
+    for buckets, order in runs:
+        for key in order:
+            encs, tokens = buckets[key]
+            acc = merged.get(key)
+            if acc is None:
+                acc = merged[key] = ([], [])
+                merged_order.append(key)
+            acc[0].extend(encs)
+            acc[1].extend(tokens)
+    return merged, merged_order
 
 
 def finish_run_telemetry(results: Sequence[Optional[dict]]) -> None:

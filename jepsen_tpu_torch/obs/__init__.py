@@ -34,6 +34,7 @@ from __future__ import annotations
 from typing import Optional
 
 from . import export as export_mod
+from . import propagate as propagate_mod
 from .metrics import MetricsRegistry
 from .tracer import NULL_SPAN, SpanRecord, Tracer  # noqa: F401 (re-export)
 
@@ -57,6 +58,7 @@ def enable(reset: bool = False) -> None:
     if reset:
         _tracer.reset()
         _registry.reset()
+        propagate_mod.reset()
     _tracer.enabled = True
     _registry.enabled = True
 
@@ -69,6 +71,7 @@ def disable() -> None:
 def reset() -> None:
     _tracer.reset()
     _registry.reset()
+    propagate_mod.reset()
 
 
 # -- span + metric shorthands (the instrumentation surface) -----------------

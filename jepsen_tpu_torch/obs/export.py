@@ -2,11 +2,10 @@
 Prometheus text dump, and the run-summary dict/table — a copy of
 :mod:`jepsen_tpu.obs.export`.
 
-Left out: the reference merges spans adopted from a remote checker
-daemon into the Chrome trace and stitches them with flow events
-(``_remote_event``, ``_flow_events``, read from ``obs.propagate``).  The
-port has no resident service yet, so :func:`chrome_trace` renders the
-local spans only.
+Spans adopted from a checker daemon in another process
+(:mod:`.propagate`) merge into the Chrome trace on this process's wall
+clock, and request spans tagged with one trace id are joined across the
+process boundary by Chrome flow events (``ph`` "s", "t", "f").
 
 File inventory (written by :func:`export_all` into one directory):
 
@@ -37,9 +36,12 @@ SPANS_JSONL = "trace-spans.jsonl"
 METRICS_PROM = "metrics.prom"
 
 
-def chrome_trace(tracer: Tracer) -> dict:
+def chrome_trace(tracer: Tracer,
+                 remote_spans: Optional[List[dict]] = None) -> dict:
     """Finished spans as a Chrome ``trace_event`` document.  Timestamps
-    are microseconds from the tracer origin (complete events, ph="X")."""
+    are microseconds from the tracer origin (complete events, ph="X").
+    Remote spans (default: :func:`.propagate.adopted`) merge in on the
+    local wall clock, and trace_ctx-tagged spans gain flow events."""
     events: List[dict] = []
     origin = tracer.origin_ns
     for rec in tracer.finished():
@@ -57,6 +59,15 @@ def chrome_trace(tracer: Tracer) -> dict:
         if rec.attrs:
             ev["args"] = dict(rec.attrs)
         events.append(ev)
+    if remote_spans is None:
+        from . import propagate
+
+        remote_spans = propagate.adopted()
+    for rec in remote_spans:
+        ev = _remote_event(rec, tracer.wall_origin)
+        if ev is not None:
+            events.append(ev)
+    events.extend(_flow_events(events))
     doc = {
         "traceEvents": events,
         "displayTimeUnit": "ms",
@@ -71,6 +82,63 @@ def chrome_trace(tracer: Tracer) -> dict:
             (tracer.run_anchor_ns - origin) / 1e3
         )
     return doc
+
+
+def _remote_event(rec: dict, wall_origin: float) -> Optional[dict]:
+    """One adopted daemon span → a local event on this process's clock:
+    a remote span sits at its own ``wall_origin + (t0 - origin_ns)``, so
+    rebasing is one wall-clock delta.  A span without its alignment
+    metadata is dropped, not guessed."""
+    t0, t1 = rec.get("t0"), rec.get("t1")
+    r_origin = rec.get("_remote_origin_ns")
+    r_wall = rec.get("_remote_wall_origin")
+    if None in (t0, t1, r_origin, r_wall):
+        return None
+    ev = {
+        "name": rec.get("name", "?"),
+        "cat": rec.get("cat") or "span",
+        "ph": "X",
+        "ts": (r_wall - wall_origin) * 1e6 + (t0 - r_origin) / 1e3,
+        "dur": (t1 - t0) / 1e3,
+        "pid": rec.get("pid", rec.get("_remote_pid", 0)),
+        "tid": rec.get("tid", 0),
+    }
+    if rec.get("attrs"):
+        ev["args"] = dict(rec["attrs"])
+    return ev
+
+
+def _flow_events(events: List[dict]) -> List[dict]:
+    """Flow events joining trace_ctx-tagged spans: ph="s" at the client
+    span, ph="t" through the daemon's intermediate spans, ph="f" (bp="e")
+    at its last, all under the trace id."""
+    starts: Dict[str, dict] = {}
+    finishes: Dict[str, List[dict]] = {}
+    for ev in events:
+        args = ev.get("args") or {}
+        trace_id, role = args.get("trace_id"), args.get("ctx_role")
+        if not trace_id or not role:
+            continue
+        if role == "client":
+            starts.setdefault(trace_id, ev)
+        elif role == "daemon":
+            finishes.setdefault(trace_id, []).append(ev)
+    flows: List[dict] = []
+    for trace_id in sorted(starts):
+        sev = starts[trace_id]
+        fevs = sorted(finishes.get(trace_id, []), key=lambda e: e["ts"])
+        if not fevs:
+            continue
+        base = {"name": "trace_ctx", "cat": "trace_ctx", "id": trace_id}
+        flows.append({**base, "ph": "s", "ts": sev["ts"],
+                      "pid": sev["pid"], "tid": sev["tid"]})
+        for fev in fevs[:-1]:
+            flows.append({**base, "ph": "t", "ts": fev["ts"],
+                          "pid": fev["pid"], "tid": fev["tid"]})
+        last = fevs[-1]
+        flows.append({**base, "ph": "f", "bp": "e", "ts": last["ts"],
+                      "pid": last["pid"], "tid": last["tid"]})
+    return flows
 
 
 def write_chrome_trace(tracer: Tracer, path: str) -> str:

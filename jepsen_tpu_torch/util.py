@@ -16,6 +16,9 @@ from .device import carry_current
 T = TypeVar("T")
 U = TypeVar("U")
 
+#: :func:`bounded_pmap`'s default number of concurrent workers
+DEFAULT_PMAP_LIMIT = 16
+
 
 def real_pmap(fn: Callable[[T], U], coll: Sequence[T]) -> List[U]:
     """Map fn over coll, one thread per element, re-raising the first
@@ -32,7 +35,7 @@ def real_pmap(fn: Callable[[T], U], coll: Sequence[T]) -> List[U]:
 
 
 def bounded_pmap(fn: Callable[[T], U], coll: Sequence[T],
-                 limit: int = 16) -> List[U]:
+                 limit: int = DEFAULT_PMAP_LIMIT) -> List[U]:
     """Parallel map with at most `limit` concurrent workers.
     (reference: util.clj bounded-pmap)"""
     coll = list(coll)

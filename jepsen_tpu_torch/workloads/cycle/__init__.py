@@ -178,24 +178,29 @@ def write_anomaly_artifacts(test, result: dict, opts=None) -> None:
 
 
 class _ElleChecker(Checker):
-    def __init__(self, workload: str, opts: Optional[dict], device=None):
+    def __init__(self, workload: str, opts: Optional[dict], device=None,
+                 client=None):
         self.workload = workload
         self.opts = dict(opts or {})
         self.device = device
+        self.client = client
 
     def check(self, test, history, opts=None):
         from ... import elle
 
         out = elle.check(
-            {**self.opts, "workload": self.workload}, history, self.device
+            {**self.opts, "workload": self.workload}, history, self.device,
+            self.client,
         )
         write_anomaly_artifacts(test, out, opts)
         return out
 
 
 def checker(workload: str, opts: Optional[dict] = None,
-            device=None) -> Checker:
+            device=None, client=None) -> Checker:
     """A checker running the elle analysis for a txn workload; its screens
     run on ``device`` (None: the current CUDA device; the ``"cpu"``
-    screen route needs none).  (reference: cycle.clj:9-16)"""
-    return _ElleChecker(workload, opts, device)
+    screen route needs none), or on the checker daemon behind ``client``
+    (a :class:`~jepsen_tpu_torch.serve.client.ServiceClient`).
+    (reference: cycle.clj:9-16)"""
+    return _ElleChecker(workload, opts, device, client)

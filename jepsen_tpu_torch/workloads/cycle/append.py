@@ -15,10 +15,11 @@ from . import checker as elle_checker
 from ...checker import Checker
 
 
-def checker(opts: Optional[dict] = None, device=None) -> Checker:
+def checker(opts: Optional[dict] = None, device=None,
+            client=None) -> Checker:
     """Defaults to the reference's {:anomalies [:G1 :G2]} when the opts
     carry no anomaly/model selection.  (reference: append.clj:11-21)"""
     opts = dict(opts or {})
     if "anomalies" not in opts and "consistency-models" not in opts:
         opts["anomalies"] = ["G1", "G2"]
-    return elle_checker("list-append", opts, device)
+    return elle_checker("list-append", opts, device, client)

@@ -48,7 +48,13 @@ _IMPORT_ALL = textwrap.dedent("""
                      "jepsen_tpu_torch.tune",
                      "jepsen_tpu_torch.tune.__main__",
                      "jepsen_tpu_torch.tune.artifact",
-                     "jepsen_tpu_torch.tune.calibrate"):
+                     "jepsen_tpu_torch.tune.calibrate",
+                     "jepsen_tpu_torch.obs.propagate",
+                     "jepsen_tpu_torch.serve",
+                     "jepsen_tpu_torch.serve.__main__",
+                     "jepsen_tpu_torch.serve.client",
+                     "jepsen_tpu_torch.serve.daemon",
+                     "jepsen_tpu_torch.serve.protocol"):
         assert required in names, required
     for name in names:
         importlib.import_module(name)
@@ -70,8 +76,8 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     # every module of the port, the lock checkers, the decomposition
     # front-end, the mesh, the checker seam, the independent lift, obs,
     # the cycle workloads, the probe, the journal, the drift sentinel and
-    # the tuner included
-    assert int(out.stdout.split()[-1]) >= 53
+    # the tuner, trace propagation and the checker service included
+    assert int(out.stdout.split()[-1]) >= 59
 
 
 def test_the_refusal_matches_names_exactly():
