@@ -225,8 +225,41 @@ line.
     in-process device screens, K7 launching in the daemon.  A 64-key
     history of phase 21's form through ``check_safe`` with
     ``linearizable(algorithm="service")`` under the independent lift must
-    equal the in-process lift key for key, with no fallback.  ``POST
-    /shutdown`` must drain and the process exit 0.
+    equal the in-process lift key for key, with no fallback.  Then phase
+    25 on the same daemon; ``POST /shutdown`` must drain and the process
+    exit 0.
+25. online checking — on phase 24's daemon, a ``/watch`` subscriber from
+    the WAL's tail; a feed session of 256 of phase 4's histories in 16
+    deltas of 16 (each stamped with ``t_inv``): the first ``valid? =
+    false`` verdict must reach ``/watch`` before the close, and the close
+    results must equal phase 4's (the line gives the feed's histories/s,
+    the seconds from the append that carried the first violation to its
+    event, the ``jepsen_feed_ingest_lag_seconds`` mean from ``/metrics``
+    and the daemon's K1 launches).  Op mode: one corrupted history of
+    phase 4's as raw event dicts in deltas of 64 (the reference's live
+    shipper's batch), each delta checking the whole prefix again: the
+    violation must reach ``/watch`` before the close, the close must equal
+    phase 4's result (the line gives the first and the last delta's
+    seconds).  The frontier route: 64 of phase 8's histories and its 8
+    crash-heavy ones, K4 and an escalation rung in the daemon, results
+    equal to phase 8's.  ``/status`` must show no open session and the
+    sessions, deltas and histories sent; the ``/watch`` thread must end at
+    phase 24's drain.
+26. the fleet — ``python -m jepsen_tpu_torch.serve --supervise --fleet 2``
+    (started when phase 24's daemon is ready: two daemons on the one
+    card, one WAL each) behind an in-process ``serve.Router``: the seconds
+    until both answer ``/healthz``; through the router phase 4's corpus
+    as four concurrent requests, 72 of phase 8's rows, phase 16's graphs
+    through ``/elle`` and a feed session of 64 of phase 4's histories,
+    each equal to its phase, each on the member the router ranks first
+    (``rendezvous_order`` under its weights; the feed's deltas all on the
+    member that opened it), K1, K4 and K7 launching in the members.  Then
+    the first quarter's member is SIGKILLed with that request in flight:
+    the request must complete on its sibling with phase 4's results and a
+    counted reroute, the supervisor must restart the member on the same
+    port and WAL (seconds to ``/healthz``), one ``probe_once()`` must mark
+    it up and the key's next request must reach it again.  ``POST
+    /shutdown`` to both members: the supervisor exits 0, the router stops.
 
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -240,6 +273,8 @@ import json
 import os
 import random
 import re
+import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -2285,8 +2320,10 @@ def timed_check(client, model, hs, **opts):
 
 
 def service_phase(card, model, hs, results, e2e_rate, f_hs, f_results,
-                  la_hs, device):
-    """Phase 24: the resident checker service in a child process."""
+                  la_hs, device, on_ready=None):
+    """Phase 24: the resident checker service in a child process, with
+    phase 25 on it before its drain.  ``on_ready`` runs once the daemon
+    answers (phase 26's fleet starts there, off the critical path)."""
     import tempfile
 
     from jepsen_tpu_torch import serve
@@ -2301,6 +2338,8 @@ def service_phase(card, model, hs, results, e2e_rate, f_hs, f_results,
             wait_s=300, log_path=os.path.join(tmp, "daemon.log"))
         ready_s = time.perf_counter() - t0
         clients = [client]
+        if on_ready is not None:
+            on_ready()
         try:
             probe = hs[:SERVICE_PROBE_ROWS]
             out, cold_s = timed_check(client, model, probe, slot_cap=8)
@@ -2468,16 +2507,525 @@ def service_phase(card, model, hs, results, e2e_rate, f_hs, f_results,
                  launches=daemon_delta(st1, st0), valid=lin["valid?"],
                  card=card)
 
+            # -- 25. online checking on this daemon ------------------------
+            watcher = feed_phase(card, client, model, hs, results, f_hs,
+                                 f_results)
+
             # -- drain and exit ------------------------------------------
             require(client.shutdown()["ok"], "service: /shutdown refused")
             rc = client.spawned.wait(timeout=300)
             require(rc == 0, f"service: the daemon exited {rc}")
+            watcher.thread.join(timeout=60)
+            require(not watcher.thread.is_alive() and watcher.error is None,
+                    f"service: the /watch subscriber did not end cleanly "
+                    f"({watcher.error})")
             emit(phase="service", step="drain", exit_code=rc,
+                 watch_events=len(watcher.events),
                  phase_seconds=time.perf_counter() - t_phase, card=card)
         finally:
             for c in clients:
                 if c.spawned is not None and c.spawned.poll() is None:
                     serve.client._reap(c.spawned)
+
+
+# ---------------------------------------------------------------------------
+# online checking (phase 25) and the fleet (phase 26)
+# ---------------------------------------------------------------------------
+
+#: phase 25: phase 4's histories fed in deltas of 16; the op-mode delta of
+#: the reference's live shipper (jepsen_tpu/interpreter.py:37); the part of
+#: phase 8's corpus fed on the frontier route (its 8 crash-heavy histories
+#: added)
+FEED_HISTORIES, FEED_DELTA_HISTORIES = 256, 16
+FEED_OP_BATCH = 64
+FEED_FRONTIER_ROWS = 64
+#: phase 26: the feed session sent through the router
+FLEET_FEED_HISTORIES = 64
+FLEET_MEMBERS = 2
+
+
+class Watcher:
+    """A ``/watch`` subscriber on a thread: :attr:`events` gathers
+    ``(arrival, offset, row)``; the thread ends when the daemon closes the
+    stream (at its drain)."""
+
+    def __init__(self, client, last_id: int):
+        self.events: list = []
+        self.error = None
+        self.thread = threading.Thread(target=self._run,
+                                       args=(client, last_id), daemon=True)
+        self.thread.start()
+
+    def _run(self, client, last_id):
+        try:
+            for off, row in client.watch(last_id=last_id, timeout=900):
+                self.events.append((time.perf_counter(), off, row))
+        except Exception as e:  # noqa: BLE001 — the phase checks it
+            self.error = repr(e)
+
+    def first_violation(self, sid: str, wait_s: float = 60.0):
+        """The first ``valid? = false`` event of session ``sid`` to arrive,
+        waiting up to ``wait_s`` for one; None when none came."""
+        deadline = time.monotonic() + wait_s
+        while True:
+            for ev in list(self.events):
+                if ev[2]["req"] == sid and \
+                        ev[2]["result"].get("valid?") is False:
+                    return ev
+            if time.monotonic() >= deadline:
+                return None
+            time.sleep(0.05)
+
+
+def prom_value(text: str, name: str):
+    """The sum of a metric's samples (over its labels) in Prometheus text,
+    or None when it has none."""
+    values = [float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+              if line.startswith((name + " ", name + "{"))]
+    return sum(values) if values else None
+
+
+def feed_phase(card, client, model, hs, results, f_hs, f_results):
+    """Phase 25: online checking on phase 24's daemon.  Returns the
+    :class:`Watcher`, which must end when phase 24 drains the daemon."""
+    t_phase = time.perf_counter()
+    st0 = client.status()
+    require(st0["wal_path"], "feed: phase 24's daemon has no WAL")
+    # from the WAL's current tail: only this phase's verdicts
+    watcher = Watcher(client, st0["wal_rows"] - 1)
+
+    # -- whole histories: 256 of phase 4's in deltas of 16 ------------------
+    sel = list(range(FEED_HISTORIES))
+    session = client.open_feed(model, {"slot_cap": 8})
+    sent = []
+    t0 = time.perf_counter()
+    for k in range(0, len(sel), FEED_DELTA_HISTORIES):
+        sent.append(time.perf_counter())
+        session.append(histories=hs[k:k + FEED_DELTA_HISTORIES],
+                       t_inv=time.time())
+    feed_s = time.perf_counter() - t0
+    ev = watcher.first_violation(session.sid)
+    t_close = time.perf_counter()
+    require(ev is not None and ev[0] < t_close,
+            "feed: no violation reached /watch before the close")
+    out = session.close()
+    st1 = client.status()
+    require(out == [results[i] for i in sel],
+            "feed: the close results differ from phase 4's")
+    metrics = client.metrics_text()
+    lag_n = prom_value(metrics, "jepsen_feed_ingest_lag_seconds_count")
+    lag_mean = prom_value(metrics, "jepsen_feed_ingest_lag_seconds_sum") \
+        / lag_n
+    k1 = daemon_delta(st1, st0).get("dense/register", 0)
+    require(k1 > 0, "feed: K1 never launched in the daemon")
+    first = ev[2]["idx"]
+    emit(phase="feed", step="histories", histories=len(sel),
+         deltas=len(sent), seconds=feed_s,
+         histories_per_s=len(sel) / feed_s,
+         first_violation_history=first,
+         first_violation_to_watch_s=ev[0] - sent[first
+                                                // FEED_DELTA_HISTORIES],
+         ingest_lag_mean_s=lag_mean, ingest_lag_observations=lag_n,
+         k1_launches=k1, card=card)
+
+    # -- raw op events of one corrupted history, 64 a delta ------------------
+    bad = next(i for i in sel if results[i]["valid?"] is False
+               and results[i]["engine"] == "gpu")
+    ops = hs[bad].to_dicts()
+    session = client.open_feed(model, {"slot_cap": 8})
+    laps = []
+    for k in range(0, len(ops), FEED_OP_BATCH):
+        t0 = time.perf_counter()
+        session.append(ops=ops[k:k + FEED_OP_BATCH], t_inv=time.time())
+        laps.append(time.perf_counter() - t0)
+    ev = watcher.first_violation(session.sid)
+    t_close = time.perf_counter()
+    require(ev is not None and ev[0] < t_close,
+            "feed: the op-mode violation never reached /watch before the "
+            "close")
+    out = session.close()
+    require(out == [results[bad]],
+            f"feed: op mode says {out}, phase 4 said {results[bad]}")
+    emit(phase="feed", step="ops", history=bad, ops=len(ops),
+         deltas=len(laps), first_delta_s=laps[0], last_delta_s=laps[-1],
+         seconds=sum(laps), first_violating_delta=ev[2]["idx"],
+         failed_event=results[bad].get("failed-event"), card=card)
+
+    # -- the frontier route: part of phase 8's corpus ------------------------
+    pick = list(range(FEED_FRONTIER_ROWS)) + \
+        list(range(len(f_hs) - 8, len(f_hs)))
+    st_a = client.status()
+    session = client.open_feed(model)
+    t0 = time.perf_counter()
+    for k in range(0, len(pick), FEED_DELTA_HISTORIES):
+        session.append(histories=[f_hs[i] for i in
+                                  pick[k:k + FEED_DELTA_HISTORIES]],
+                       t_inv=time.time())
+    out = session.close()
+    f_s = time.perf_counter() - t0
+    st_b = client.status()
+    require(out == [f_results[i] for i in pick],
+            "feed: frontier results differ from phase 8's")
+    f_delta = daemon_delta(st_b, st_a)
+    rungs = {k: v - st_a["escalations"].get(k, 0)
+             for k, v in st_b["escalations"].items()
+             if v - st_a["escalations"].get(k, 0)}
+    require(f_delta.get("frontier_search", 0) > 0,
+            "feed: K4 never launched in the daemon")
+    require(rungs, "feed: no escalation rung ran in the daemon")
+    emit(phase="feed", step="frontier", histories=len(pick), seconds=f_s,
+         launches=f_delta, escalations=rungs,
+         batch_stats=wgl.batch_stats(out), card=card)
+
+    st = client.status()
+    counts = {k: st[k] - st0[k] for k in ("feed_sessions", "feed_deltas",
+                                          "feed_histories", "watch_events")}
+    want = {"feed_sessions": 3,
+            "feed_deltas": len(sent) + len(laps)
+            + -(-len(pick) // FEED_DELTA_HISTORIES),
+            "feed_histories": len(sel) + len(laps) + len(pick)}
+    require(st["feed_open"] == 0, f"feed: {st['feed_open']} sessions open")
+    require(all(counts[k] == v for k, v in want.items()),
+            f"feed: /status counted {counts}, the phase sent {want}")
+    require(st["watch_subscribers"] == 1,
+            f"feed: {st['watch_subscribers']} /watch subscribers")
+    emit(phase="feed", step="status", feed_open=st["feed_open"],
+         watch_subscribers=st["watch_subscribers"], watch_events_seen=len(
+             watcher.events), live=st["live"],
+         phase_seconds=time.perf_counter() - t_phase, **counts, card=card)
+    return watcher
+
+
+def free_port_run(n: int) -> int:
+    """A port P with P … P + n - 1 all free right now."""
+    from jepsen_tpu_torch.serve import client as serve_client
+
+    for _ in range(100):
+        port = serve_client.free_port()
+        try:
+            for i in range(1, n):
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", port + i))
+            return port
+        except OSError:
+            continue
+    raise RuntimeError("chip_smoke: no run of free ports")
+
+
+def start_fleet(fleet: dict) -> None:
+    """``python -m jepsen_tpu_torch.serve --supervise --fleet 2`` on the
+    card, its WALs and log in a directory under ``build/``, described in
+    ``fleet``; a thread notes there when both members first answer
+    ``/healthz``."""
+    import tempfile
+
+    from jepsen_tpu_torch.serve import client as serve_client
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_", dir="build")
+    port = free_port_run(FLEET_MEMBERS)
+    with open(os.path.join(root, "fleet.log"), "ab") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "jepsen_tpu_torch.serve", "--supervise",
+             "--fleet", str(FLEET_MEMBERS), "--port", str(port), "--wal",
+             os.path.join(root, "wal.jsonl")],
+            stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+    fleet.update(proc=proc, port=port, root=root, t0=time.perf_counter(),
+                 ready_s=None)
+
+    def note_ready():
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline and proc.poll() is None:
+            if all(serve_client.probe_healthz(f"127.0.0.1:{port + i}")
+                   for i in range(FLEET_MEMBERS)):
+                fleet["ready_s"] = time.perf_counter() - fleet["t0"]
+                return
+            time.sleep(0.1)
+
+    threading.Thread(target=note_ready, daemon=True).start()
+
+
+def stop_fleet(fleet: dict) -> None:
+    """Stop the supervisor and its members (the whole process group) if
+    still running, and remove the fleet's directory."""
+    import shutil
+
+    proc = fleet.get("proc")
+    if proc is not None and proc.poll() is None:
+        for sig in (signal.SIGTERM, signal.SIGKILL):
+            try:
+                os.killpg(proc.pid, sig)
+                proc.wait(timeout=30)
+                break
+            except (ProcessLookupError, subprocess.TimeoutExpired):
+                continue
+    if fleet.get("root"):
+        shutil.rmtree(fleet["root"], ignore_errors=True)
+
+
+def check_key(model, hs, opts) -> str:
+    """The router's key of a ``/check`` of ``hs`` (what it derives from the
+    body, without building one)."""
+    from jepsen_tpu_torch.serve import protocol, router
+
+    return router.check_route_key({"model": protocol.model_to_wire(model),
+                                   "opts": dict(opts), "histories": hs})
+
+
+def fleet_phase(card, fleet, model, hs, results, f_hs, f_results, la_hs,
+                device):
+    """Phase 26: a supervised fleet of two daemons on the card behind an
+    in-process router."""
+    from jepsen_tpu_torch import serve
+    from jepsen_tpu_torch.elle import list_append as elle_la
+    from jepsen_tpu_torch.serve import router as router_mod
+
+    t_phase = time.perf_counter()
+    proc, port = fleet["proc"], fleet["port"]
+    members = [f"127.0.0.1:{port + i}" for i in range(FLEET_MEMBERS)]
+    mclients = {m: serve.ServiceClient(port=port + i)
+                for i, m in enumerate(members)}
+    deadline = time.monotonic() + 300
+    while fleet["ready_s"] is None:
+        require(proc.poll() is None,
+                f"fleet: the supervisor exited {proc.returncode}")
+        require(time.monotonic() < deadline,
+                "fleet: the members did not answer /healthz in 300 s")
+        time.sleep(0.1)
+    sts = {m: c.status() for m, c in mclients.items()}
+    require(all(st["platform"] == ("gpu" if device.type == "cuda" else
+                                   device.type) for st in sts.values()),
+            f"fleet: members on {[st['device'] for st in sts.values()]}")
+    emit(phase="fleet", step="ready", members=members,
+         ready_s=fleet["ready_s"], pids=[st["pid"] for st in sts.values()],
+         wal_paths=[st["wal_path"] for st in sts.values()], card=card)
+
+    def statuses():
+        return {m: c.status() for m, c in mclients.items()}
+
+    def launches(st1, st0, name):
+        return sum(daemon_delta(st1[m], st0[m]).get(name, 0)
+                   for m in members)
+
+    router = router_mod.Router(members, port=0, probe_interval_s=3600.0)
+    router.start(block=False)
+    try:
+        require(router.probe_once() == FLEET_MEMBERS,
+                "fleet: the router's probe found a member down")
+        small = hs[-8:]
+        require(check_key(model, small, {"slot_cap": 8})
+                == router_mod.check_route_key(serve.protocol.decode_body(
+                    serve.protocol.check_request(model, small,
+                                                 {"slot_cap": 8}))),
+                "fleet: the smoke's route key differs from the router's")
+
+        # -- phase 4's corpus as four requests at once ---------------------
+        quarter = -(-len(hs) // 4)
+        parts = [hs[i:i + quarter] for i in range(0, len(hs), quarter)]
+        keys = [check_key(model, p, {"slot_cap": 8}) for p in parts]
+        owners = [router._candidates(k)[0] for k in keys]
+        got = [None] * len(parts)
+        errors = []
+
+        def send(i):
+            try:
+                got[i] = serve.ServiceClient(port=router.port).check_batch(
+                    model, parts[i], slot_cap=8)
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(repr(e))
+
+        st0 = statuses()
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(len(parts))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check_s = time.perf_counter() - t0
+        st1 = statuses()
+        require(not errors, f"fleet: routed /check errors {errors}")
+        require([r for g in got for r in g] == results,
+                "fleet: routed results differ from phase 4's")
+        moved = {m: st1[m]["requests"] - st0[m]["requests"] for m in members}
+        require(moved == {m: owners.count(m) for m in members},
+                f"fleet: requests reached {moved}, the router ranked "
+                f"{owners} first")
+        k1 = launches(st1, st0, "dense/register")
+        require(k1 > 0, "fleet: K1 never launched in the members")
+        emit(phase="fleet", step="check", requests=len(parts),
+             histories=len(hs), seconds=check_s,
+             histories_per_s=len(hs) / check_s, ranked_first=owners,
+             requests_by_member=moved, k1_launches=k1, card=card)
+
+        def routed(step, key, counter, call):
+            """One request through the router: it must reach the member
+            the router ranks first for ``key``."""
+            owner = router._candidates(key)[0]
+            st0 = statuses()
+            t0 = time.perf_counter()
+            out = call()
+            secs = time.perf_counter() - t0
+            st1 = statuses()
+            moved = {m: st1[m][counter] - st0[m][counter] for m in members}
+            require(moved == {m: int(m == owner) for m in members},
+                    f"fleet {step}: {counter} moved {moved}, the router "
+                    f"ranked {owner} first")
+            return out, secs, owner, st1, st0
+
+        # -- phase 8's frontier rows --------------------------------------
+        fpick = list(range(FEED_FRONTIER_ROWS)) + \
+            list(range(len(f_hs) - 8, len(f_hs)))
+        fh = [f_hs[i] for i in fpick]
+        client = serve.ServiceClient(port=router.port)
+        out, secs, owner, st1, st0 = routed(
+            "frontier", check_key(model, fh, {}), "requests",
+            lambda: client.check_batch(model, fh))
+        require(out == [f_results[i] for i in fpick],
+                "fleet: routed frontier results differ from phase 8's")
+        k4 = launches(st1, st0, "frontier_search")
+        require(k4 > 0, "fleet: K4 never launched in the members")
+        emit(phase="fleet", step="frontier", histories=len(fh),
+             seconds=secs, member=owner, k4_launches=k4, card=card)
+
+        # -- phase 16's list-append graphs through /elle -------------------
+        opts = {"workload": "list-append",
+                "consistency-models": ["strict-serializable"]}
+        encs = [elle_encode.encode_graph(elle_la.prepare(h, opts)[0])
+                for h in la_hs]
+        key = router_mod.elle_route_key(
+            {"graphs": [{"rel": [0] * len(e.rel)} for e in encs]})
+        via, secs, owner, st1, st0 = routed(
+            "elle", key, "elle_requests", lambda: client.screen_graphs(encs))
+        local = cycles.screen_graphs(encs, device=device)
+        for i, (a, b) in enumerate(zip(via, local)):
+            require((a is None) == (b is None)
+                    and (a is None
+                         or (sorted(a.members) == sorted(b.members)
+                             and all((a.members[m] == b.members[m]).all()
+                                     for m in a.members)
+                             and sorted(a.walks) == sorted(b.walks)
+                             and all((a.walks[q] == b.walks[q]).all()
+                                     for q in a.walks))),
+                    f"fleet: graph {i}'s routed screens differ")
+        k7 = launches(st1, st0, "cycles_screen")
+        require(k7 > 0, "fleet: K7 never launched in the members")
+        emit(phase="fleet", step="elle", graphs=len(encs), seconds=secs,
+             member=owner, k7_launches=k7, card=card)
+
+        # -- a feed session, pinned to the member that opened it -----------
+        fkey = json.dumps(["feed", serve.protocol.model_to_wire(model),
+                           {"slot_cap": 8}], sort_keys=True, default=repr)
+        owner = router._candidates(fkey)[0]
+        st0 = statuses()
+        t0 = time.perf_counter()
+        session = client.open_feed(model, {"slot_cap": 8})
+        pinned = router._pins.get(session.sid)
+        for k in range(0, FLEET_FEED_HISTORIES, FEED_DELTA_HISTORIES):
+            session.append(histories=hs[k:k + FEED_DELTA_HISTORIES],
+                           t_inv=time.time())
+        out = session.close()
+        secs = time.perf_counter() - t0
+        st1 = statuses()
+        n_deltas = FLEET_FEED_HISTORIES // FEED_DELTA_HISTORIES
+        require(out == results[:FLEET_FEED_HISTORIES],
+                "fleet: the routed feed's results differ from phase 4's")
+        deltas = {m: st1[m]["feed_deltas"] - st0[m]["feed_deltas"]
+                  for m in members}
+        require(pinned == owner and deltas == {
+            m: n_deltas * (m == owner) for m in members},
+            f"fleet: the session opened on {pinned} (ranked {owner}), its "
+            f"deltas reached {deltas}")
+        emit(phase="fleet", step="feed", histories=FLEET_FEED_HISTORIES,
+             deltas=n_deltas, seconds=secs, member=pinned,
+             deltas_by_member=deltas, card=card)
+
+        # -- SIGKILL the first quarter's member with its request in flight --
+        victim = owners[0]
+        sibling = next(m for m in members if m != victim)
+        vst = mclients[victim].status()
+        reg = obs.registry()
+
+        def rerouted():
+            return sum(reg.value(n, member=victim) or 0 for n in (
+                "jepsen_route_reroutes_total",
+                "jepsen_route_spillover_total"))
+
+        before = rerouted()
+        sent = threading.Event()
+
+        def noting_send(member, path, body):
+            if member == victim and path == "/check":
+                sent.set()
+            return router_mod.Router._send(router, member, path, body)
+
+        router._send = noting_send
+        box = {}
+
+        def send_first():
+            try:
+                box["out"] = serve.ServiceClient(
+                    port=router.port).check_batch(model, parts[0],
+                                                  slot_cap=8)
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                box["error"] = repr(e)
+
+        sib0 = mclients[sibling].status()["requests"]
+        t = threading.Thread(target=send_first)
+        t0 = time.perf_counter()
+        t.start()
+        require(sent.wait(300), "fleet: the request never left the router")
+        time.sleep(0.25)  # the member is reading or decoding the body
+        os.kill(vst["pid"], signal.SIGKILL)
+        t_kill = time.perf_counter()
+        t.join(timeout=600)
+        rerouted_s = time.perf_counter() - t0
+        del router._send
+        require("error" not in box, f"fleet: {box.get('error')}")
+        require(box.get("out") == results[:len(parts[0])],
+                "fleet: the rerouted request's results differ from phase 4's")
+        require(mclients[sibling].status()["requests"] == sib0 + 1,
+                "fleet: the killed member's request did not reach its "
+                "sibling")
+        require(rerouted() > before, "fleet: the router counted no reroute")
+        deadline = time.monotonic() + 300
+        while True:
+            if mclients[victim].healthy():
+                vst2 = mclients[victim].status()
+                if vst2["pid"] != vst["pid"]:
+                    break
+            require(proc.poll() is None,
+                    f"fleet: the supervisor exited {proc.returncode}")
+            require(time.monotonic() < deadline,
+                    "fleet: the killed member was not restarted in 300 s")
+            time.sleep(0.1)
+        restart_s = time.perf_counter() - t_kill
+        require(vst2["wal_path"] == vst["wal_path"],
+                f"fleet: restarted on WAL {vst2['wal_path']}, not "
+                f"{vst['wal_path']}")
+        require(router.probe_once() == FLEET_MEMBERS and all(
+            m["up"] for m in router.status()["members"]),
+            "fleet: the restarted member is not marked up")
+        out, secs, owner, _, _ = routed(
+            "after restart", keys[0], "requests",
+            lambda: client.check_batch(model, parts[0], slot_cap=8))
+        require(owner == victim and out == results[:len(parts[0])],
+                "fleet: the key's next request did not return to its member")
+        emit(phase="fleet", step="kill", member=victim, sibling=sibling,
+             killed_pid=vst["pid"], restarted_pid=vst2["pid"],
+             wal_path=vst2["wal_path"], rerouted_request_s=rerouted_s,
+             reroutes=rerouted() - before, restart_to_healthz_s=restart_s,
+             next_request_s=secs, card=card)
+
+        # -- drain both members; the supervisor exits 0 ---------------------
+        for c in mclients.values():
+            require(c.shutdown()["ok"], "fleet: a member refused /shutdown")
+        rc = proc.wait(timeout=300)
+        require(rc == 0, f"fleet: the supervisor exited {rc}")
+    finally:
+        router.stop()
+    require(not client.healthy(), "fleet: the router still answers")
+    emit(phase="fleet", step="drain", exit_code=rc,
+         phase_seconds=time.perf_counter() - t_phase, card=card)
 
 
 # ---------------------------------------------------------------------------
@@ -2836,9 +3384,16 @@ def main() -> int:
     # -- 23. the tuner, the journal and the drift sentinel --------------------
     tuning_phase(card, model, hs, results)
 
-    # -- 24. the resident checker service ---------------------------------------
-    service_phase(card, model, hs, results, len(hs) / e2e_s, f_hs,
-                  f_results, la_hs, device)
+    # -- 24-26. the checker service, online checking, the fleet ---------------
+    fleet: dict = {}
+    try:
+        service_phase(card, model, hs, results, len(hs) / e2e_s, f_hs,
+                      f_results, la_hs, device,
+                      on_ready=lambda: start_fleet(fleet))
+        fleet_phase(card, fleet, model, hs, results, f_hs, f_results, la_hs,
+                    device)
+    finally:
+        stop_fleet(fleet)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

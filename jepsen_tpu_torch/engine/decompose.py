@@ -345,6 +345,27 @@ class DecomposedRun:
         self.n = len(self._histories)
         return list(self._split())
 
+    def truncate(self, n: int) -> None:
+        """Undo :meth:`extend` back to ``n`` histories: their planner rows,
+        result slots and split bookkeeping go, so a retried delta splits
+        into the same indices.  Only for rows no executor holds."""
+        self._ensure_fed()
+        if n >= self.n:
+            return
+        keep_main = sum(1 for i in self._pass_idx if i < n)
+        del self._pass_idx[keep_main:]
+        if self.main_ctx is not None:
+            self.main_ctx.truncate(keep_main)
+        dropped = [self._parts_of.pop(i) for i in sorted(self._parts_of)
+                   if i >= n]
+        if self.sub_ctx is not None and dropped:
+            self.sub_ctx.truncate(min(idx for slots in dropped
+                                      for _k, idx in slots))
+        self.n_partitions -= sum(len(slots) for slots in dropped)
+        self.n_decomposed -= len(dropped)
+        self._histories = list(self._histories)[:n]
+        self.n = self._next_i = n
+
     @property
     def contexts(self) -> List[RunContext]:
         return [c for c in (self.main_ctx, self.sub_ctx) if c is not None]

@@ -175,6 +175,20 @@ class RunContext:
             engine_tag,
         )
 
+    def truncate(self, n: int) -> None:
+        """Drop the histories from index ``n`` on, with their result slots
+        and oracle work (a streaming delta the service could not
+        dispatch), so the next rows take the same indices again.  Only for
+        rows no executor holds."""
+        del self.histories[n:]
+        del self.results[n:]
+        if self.models is not None:
+            del self.models[n:]
+        for idx in [i for i in self.oracle_futs if i >= n]:
+            self.oracle_futs.pop(idx)[0].cancel()
+        self.oracle_deferred = [(i, t) for i, t in self.oracle_deferred
+                                if i < n]
+
     def abandon_oracles(self) -> int:
         """Cancel this run's oracle work that has not started (the
         service's path for a request refused or timed out after planning

@@ -41,6 +41,10 @@ NEMESIS = "nemesis"
 Process = Union[int, str]
 
 
+#: the fields every op carries outside its ``extra`` dict
+_CORE_KEYS = frozenset(("index", "type", "process", "f", "value", "time"))
+
+
 class Op:
     """One history event.
 
@@ -142,16 +146,17 @@ class Op:
 
     @staticmethod
     def from_dict(d: dict) -> "Op":
-        d = dict(d)
-        return Op(
-            d.pop("type"),
-            d.pop("process"),
-            d.pop("f", None),
-            d.pop("value", None),
-            d.pop("time", 0),
-            d.pop("index", -1),
-            **d,
-        )
+        op = Op.__new__(Op)
+        op.type = d["type"]
+        op.process = d["process"]
+        op.f = d.get("f")
+        op.value = d.get("value")
+        op.time = d.get("time", 0)
+        op.index = d.get("index", -1)
+        # the set test runs in C: a plain op dict makes no extra dict scan
+        op.extra = ({} if d.keys() <= _CORE_KEYS else
+                    {k: v for k, v in d.items() if k not in _CORE_KEYS})
+        return op
 
     def __repr__(self) -> str:
         extra = f" {self.extra}" if self.extra else ""

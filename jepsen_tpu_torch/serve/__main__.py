@@ -6,6 +6,13 @@ versions instead.  ``POST /shutdown`` drains the queue and exits 0.  The
 daemon's other settings (row bound, request timeout, dispatch journal,
 drift sentinel, WAL compaction) are arguments of
 :func:`jepsen_tpu_torch.serve.daemon.serve`.
+
+``--supervise`` runs the daemon as a child process and restarts it when
+it dies abnormally; ``--supervise --fleet N`` runs N such daemons on
+ports ``--port`` … ``--port + N - 1``, each with its own WAL
+(``PATH-<i>``), all on the same ``--device``.  The supervising process
+holds no device: only its children touch the card.  Put
+``python -m jepsen_tpu_torch.serve.router`` in front of a fleet.
 """
 
 from __future__ import annotations
@@ -25,8 +32,8 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser(
         prog="python -m jepsen_tpu_torch.serve",
-        description="resident checker service: /check, /elle, /healthz, "
-        "/status, /metrics, /trace, /profile, /shutdown")
+        description="resident checker service: /check, /elle, /feed, "
+        "/watch, /healthz, /status, /metrics, /trace, /profile, /shutdown")
     p.add_argument("--host", default=protocol.DEFAULT_HOST,
                    help="bind address (default 127.0.0.1: the seam is "
                    "local)")
@@ -48,8 +55,27 @@ def main(argv=None) -> int:
                    "arrives for others to share its dispatches (default 0)")
     p.add_argument("--wal", default="off",
                    help="verdict write-ahead log path (default off): a "
-                   "restarted daemon replays it into retried request ids")
+                   "restarted daemon replays it into retried request ids "
+                   "and feed sessions, and GET /watch tails it")
+    p.add_argument("--supervise", action="store_true",
+                   help="run the daemon as a child process and restart it "
+                   "when it dies abnormally")
+    p.add_argument("--fleet", type=int, default=1, metavar="N",
+                   help="with --supervise: N daemons on ports --port … "
+                   "--port+N-1, one WAL each (PATH-<i>)")
     args = p.parse_args(argv)
+    if args.fleet > 1 and not args.supervise:
+        print("python -m jepsen_tpu_torch.serve: --fleet requires "
+              "--supervise", file=sys.stderr)
+        return 2
+    if args.supervise:
+        # the children get these arguments minus the supervisor's own
+        raw = list(sys.argv[1:] if argv is None else argv)
+        child = [a for a in daemon._with_flag(raw, "--fleet", None)
+                 if a != "--supervise"]
+        if args.fleet > 1:
+            return daemon.supervise_fleet(args.fleet, child)
+        return daemon.supervise(child)
     try:
         daemon.serve(
             host=args.host, port=args.port, device=args.device,

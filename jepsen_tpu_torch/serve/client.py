@@ -1,6 +1,8 @@
 """Client side of the resident checker service — the port of
-:mod:`jepsen_tpu.serve.client` (its feed sessions and fleet views are not
-ported).
+:mod:`jepsen_tpu.serve.client`, with its online sessions
+(:meth:`ServiceClient.open_feed`, :class:`FeedSession`), the verdict
+channel (:meth:`ServiceClient.watch`) and the fleet table
+(:func:`format_fleet_status`).
 
 :class:`ServiceClient` is the HTTP client of one daemon address, and
 :func:`check_batch` the seam: the daemon when the client reaches it, the
@@ -22,6 +24,7 @@ read from the environment.
 
 from __future__ import annotations
 
+import json
 import random
 import socket
 import subprocess
@@ -368,6 +371,125 @@ class ServiceClient:
             self.fetch_trace(ctx["trace_id"])
         return results
 
+    def open_feed(self, model, opts: Optional[dict] = None,
+                  req: Optional[str] = None) -> "FeedSession":
+        """Open an online session (``POST /feed``, op ``open``).  ``req``
+        is the session id and the WAL run id: reopening with the same id
+        after a daemon restart resumes against the replayed verdicts."""
+        return FeedSession(self, model, opts=opts, req=req).open()
+
+    def watch(self, last_id: int = -1, timeout: Optional[float] = None):
+        """Subscribe to the verdict channel (``GET /watch``) and yield
+        ``(offset, row)`` as verdicts settle.  One generator is one
+        connection; ``last_id`` ≥ 0 resumes after that WAL row.  The
+        generator ends when the connection closes or the read
+        ``timeout`` passes with the daemon quiet (reconnect with the last
+        offset seen).  Raises :class:`ServiceError` on an HTTP error (404
+        without a WAL) and :class:`ServiceUnavailable` when the first
+        connection fails."""
+        headers = {"Last-Event-ID": str(last_id)} if last_id >= 0 else {}
+        request = urllib.request.Request(self._url("/watch"),
+                                         headers=headers)
+        try:
+            resp = urllib.request.urlopen(
+                request, timeout=timeout or self.timeout or 30.0)
+        except urllib.error.HTTPError as e:
+            raise ServiceError(f"/watch returned {e.code}")
+        except (urllib.error.URLError, ConnectionError, OSError) as e:
+            raise ServiceUnavailable(
+                f"no daemon at {self._url('/watch')}: {e}")
+        try:
+            event_id = data = None
+            for raw in resp:
+                line = raw.decode("utf-8", "replace").rstrip("\r\n")
+                if not line:  # a blank line ends one event
+                    if data is not None:
+                        try:
+                            row = json.loads(data)
+                        except ValueError:
+                            row = None
+                        if isinstance(row, dict):
+                            try:
+                                off = int(event_id)
+                            except (TypeError, ValueError):
+                                off = -1
+                            yield off, row
+                    event_id = data = None
+                elif line.startswith(":"):
+                    pass  # keep-alive comment
+                elif line.startswith("id:"):
+                    event_id = line[3:].strip()
+                elif line.startswith("data:"):
+                    chunk = line[5:].strip()
+                    data = chunk if data is None else data + chunk
+        except OSError:
+            return  # the connection closed: end of stream
+        finally:
+            resp.close()
+
+
+class FeedSession:
+    """The client half of one online session.  Each append carries a
+    ``seq`` that advances only on a 200, so retrying a failed append is
+    safe: the daemon acknowledges a ``seq`` it already ingested without
+    ingesting it again."""
+
+    def __init__(self, client: ServiceClient, model,
+                 opts: Optional[dict] = None, req: Optional[str] = None):
+        self.client = client
+        self.model = model
+        self.opts = dict(opts or {})
+        self.req = req or protocol.request_id()
+        self.sid: Optional[str] = None
+        self.seq = 0
+        self.resumed = False
+        self.closed = False
+        self.last_diag: dict = {}
+
+    def _post(self, body: bytes, what: str) -> dict:
+        code, resp = self.client._resilient_post("/feed", body)
+        payload = protocol.decode_body(resp)
+        if code == 503:
+            raise ServiceError(f"daemon backlogged: {payload.get('error')}")
+        if code != 200:
+            raise ServiceError(f"/feed {what} returned {code}: "
+                               f"{payload.get('error')}")
+        return payload
+
+    def open(self) -> "FeedSession":
+        payload = self._post(protocol.feed_open_request(
+            self.model, self.opts, req=self.req), "open")
+        self.sid = payload["session"]
+        self.resumed = bool(payload.get("resumed"))
+        return self
+
+    def append(self, histories=None, ops=None,
+               t_inv: Optional[float] = None) -> dict:
+        """Send one delta: whole histories and/or raw op events (the
+        invocations and the completions, in the order they were
+        appended); ``t_inv`` is the wall-clock time of its oldest
+        invocation.  Returns the daemon's acknowledgement."""
+        if self.sid is None:
+            raise ServiceError("feed session not open")
+        payload = self._post(protocol.feed_append_request(
+            self.sid, self.seq, histories=histories, ops=ops, t_inv=t_inv),
+            "append")
+        self.seq += 1
+        self.last_diag = payload.get("diag") or {}
+        return payload
+
+    def close(self) -> List[dict]:
+        """End the session: the results of the client's histories in feed
+        order, then the assembled op history's when ops were sent — equal
+        to one ``/check`` of the same histories."""
+        if self.sid is None:
+            raise ServiceError("feed session not open")
+        payload = self._post(protocol.feed_close_request(
+            self.sid, self.seq, req=self.req + ":close"), "close")
+        self.closed = True
+        self.last_diag = payload.get("diag") or {}
+        return payload["results"]
+
 
 def _reap(proc, grace_s: float = 10.0) -> None:
     """Stop a child without leaking it: SIGTERM, a bounded wait, SIGKILL,
@@ -571,4 +693,45 @@ def format_status(st: dict) -> str:
     jp = st.get("journal_path")
     if jp:
         lines.append(f"  journal: {st.get('journal_rows', 0)} rows → {jp}")
+    return "\n".join(lines)
+
+
+def format_fleet_status(rows) -> str:
+    """The fleet table: one row per member of ``rows``, a sequence of
+    ``(addr, status or None)`` (None: the member did not answer
+    ``/status``), with its devices, calibration, drift score, busy share
+    and the routing weight the router derives from it
+    (:func:`~jepsen_tpu_torch.serve.router.weight_from_busy`, the number
+    ``jepsen_route_weight`` exports)."""
+    from .router import weight_from_busy
+
+    cols = ["member", "devices", "device", "calibration", "drift", "busy",
+            "weight"]
+    table = [cols]
+    for addr, st in rows:
+        if st is None:
+            table.append([addr, "-", "-", "unreachable", "-", "-", "-"])
+            continue
+        drift = st.get("drift") or {}
+        score = drift.get("score")
+        busy = (st.get("live") or {}).get("device_busy_ratio")
+        busy = busy if isinstance(busy, (int, float)) else None
+        table.append([
+            addr,
+            str(st.get("n_devices") or 1),
+            str(st.get("device") or st.get("platform") or "-"),
+            str(st.get("calibration") or "defaults"),
+            (f"{score:.2f}×" + ("!" if drift.get("retune_recommended")
+                                else "")
+             if isinstance(score, (int, float)) else "n/a"),
+            f"{busy:.0%}" if busy is not None else "n/a",
+            f"{weight_from_busy(busy):.2f}",
+        ])
+    widths = [max(len(r[i]) for r in table) for i in range(len(cols))]
+    lines = ["── fleet " + "─" * 39]
+    for i, r in enumerate(table):
+        lines.append("  " + "  ".join(
+            c.ljust(w) for c, w in zip(r, widths)).rstrip())
+        if i == 0:
+            lines.append("  " + "  ".join("─" * w for w in widths))
     return "\n".join(lines)

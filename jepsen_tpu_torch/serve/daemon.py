@@ -1,7 +1,7 @@
 """The resident checker daemon: one process owns the CUDA device, the
 loaded kernel libraries and the oracle worker pool, and many client runs
-share them — the port of :mod:`jepsen_tpu.serve.daemon` (its
-``/feed`` sessions, supervisor and fleet are not ported).
+share them — the port of :mod:`jepsen_tpu.serve.daemon`, with its
+``/feed`` sessions, its ``/watch`` verdict channel and its supervisor.
 
 Why: a fresh interpreter pays the CUDA start and every kernel's first
 load; a run of many small keyed checks pays a launch per bucket.  A
@@ -33,6 +33,24 @@ of concurrent runs into shared launches.
   routed to the CPU oracle: that would hide a kernel failure behind a
   right answer.
 
+- **Online sessions** (``POST /feed``): a run opens a session and sends
+  deltas as it records them, whole histories or raw op events; each
+  delta is encoded and dispatched through the device thread the moment
+  it arrives and coalesces with concurrent traffic, so a violation
+  settles (and reaches the WAL and every ``/watch`` subscriber) near the
+  op that caused it.  In op mode every delta checks the whole prefix
+  again; partitions that did not change come back from the
+  decomposition's ``SubmodelCache``.  A delta that cannot be dispatched
+  (refused, or a device fault) commits nothing: the session's run is
+  rolled back and a retry of the same ``seq`` dispatches again.
+- **The verdict channel** (``GET /watch``): every settled verdict as a
+  server-sent event tailing the verdict WAL; an event's ``id:`` is the
+  WAL's row offset and ``Last-Event-ID`` resumes right after it.
+- **The supervisor** (:func:`supervise`, :func:`supervise_fleet`):
+  ``python -m jepsen_tpu_torch.serve --supervise [--fleet N]`` runs the
+  daemon (or N of them, on their own ports and WALs) as child processes
+  and restarts one that dies.  It holds no device.
+
 ``POST /shutdown`` stops admission, lets the device thread finish every
 queued request, then stops the server.  ``/status`` carries the daemon's
 own kernel launch counters (:func:`kernel_launches`), rows per launch,
@@ -46,6 +64,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from collections import OrderedDict
@@ -54,6 +73,7 @@ from typing import Dict, List, Optional, Tuple
 
 from .. import obs, util
 from ..engine import decompose, execution, planning
+from ..history import History
 from ..obs import drift as obs_drift
 from ..obs import journal as obs_journal
 from ..obs import profiling as obs_profiling
@@ -164,11 +184,51 @@ class _Request:
         self.replayed = 0
 
 
+class _FeedDelta(_Request):
+    """One admitted ``/feed`` delta: a :class:`_Request` whose streams
+    carry only the rows the delta created, and whose ``rows`` the caller
+    sets to them (the row bound counts the delta, not the session).  Its
+    ``kind`` keeps feed traffic out of the ``/check`` counters."""
+
+    kind = "feed"
+
+
+class _FeedSession:
+    """One open ``/feed`` session: its run grows by
+    ``DecomposedRun.extend`` per delta, one delta at a time (``lock``)."""
+
+    def __init__(self, sid, run, plan_opts, exec_opts, group_key, trace_id,
+                 prior):
+        self.sid = sid
+        self.run = run
+        self.plan_opts = plan_opts
+        self.exec_opts = exec_opts
+        self.group_key = group_key
+        self.trace_id = trace_id
+        self.lock = threading.Lock()
+        #: the highest ingested delta ``seq``: a retried append at or
+        #: below it is acknowledged without being ingested again
+        self.last_seq = -1
+        #: op mode: the raw event dicts in shipped order
+        self.ops: List[dict] = []
+        #: run indices of the client's whole histories, in feed order
+        self.history_idx: List[int] = []
+        #: run index of the latest op-prefix probe
+        self.probe_idx: Optional[int] = None
+        #: verdicts an earlier daemon life settled under this session id,
+        #: replayed into each delta's fresh slots
+        self.prior = prior
+        #: set when a delta timed out with the device thread still
+        #: holding its rows: the session cannot take another delta
+        self.broken: Optional[str] = None
+
+
 class AdmissionState:
     """Everything a request touches before the device thread owns it:
-    the bounded queue and row budget, the retry cache, the counters and
-    the stop flag, behind one condition (which is also the device
-    thread's wake-up)."""
+    the bounded queue and row budget, the retry cache, the open feed
+    sessions, the ``/watch`` subscriber count, the counters and the stop
+    flag, behind one condition (which is also the device thread's
+    wake-up)."""
 
     def __init__(self, max_queue_runs: int, max_queue_rows: int):
         self.max_queue_runs = max_queue_runs
@@ -184,7 +244,13 @@ class AdmissionState:
             "warm_dispatches": 0, "cold_dispatches": 0, "errors": 0,
             "device_faults": 0, "elle_requests": 0, "elle_graphs": 0,
             "replayed": 0, "deduped": 0, "wal_compactions": 0,
+            "feed_sessions": 0, "feed_deltas": 0, "feed_histories": 0,
+            "watch_events": 0,
         }
+        #: open feed sessions by session id
+        self._feeds: Dict[str, _FeedSession] = {}
+        #: live ``/watch`` subscribers
+        self._watchers = 0
         #: live rows the executor dispatched, by kernel
         self.dispatch_rows: Dict[str, int] = {}
         #: completed responses by request id: a retry of an answered
@@ -216,6 +282,8 @@ class AdmissionState:
                 self.stats["elle_graphs"] += req.n
                 obs.count("jepsen_serve_elle_requests_total")
                 obs.count("jepsen_serve_elle_graphs_total", req.n)
+            elif req.kind == "feed":
+                pass  # counted under jepsen_feed_* once ingested
             else:
                 self.stats["requests"] += 1
                 self.stats["histories"] += req.n
@@ -297,6 +365,13 @@ class AdmissionState:
             while len(self._done) > self._done_cap:
                 self._done.popitem(last=False)
 
+    def watchers(self, delta: int) -> None:
+        """A ``/watch`` subscriber came (+1) or went (-1)."""
+        with self._wake:
+            self._watchers += delta
+            n = self._watchers
+        obs.gauge_set("jepsen_watch_subscribers", n)
+
 
 class CheckerDaemon:
     """The resident service.  ``start(block=False)`` returns once the
@@ -322,6 +397,7 @@ class CheckerDaemon:
         wal_compact_bytes: int = DEFAULT_WAL_COMPACT_BYTES,
         drift: bool = True,
         drift_threshold: Optional[float] = None,
+        decomposed: bool = True,
     ):
         self.host = host
         self.port = port
@@ -342,6 +418,9 @@ class CheckerDaemon:
         self.journal_path = journal_path
         self.drift = drift
         self.drift_threshold = drift_threshold
+        #: split partitionable histories per key / lock before planning
+        #: (``check_batch``'s ``decomposed=``, for every request)
+        self.decomposed = decomposed
         #: verdict WAL (off unless given); on start its rows become the
         #: replay index of retried request ids
         self.wal_path = wal_path
@@ -430,7 +509,8 @@ class CheckerDaemon:
 
     def _maybe_compact_wal(self) -> None:
         """Idle-turn WAL compaction past :attr:`wal_compact_bytes`: keep
-        the rows of the request ids the retry cache still answers."""
+        the rows of the request ids the retry cache still answers and of
+        every open feed session."""
         wal = self._wal
         if wal is None or self.wal_compact_bytes <= 0:
             return
@@ -440,7 +520,7 @@ class CheckerDaemon:
         except OSError:
             return
         with self.admission._wake:
-            keep = set(self.admission._done)
+            keep = set(self.admission._done) | set(self.admission._feeds)
         wal.compact(keep_reqs=keep)
         self.admission.bump(wal_compactions=1)
         obs.count("jepsen_serve_wal_compactions_total")
@@ -636,6 +716,8 @@ class CheckerDaemon:
             rows = dict(adm.dispatch_rows)
             depth = len(adm._queue)
             in_flight = adm._in_flight
+            feed_open = len(adm._feeds)
+            watchers = adm._watchers
         total = stats["warm_dispatches"] + stats["cold_dispatches"]
         launches = kernel_launches()
         dense_launches = sum(v for k, v in launches.items()
@@ -651,6 +733,7 @@ class CheckerDaemon:
         busy_s = (reg.window_seconds_sum("jepsen_kernel_compile_seconds")
                   + reg.window_seconds_sum("jepsen_kernel_execute_seconds"))
         qw_mean = reg.window_mean("jepsen_serve_queue_wait_seconds")
+        lag_mean = reg.window_mean("jepsen_feed_ingest_lag_seconds")
         live = {
             "requests_per_s": round(
                 reg.window_rate("jepsen_serve_requests_total"), 4),
@@ -663,6 +746,12 @@ class CheckerDaemon:
             "queue_wait_mean_s": (round(qw_mean, 4)
                                   if qw_mean is not None else None),
             "device_busy_ratio": round(min(1.0, busy_s / 60.0), 4),
+            "feed_deltas_per_s": round(
+                reg.window_rate("jepsen_feed_deltas_total"), 4),
+            "watch_events_per_s": round(
+                reg.window_rate("jepsen_watch_events_total"), 4),
+            "feed_lag_mean_s": (round(lag_mean, 4)
+                                if lag_mean is not None else None),
         }
         journal = obs_journal.active()
         sentinel = obs_drift.active()
@@ -695,6 +784,9 @@ class CheckerDaemon:
             "drift": sentinel.snapshot() if sentinel is not None else None,
             "wal_path": self._wal.path if self._wal else None,
             "wal_rows": self._wal.written if self._wal else 0,
+            # the online monitor: open feed sessions, /watch subscribers
+            "feed_open": feed_open,
+            "watch_subscribers": watchers,
             "live": live,
             **stats,
         }
@@ -872,7 +964,8 @@ class CheckerDaemon:
                                                            opts)
         run = decompose.DecomposedRun(
             model, histories,
-            oracle_fallback=bool(opts.get("oracle_fallback", True)))
+            oracle_fallback=bool(opts.get("oracle_fallback", True)),
+            enabled=self.decomposed)
         replayed = 0
         if self._wal is not None:
             run.attach_wal(self._wal.sink_for(req_id
@@ -954,6 +1047,227 @@ class CheckerDaemon:
         adm.dedup_store(req_id, 200, body)
         return 200, body
 
+    # -- the /feed entry (handler threads) -----------------------------------
+
+    def handle_feed(self, body: bytes) -> Tuple[int, dict]:
+        """Online checking: ``open`` a session, ``append`` deltas (whole
+        histories and/or raw op events), ``close`` for the merged
+        results.  Every delta is dispatched through the device thread
+        the moment it arrives."""
+        if self._fatal is not None:
+            return 500, {"error": f"device thread failed: {self._fatal}"}
+        try:
+            payload = protocol.decode_body(body)
+            fop = payload.get("op")
+        except Exception as e:  # noqa: BLE001 — malformed input
+            return 400, {"error": f"bad request: {e!r}"}
+        with obs.span("serve/feed", cat="serve", op=str(fop)):
+            if fop == "open":
+                return self._feed_open(payload)
+            if fop == "append":
+                return self._feed_append(payload)
+            if fop == "close":
+                return self._feed_close(payload)
+            return 400, {"error": f"unknown feed op {fop!r}"}
+
+    def _feed_open(self, payload) -> Tuple[int, dict]:
+        try:
+            model = protocol.model_from_wire(payload["model"])
+            opts = payload.get("opts") or {}
+            plan_opts, exec_opts, group_key = self._check_opts(
+                payload["model"], opts)
+        except Exception as e:  # noqa: BLE001 — malformed input
+            return 400, {"error": f"bad request: {e!r}"}
+        ctx = propagate.parse_ctx(payload.get("trace_ctx"))
+        # the session id doubles as the WAL run id: a session reopened
+        # after a restart replays what the earlier life settled
+        sid = payload.get("req") or protocol.request_id()
+        run = decompose.DecomposedRun(
+            model, [], oracle_fallback=bool(opts.get("oracle_fallback", True)),
+            enabled=self.decomposed, lazy=True)
+        prior: dict = {}
+        if self._wal is not None:
+            run.attach_wal(self._wal.sink_for(sid))
+            prior = dict(self._wal_replay.get(sid) or {})
+        s = _FeedSession(sid, run, plan_opts, exec_opts, group_key,
+                         ctx["trace_id"] if ctx else None, prior)
+        adm = self.admission
+        with adm._wake:
+            if adm._stopping.is_set():
+                return 503, {"error": "stopping", "stopping": True}
+            if sid in adm._feeds:
+                # a retried open: the live session keeps its state
+                return 200, {"session": sid, "resumed": True}
+            adm._feeds[sid] = s
+            adm.stats["feed_sessions"] += 1
+            n_open = len(adm._feeds)
+        obs.count("jepsen_feed_sessions_total")
+        obs.gauge_set("jepsen_feed_open_sessions", n_open)
+        return 200, {"session": sid, "resumed": False}
+
+    def _feed_session(self, payload):
+        sid = payload.get("session")
+        with self.admission._wake:
+            s = self.admission._feeds.get(sid)
+        if s is None:
+            return None, (404, {"error": f"unknown feed session {sid!r}"})
+        return s, None
+
+    def _forget_feed(self, s: _FeedSession) -> None:
+        adm = self.admission
+        with adm._wake:
+            adm._feeds.pop(s.sid, None)
+            n_open = len(adm._feeds)
+        obs.gauge_set("jepsen_feed_open_sessions", n_open)
+
+    def _feed_append(self, payload) -> Tuple[int, dict]:
+        s, err = self._feed_session(payload)
+        if s is None:
+            return err
+        try:
+            seq = int(payload.get("seq"))
+        except (TypeError, ValueError):
+            return 400, {"error": "bad seq"}
+        with s.lock:
+            if s.broken is not None:
+                return 500, {"error": s.broken}
+            if seq <= s.last_seq:
+                # a retried delta whose answer was lost: already ingested
+                return 200, {"session": s.sid, "seq": seq,
+                             "duplicate": True, "accepted": 0,
+                             "settled": s.run.settled_count()}
+            try:
+                histories = protocol.histories_from_wire(
+                    payload.get("histories") or [])
+            except Exception as e:  # noqa: BLE001 — malformed input
+                return 400, {"error": f"bad request: {e!r}"}
+            n_client = len(histories)
+            ops = payload.get("ops") or []
+            all_ops = s.ops
+            if ops:
+                # op mode: check the assembled prefix again; the buffer
+                # commits only with the delta
+                try:
+                    all_ops = s.ops + [dict(o) for o in ops]
+                    probe = History.from_dicts(all_ops)
+                except Exception as e:  # noqa: BLE001 — malformed input
+                    return 400, {"error": f"bad ops: {e!r}"}
+                histories = histories + [probe]
+            base = s.run.n
+            code, resp = self._feed_dispatch(s, histories,
+                                             payload.get("t_inv"))
+            if code != 200:
+                return code, resp
+            s.history_idx.extend(range(base, base + n_client))
+            if ops:
+                s.ops = all_ops
+                s.probe_idx = base + n_client
+            s.last_seq = seq
+            resp["seq"] = seq
+            return code, resp
+
+    def _feed_dispatch(self, s: _FeedSession, histories,
+                       t_inv) -> Tuple[int, dict]:
+        """Ingest one delta: extend the session's run, replay what an
+        earlier life settled into the fresh slots, encode only the new
+        rows and send them through the device thread under the session's
+        group key.  A delta that is refused or faults is rolled back."""
+        adm = self.admission
+        if not histories:
+            return 200, {"session": s.sid, "accepted": 0, "rows": 0,
+                         "replayed": 0, "settled": s.run.settled_count()}
+        if not adm.precheck(len(histories)):
+            return 503, adm.backlogged(count=True)
+        base = s.run.n
+        rows = s.run.extend(histories)
+        replayed = 0
+        if s.prior:
+            replayed = s.run.replay(s.prior)
+            if replayed:
+                adm.bump(replayed=replayed)
+                obs.count("jepsen_serve_wal_replayed_total", replayed)
+        streams = []
+        with obs.span("serve/feed-plan", cat="serve",
+                      histories=len(histories)):
+            for tag, sctx in s.run.streams():
+                idxs = [i for c, i in rows if c is sctx]
+                if not idxs:
+                    continue
+                planner = planning.Planner(
+                    sctx.model, spec=sctx.spec, device=self.device,
+                    bucketed=True, **s.plan_opts)
+                buckets, order = planner.encode_rows(sctx, idxs)
+                streams.append(_Stream(tag, sctx.model, sctx.spec, buckets,
+                                       order))
+        req = _FeedDelta(s.run, streams, s.group_key, s.plan_opts,
+                         s.exec_opts, len(histories), trace_id=s.trace_id)
+        req.rows = len(rows)
+        if not adm.admit(req):
+            req.abandoned = True
+            s.run.abandon_oracles()
+            s.run.truncate(base)
+            return 503, adm.backlogged()
+        if not req.device_done.wait(self.request_timeout_s):
+            # the device thread still holds the rows: nothing can roll
+            # them back, so the session takes no further delta
+            req.abandoned = True
+            s.broken = "a delta of this session timed out on the device"
+            return 500, {"error": "device thread timed out"}
+        if req.error is not None:
+            # a device fault: answered, counted and reset by the device
+            # thread; the retry of this seq dispatches again
+            s.run.truncate(base)
+            return 500, {"error": req.error}
+        s.run.drain_oracles()
+        if t_inv is not None:
+            try:
+                obs.observe("jepsen_feed_ingest_lag_seconds",
+                            max(0.0, time.time() - float(t_inv)))
+            except (TypeError, ValueError):
+                pass
+        adm.bump(feed_deltas=1, feed_histories=len(histories))
+        obs.count("jepsen_feed_deltas_total")
+        obs.count("jepsen_feed_histories_total", len(histories))
+        return 200, {"session": s.sid, "accepted": len(histories),
+                     "rows": len(rows), "replayed": replayed,
+                     "settled": s.run.settled_count(),
+                     "diag": dict(req.diag)}
+
+    def _feed_close(self, payload) -> Tuple[int, dict]:
+        adm = self.admission
+        req_id = payload.get("req")
+        cached = adm.dedup_hit(req_id)
+        if cached is not None:
+            return cached
+        s, err = self._feed_session(payload)
+        if s is None:
+            return err
+        with s.lock:
+            if s.broken is not None:
+                self._forget_feed(s)
+                return 500, {"error": s.broken}
+            # every op delta checked the whole prefix it completed, so
+            # the last probe is the op history's verdict
+            s.run.drain_oracles()
+            results = s.run.results()
+            out = [results[i] for i in s.history_idx]
+            if s.probe_idx is not None:
+                out.append(results[s.probe_idx])
+            body = {
+                "results": protocol.sanitize_results(out),
+                "diag": {
+                    "session": s.sid,
+                    "deltas": s.last_seq + 1,
+                    "histories": len(s.history_idx),
+                    "ops": len(s.ops),
+                    "settled": s.run.settled_count(),
+                    "partitions": s.run.n_partitions,
+                },
+            }
+        self._forget_feed(s)
+        adm.dedup_store(req_id, 200, body)
+        return 200, body
+
 
 def _make_handler(daemon: CheckerDaemon):
     class Handler(BaseHTTPRequestHandler):
@@ -995,10 +1309,66 @@ def _make_handler(daemon: CheckerDaemon):
                         self._reply_json(400, {"error": "missing ctx"})
                     else:
                         self._reply_json(200, daemon.trace_dump(ctx))
+                elif self.path.startswith("/watch"):
+                    self._serve_watch()
                 else:
                     self._reply_json(404, {"error": "not found"})
             except BrokenPipeError:
                 pass
+
+        def _serve_watch(self):
+            """The verdict channel: settled verdicts as server-sent events
+            tailing the verdict WAL.  An event's ``id:`` is the WAL's
+            logical row offset (a damaged line takes none), and
+            ``Last-Event-ID`` resumes right after it.  A comment line
+            keeps a quiet stream alive every 5 s (a gone subscriber shows
+            only on a write); the stream is unframed, so the connection
+            closes when it ends (at shutdown)."""
+            wal = daemon._wal
+            if wal is None:
+                self._reply_json(404, {"error": "no verdict WAL"})
+                return
+            try:
+                start = int(self.headers.get("Last-Event-ID")) + 1
+            except (TypeError, ValueError):
+                start = 0
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-store")
+            self.send_header("Connection", "close")
+            self.end_headers()
+            adm = daemon.admission
+            adm.watchers(+1)
+            tail = obs_journal.WalTail(wal.path, start=start)
+            first = True
+            quiet_s = 0.0
+            try:
+                while not adm._stopping.is_set():
+                    events = tail.poll()
+                    if events:
+                        if first:  # what settled before this subscriber
+                            obs.count("jepsen_watch_replay_rows_total",
+                                      len(events))
+                        self.wfile.write("".join(
+                            f"id: {off}\ndata: "
+                            f"{json.dumps(row, sort_keys=True)}\n\n"
+                            for off, row in events).encode())
+                        self.wfile.flush()
+                        obs.count("jepsen_watch_events_total", len(events))
+                        adm.bump(watch_events=len(events))
+                        quiet_s = 0.0
+                    else:
+                        time.sleep(0.1)
+                        quiet_s += 0.1
+                        if quiet_s >= 5.0:
+                            self.wfile.write(b": keep-alive\n\n")
+                            self.wfile.flush()
+                            quiet_s = 0.0
+                    first = False
+            except OSError:
+                pass  # the subscriber went away
+            finally:
+                adm.watchers(-1)
 
         def do_POST(self):  # noqa: N802 — http.server API
             try:
@@ -1008,6 +1378,8 @@ def _make_handler(daemon: CheckerDaemon):
                     self._reply_json(*daemon.handle_check(body))
                 elif self.path == "/elle":
                     self._reply_json(*daemon.handle_elle(body))
+                elif self.path == "/feed":
+                    self._reply_json(*daemon.handle_feed(body))
                 elif self.path == "/profile":
                     self._reply_json(*daemon.handle_profile(body))
                 elif self.path == "/shutdown":
@@ -1031,3 +1403,159 @@ def serve(host: str = protocol.DEFAULT_HOST,
     CUDA device and raises when there is none; ``device="cpu"`` runs the
     plain PyTorch versions.  Other keywords go to :class:`CheckerDaemon`."""
     return CheckerDaemon(host, port, device=device, **kw).start(block=block)
+
+
+# -- the supervisor ---------------------------------------------------------------
+
+#: the child's entry: ``python -m jepsen_tpu_torch.serve`` that finds this
+#: package from any working directory (the child keeps the caller's, where
+#: relative paths and ``calibration.json`` are read)
+_CHILD_MAIN = (
+    "import sys; sys.path.insert(0, {root!r}); "
+    "from jepsen_tpu_torch.serve.__main__ import main; "
+    "sys.exit(main(sys.argv[1:]))"
+).format(root=os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+
+
+def supervise(child_args, *, max_restarts: int = 16, backoff_s: float = 1.0,
+              max_backoff_s: float = 30.0, _state: Optional[dict] = None,
+              _signals: bool = True) -> int:
+    """``python -m jepsen_tpu_torch.serve --supervise``: run the daemon
+    (``python -m jepsen_tpu_torch.serve`` with ``child_args``) as a child
+    process and restart it whenever it dies abnormally (a kill, a device
+    wedge, an exit for want of CUDA), after a backoff that doubles up to
+    ``max_backoff_s``.  The restarted child gets the same arguments, so
+    the same port and WAL: a client that retries its request ids replays
+    what the crashed life settled.  The supervisor itself never touches
+    the device.  Returns 0 on a clean exit (``/shutdown``) or when the
+    supervisor is signalled, and the child's last exit code once
+    ``max_restarts`` restarts are spent.
+
+    ``_state`` and ``_signals`` serve :func:`supervise_fleet`, which runs
+    one supervisor per member on worker threads (where ``signal.signal``
+    is illegal) under one handler of its own."""
+    import signal
+    import subprocess
+
+    cmd = [sys.executable, "-c", _CHILD_MAIN, *child_args]
+    state = _state if _state is not None else {"sig": None, "proc": None}
+
+    def _forward(signum, frame):
+        state["sig"] = signum
+        p = state["proc"]
+        if p is not None and p.poll() is None:
+            p.terminate()
+
+    if _signals:
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, _forward)
+    restarts = 0
+    delay = backoff_s
+    while True:
+        if state["sig"] is not None:
+            return 0
+        proc = subprocess.Popen(cmd)
+        state["proc"] = proc
+        rc = proc.wait()  # the supervisor's job is the child's lifetime
+        if state["sig"] is not None or rc == 0:
+            return 0
+        restarts += 1
+        if restarts > max_restarts:
+            print(f"jepsen_tpu_torch serve: restart budget exhausted "
+                  f"(rc={rc})", file=sys.stderr, flush=True)
+            return rc
+        print(f"jepsen_tpu_torch serve: child exited rc={rc}; restart "
+              f"{restarts}/{max_restarts} in {delay:.1f}s",
+              file=sys.stderr, flush=True)
+        time.sleep(delay)
+        delay = min(delay * 2, max_backoff_s)
+
+
+def _flag_value(args, flag: str) -> Optional[str]:
+    """The value of ``flag`` in an argument list (``--flag V`` or
+    ``--flag=V``; the last wins), or None."""
+    value = None
+    for i, a in enumerate(args):
+        if a == flag and i + 1 < len(args):
+            value = args[i + 1]
+        elif a.startswith(flag + "="):
+            value = a[len(flag) + 1:]
+    return value
+
+
+def _with_flag(args, flag: str, value: Optional[str]) -> list:
+    """``args`` without any ``flag`` (either form), then ``flag value``
+    appended unless ``value`` is None."""
+    out, skip = [], False
+    for a in args:
+        if skip:
+            skip = False
+        elif a == flag:
+            skip = True
+        elif not a.startswith(flag + "="):
+            out.append(a)
+    return out + ([flag, value] if value is not None else [])
+
+
+def fleet_member_args(i: int, args) -> list:
+    """Fleet member ``i``'s daemon arguments: ``--port P+i`` (P from
+    ``args``, else the default port) and, when ``args`` name a verdict
+    WAL, ``--wal ROOT-i.EXT`` (two daemons appending to one WAL would
+    interleave rows).  Every other argument, ``--device`` included,
+    passes unchanged: on one card the members share it."""
+    base = int(_flag_value(args, "--port") or protocol.DEFAULT_PORT)
+    out = _with_flag(args, "--port", str(base + i))
+    wal = _flag_value(args, "--wal")
+    if wal is not None and wal.lower() not in ("0", "false", "off", "no",
+                                                 ""):
+        root, ext = os.path.splitext(wal)
+        out = _with_flag(out, "--wal", f"{root}-{i}{ext}")
+    return out
+
+
+def supervise_fleet(n: int, child_args, *, base_port: Optional[int] = None,
+                    max_restarts: int = 16, backoff_s: float = 1.0,
+                    max_backoff_s: float = 30.0) -> int:
+    """``python -m jepsen_tpu_torch.serve --supervise --fleet N``: N
+    supervised daemons on one host, on ports ``base_port`` … ``base_port
+    + N - 1`` (``base_port`` defaults to ``child_args``' ``--port``) with
+    one WAL each (:func:`fleet_member_args`).  One signal handler on the
+    calling (main) thread stops every member; one supervisor thread runs
+    each.  Returns the worst member exit code (0 when all exited
+    cleanly)."""
+    import signal
+
+    if base_port is not None:
+        child_args = _with_flag(child_args, "--port", str(base_port))
+    boxes = [{"sig": None, "proc": None} for _ in range(n)]
+
+    def _forward(signum, frame):
+        for b in boxes:
+            b["sig"] = signum
+            p = b["proc"]
+            if p is not None and p.poll() is None:
+                p.terminate()
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, _forward)
+    rcs = [0] * n
+
+    def _member(i: int) -> None:
+        rcs[i] = supervise(fleet_member_args(i, child_args),
+                           max_restarts=max_restarts, backoff_s=backoff_s,
+                           max_backoff_s=max_backoff_s, _state=boxes[i],
+                           _signals=False)
+
+    threads = [threading.Thread(target=_member, args=(i,),
+                                name=f"jepsen-fleet-{i}", daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    ports = ", ".join(_flag_value(fleet_member_args(i, child_args),
+                                  "--port") for i in range(n))
+    print(f"jepsen_tpu_torch serve: supervising a fleet of {n} (ports "
+          f"{ports})", file=sys.stderr, flush=True)
+    for t in threads:
+        t.join()  # the fleet supervisor's job is the members' lifetimes
+    return max(rcs)

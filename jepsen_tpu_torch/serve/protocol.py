@@ -50,24 +50,32 @@ class UnsupportedModel(ValueError):
 # -- the codec: JSON with tuples ----------------------------------------------
 
 
+#: leaves the codec passes through as they are (a subclass takes the
+#: general path, with the same result)
+_LEAVES = frozenset((str, int, float, bool, type(None)))
+
+
 def _encode_value(v: Any) -> Any:
+    """Tuples as ``{"__tuple__": [...]}``, dict keys as strings, the rest
+    as it is.  Leaves are tested by exact type first: a body of a million
+    op fields makes no call per leaf."""
     if isinstance(v, tuple):
-        return {"__tuple__": [_encode_value(x) for x in v]}
+        return {"__tuple__": [x if type(x) in _LEAVES else _encode_value(x)
+                              for x in v]}
     if isinstance(v, list):
-        return [_encode_value(x) for x in v]
+        return [x if type(x) in _LEAVES else _encode_value(x) for x in v]
     if isinstance(v, dict):
-        return {str(k): _encode_value(x) for k, x in v.items()}
+        return {str(k): x if type(x) in _LEAVES else _encode_value(x)
+                for k, x in v.items()}
     return v
 
 
-def _decode_value(v: Any) -> Any:
-    if isinstance(v, dict):
-        if set(v.keys()) == {"__tuple__"}:
-            return tuple(_decode_value(x) for x in v["__tuple__"])
-        return {k: _decode_value(x) for k, x in v.items()}
-    if isinstance(v, list):
-        return [_decode_value(x) for x in v]
-    return v
+def _decode_object(d: dict) -> Any:
+    """``json.loads``' object hook: a ``{"__tuple__": [...]}`` object is a
+    tuple (its items are decoded already, inside out)."""
+    if len(d) == 1 and "__tuple__" in d:
+        return tuple(d["__tuple__"])
+    return d
 
 
 def encode_body(payload: Any) -> bytes:
@@ -79,7 +87,7 @@ def encode_body(payload: Any) -> bytes:
 def decode_body(data: bytes) -> Any:
     if not data:
         return None
-    return _decode_value(json.loads(data.decode()))
+    return json.loads(data.decode(), object_hook=_decode_object)
 
 
 # -- models ---------------------------------------------------------------------
@@ -268,10 +276,12 @@ def elle_request(encs, trace_ctx: Optional[Dict[str, Any]] = None,
                  req: Optional[str] = None) -> bytes:
     """A ``POST /elle`` body from encoded graphs: per graph its uint8
     relation-bit matrix and its canonical filter profile."""
+    import numpy as np
+
     body = {
         "graphs": [
             {
-                "rel": [[int(x) for x in row] for row in enc.rel],
+                "rel": np.asarray(enc.rel).astype(np.int64).tolist(),
                 "masks": list(enc.masks),
                 "nonadj": [list(p) for p in enc.nonadj],
             }

@@ -54,7 +54,8 @@ _IMPORT_ALL = textwrap.dedent("""
                      "jepsen_tpu_torch.serve.__main__",
                      "jepsen_tpu_torch.serve.client",
                      "jepsen_tpu_torch.serve.daemon",
-                     "jepsen_tpu_torch.serve.protocol"):
+                     "jepsen_tpu_torch.serve.protocol",
+                     "jepsen_tpu_torch.serve.router"):
         assert required in names, required
     for name in names:
         importlib.import_module(name)
