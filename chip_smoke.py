@@ -260,6 +260,27 @@ line.
     port and WAL (seconds to ``/healthz``), one ``probe_once()`` must mark
     it up and the key's next request must reach it again.  ``POST
     /shutdown`` to both members: the supervisor exits 0, the router stops.
+27. the chaos drills — ``serve.chaos.run`` on the card: kill -9 mid-request
+    and after settled batches with the WAL's last line torn, a stalled
+    socket tripping the breaker and its half-open recovery, a dropped
+    response and its idempotent retry, WAL compaction with a crash beside
+    a half-written ``.tmp``, a fleet member SIGKILLed behind the router
+    and revived with no ``nvcc``.  Drills 1 and 5 carry full-width traffic
+    (256 of phase 4's histories, 64 of phase 8's frontier histories), so
+    the kills land on requests the daemons are working on; drills 2-4 run
+    the reference's smoke corpora.  Every daemon starts at once.  One line
+    per drill (its gates, counters, seconds, and its daemons' K1 and K4
+    launches from ``/status``); a failed gate raises, and K1 and K4 must
+    launch in the daemons.
+28. the kernel audit's card half — ``kernel-resources`` on phase 1's ptxas
+    reports (one line per ``__global__`` function: its worst instance's
+    registers, spill bytes and static shared memory beside its declared
+    bound), then ``kernel-budget``: every registered kernel launched at
+    its shape buckets at two batch sizes, the per-row device bytes (the
+    slope of the allocator's requested peak, ``max_memory_allocated``'s
+    beside it) beside its pricing and the ratio, the frontier library's workspace beside the pricing's
+    term, the dense entries' bytes at the planner's most rows against the
+    dispatch budget.  Any finding raises.
 
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -272,7 +293,6 @@ import gc
 import json
 import os
 import random
-import re
 import signal
 import socket
 import subprocess
@@ -294,6 +314,7 @@ from jepsen_tpu_torch.elle import graph as elle_graph
 from jepsen_tpu_torch.elle import rw_register as elle_rw
 from jepsen_tpu_torch.engine import decompose, execution, planning
 from jepsen_tpu_torch.history import History, Op
+from jepsen_tpu_torch.lint import kernel_audit
 from jepsen_tpu_torch.obs import drift as obs_drift
 from jepsen_tpu_torch.obs import export as obs_export
 from jepsen_tpu_torch.obs import journal as obs_journal
@@ -429,16 +450,11 @@ def kernel_symbol(fam: str, S: int, C: int) -> str:
 def ptxas_resources(ptxas: str, fragment: str) -> dict:
     """Registers and spill bytes that ptxas reported for the kernel whose
     mangled name holds ``fragment`` (empty when it reported nothing)."""
-    for part in ptxas.split("Compiling entry function '")[1:]:
-        name, _, body = part.partition("'")
-        if fragment not in name:
-            continue
-        regs = re.search(r"Used (\d+) registers", body)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                          body)
-        return {"registers": int(regs.group(1)) if regs else None,
-                "spill_store_bytes": int(spill.group(1)) if spill else None,
-                "spill_load_bytes": int(spill.group(2)) if spill else None}
+    for row in kernel_audit.parse_ptxas(ptxas):
+        if fragment in row["mangled"]:
+            return {"registers": row["regs"],
+                    "spill_store_bytes": row["spill_store"],
+                    "spill_load_bytes": row["spill_load"]}
     return {}
 
 
@@ -3149,6 +3165,84 @@ def tuning_phase(card, model, hs, results):
             tune.use(None)
 
 
+# ---------------------------------------------------------------------------
+# the chaos drills (phase 27) and the kernel audit's card half (28)
+# ---------------------------------------------------------------------------
+
+#: phase 27's full-width traffic in drills 1 and 5
+CHAOS_DENSE_HISTORIES, CHAOS_FRONTIER_HISTORIES = 256, 64
+
+
+def chaos_phase(card, hs, f_hs):
+    """Phase 27: the five drills of ``serve.chaos`` against daemons on the
+    card; drills 1 and 5 carry phase 4's and phase 8's histories."""
+    import shutil
+
+    from jepsen_tpu_torch.serve import chaos
+
+    root = os.path.join("build", "chip_smoke_chaos")
+    shutil.rmtree(root, ignore_errors=True)
+    out = chaos.run(device=None, drills=sorted(chaos.DRILLS),
+                    heavy={"dense": hs[:CHAOS_DENSE_HISTORIES],
+                           "frontier": f_hs[:CHAOS_FRONTIER_HISTORIES]},
+                    tmp=root, log=lambda line: None)
+    k1 = k4 = 0
+    for r in out["drills"]:
+        launches = r["launches"]
+        k1 += launches.get("dense/register", 0)
+        k4 += launches.get(wgl.FRONTIER_SEARCH.name, 0)
+        emit(phase="chaos", drill=r["drill"], name=r["name"], ok=r["ok"],
+             gates=r["gates"], failures=r["failures"],
+             counters=r["counters"], seconds=r["seconds"],
+             k1_launches=launches.get("dense/register", 0),
+             k4_launches=launches.get(wgl.FRONTIER_SEARCH.name, 0),
+             launches=launches, card=card)
+        require(r["ok"], f"chaos drill {r['drill']} ({r['name']}) failed: "
+                f"{r['failures']} (daemon logs under {root})")
+    require(k1 > 0 and k4 > 0,
+            f"the drills' daemons launched K1 {k1} and K4 {k4} times")
+    emit(phase="chaos_summary", drills=len(out["drills"]),
+         gates=sum(r["gates"] for r in out["drills"]),
+         seconds=out["seconds"], k1_launches=k1, k4_launches=k4,
+         dense_histories=CHAOS_DENSE_HISTORIES,
+         frontier_histories=CHAOS_FRONTIER_HISTORIES, card=card)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def audit_phase(card, report, device):
+    """Phase 28: ``kernel-resources`` on phase 1's ptxas reports, then the
+    measured half of ``kernel-budget``; any finding raises."""
+    from jepsen_tpu_torch.lint import core as lint_core
+
+    t0 = time.perf_counter()
+    logs = {name: r["ptxas"] for name, r in report.items()}
+    require(all(logs.values()),
+            f"phase 1 has no ptxas report for "
+            f"{[n for n, v in logs.items() if not v]}")
+    contracts = {}
+    for path in _build.SOURCES.values():
+        for name, _, contract, _ in kernel_audit.cuda_globals(
+                path.read_text()):
+            contracts[name] = contract
+    table = kernel_audit.ptxas_table(logs, contracts)
+    for row in table:
+        emit(phase="kernel_resources", **row, card=card)
+    res = lint_core.lint_paths(
+        [os.path.dirname(_build.__file__)],
+        rules=["kernel-resources", "kernel-coverage"],
+        options={"ptxas_logs": logs})
+    require(not res.findings, "kernel audit: " + "; ".join(
+        f.render() for f in res.findings))
+    rows, findings = kernel_audit.measure_budgets(device)
+    for row in rows:
+        emit(phase="kernel_budget", **row, card=card)
+    require(not findings, "kernel audit: " + "; ".join(
+        f.message for f in findings))
+    emit(phase="kernel_audit", functions=len(contracts),
+         instances=len(table), budget_rows=len(rows),
+         findings=0, seconds=time.perf_counter() - t0, card=card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -3394,6 +3488,12 @@ def main() -> int:
                     device)
     finally:
         stop_fleet(fleet)
+
+    # -- 27. the service's chaos drills on the card -------------------------
+    chaos_phase(card, hs, f_hs)
+
+    # -- 28. the kernel audit's card half ------------------------------------
+    audit_phase(card, report, device)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

@@ -5,7 +5,10 @@ compiled by ``nvcc`` into its own shared library under ``build/kernels/``
 at the repository root, then loaded with :mod:`ctypes`.  The source does
 not include PyTorch's headers, so a build takes seconds, not minutes.
 Library names carry a hash of the source and the flags: an edited source
-builds anew, and an unchanged one is reused within a checkout.
+builds anew, and an unchanged one is reused within a checkout.  The
+compiler's ``-Xptxas=-v`` report (registers, spills and shared memory per
+kernel) is kept beside each library (:func:`ptxas_log_path`), so a
+checkout whose libraries are already built still has it.
 
 :func:`build` starts one ``nvcc`` per missing library, all at once, and
 waits for all of them; :func:`load` builds (if needed) and opens one.
@@ -66,12 +69,26 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def ptxas_log_path(name: str) -> Path:
+    """Where the ptxas report of the named library's build is kept: beside
+    the library, ``lib<name>-<digest>.ptxas.txt``."""
+    return library_path(name).with_suffix(".ptxas.txt")
+
+
+def ptxas_log(name: str) -> Optional[str]:
+    """The kept ptxas report of the named library's current build, or None
+    when it was never built in this checkout."""
+    path = ptxas_log_path(name)
+    return path.read_text() if path.exists() else None
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile the named kernels (default: all) that are not built yet,
     one ``nvcc`` process each, all started together.  Returns per name
-    ``{"path", "seconds", "ptxas"}`` (seconds 0.0 and no ptxas report for
-    a library that was already built).  Raises with the compiler's
-    output when any build fails; every started process is waited for."""
+    ``{"path", "seconds", "ptxas"}`` (seconds 0.0 for a library that was
+    already built, its ptxas report then read from :func:`ptxas_log_path`,
+    empty when that is missing).  Raises with the compiler's output when
+    any build fails; every started process is waited for."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     report: Dict[str, dict] = {}
@@ -82,7 +99,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         for name in names:
             out = library_path(name)
             if out.exists():
-                report[name] = {"path": str(out), "seconds": 0.0, "ptxas": ""}
+                report[name] = {"path": str(out), "seconds": 0.0,
+                                "ptxas": ptxas_log(name) or ""}
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             procs[name] = (out, tmp, subprocess.Popen(
@@ -94,11 +112,13 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             if proc.returncode != 0:
                 failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
                 continue
+            log = log.strip()
+            ptxas_log_path(name).write_text(log + "\n")
             os.replace(tmp, out)
             report[name] = {
                 "path": str(out),
                 "seconds": time.perf_counter() - t0,
-                "ptxas": log.strip(),
+                "ptxas": log,
             }
     finally:
         for _out, tmp, proc in procs.values():

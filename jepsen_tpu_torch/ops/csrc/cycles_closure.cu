@@ -576,6 +576,7 @@ __device__ __forceinline__ uint32_t load_row(const uint8_t* src,
   return bits;
 }
 
+// jt: ptxas(regs<=31, spill<=0, smem<=16)
 template <int N>
 __global__ void __launch_bounds__(kWarpDesignThreads)
 has_cycle_warp_kernel(const uint8_t* adj, uint8_t* flags, uint8_t* closure,
@@ -670,6 +671,7 @@ __device__ void has_cycle_epilogue(const uint32_t* C, int W, int n, int R,
 }
 
 // Design 2: has-cycle at 64 <= n <= 512, a plane a block.
+// jt: ptxas(regs<=40, spill<=0, smem<=208)
 template <int W>
 __global__ void __launch_bounds__(kDoubleMaxThreads, 3)
 has_cycle_double_kernel(const uint8_t* adj, uint8_t* flags, uint8_t* closure,
@@ -685,6 +687,7 @@ has_cycle_double_kernel(const uint8_t* adj, uint8_t* flags, uint8_t* closure,
 }
 
 // Design 3: has-cycle at n = 1024, a plane a block.
+// jt: ptxas(regs<=64, spill<=484, smem<=0)
 template <int W>
 __global__ void __launch_bounds__(1024)
 has_cycle_kernel(const uint8_t* adj, uint8_t* flags, uint8_t* closure,
@@ -701,6 +704,9 @@ has_cycle_kernel(const uint8_t* adj, uint8_t* flags, uint8_t* closure,
 // transitive, so "some j with c[v, j] and c[j, v]" is its diagonal), or
 // its reduced walk query p - F.  In "fixed" mode (rounds non-null) block
 // (b, 0) writes the ladder length `total`.
+// The main path's n 512 instance, then every other one:
+// jt: ptxas(W=16: regs<=40, spill<=312, smem<=208)
+// jt: ptxas(regs<=40, spill<=360, smem<=208)
 template <int W>
 __global__ void __launch_bounds__(kDoubleMaxThreads, 3)
 screen_kernel(const uint8_t* rel, uint8_t* members, uint8_t* walks,
@@ -733,6 +739,7 @@ screen_kernel(const uint8_t* rel, uint8_t* members, uint8_t* walks,
 // 0): walks[b, q, v] = exists j: (rel[b][v][j] & want) and c[n + j, v],
 // from the lifted closure's (state 1 -> state 0) quadrant; a warp per
 // vertex.
+// jt: ptxas(regs<=64, spill<=400, smem<=0)
 template <int W2>
 __global__ void __launch_bounds__(1024)
 screen_lifted_kernel(const uint8_t* rel, uint8_t* walks, Profile prof, int n,
@@ -758,6 +765,7 @@ screen_lifted_kernel(const uint8_t* rel, uint8_t* walks, Profile prof, int n,
 
 // rounds[b]: each family's ladder length ("fixed") or its dispatch-wide
 // first unchanged round, clamped to the ladder ("earlyexit"), summed.
+// jt: ptxas(regs<=12, spill<=0, smem<=0)
 __global__ void rounds_kernel(int32_t* rounds, int B, const int* round_max,
                               int R0, int R1, int early) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;

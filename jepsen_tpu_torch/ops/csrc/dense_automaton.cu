@@ -487,6 +487,9 @@ __device__ __forceinline__ bool warp_complete(
   return nonzero;
 }
 
+// The flagship's C 8 instance, then every other one:
+// jt: ptxas(LOG_W=3: regs<=64, spill<=24, smem<=0)
+// jt: ptxas(regs<=128, spill<=52, smem<=0)
 template <int LOG_W>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32) register_warp_kernel(
     const int32_t* __restrict__ init_state, const int32_t* __restrict__ ev_slot,
@@ -652,6 +655,7 @@ __device__ __forceinline__ int target_source(int f, int a, int b, int sp,
   return s >= 0 && s < S ? s : -1;
 }
 
+// jt: ptxas(regs<=32, spill<=0, smem<=0)
 template <int Family>
 __global__ void __launch_bounds__(kBlockThreads) dense_block_kernel(
     const int32_t* __restrict__ init_state, const int32_t* __restrict__ ev_slot,
@@ -1257,6 +1261,9 @@ __device__ __forceinline__ bool queue_complete(
   return nonzero;
 }
 
+// The main path's C 8 instance, then every other one:
+// jt: ptxas(LOG_W=3: regs<=48, spill<=0, smem<=3072)
+// jt: ptxas(regs<=80, spill<=16, smem<=3072)
 template <int LOG_W>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32) dense_queue_kernel(
     const int32_t* __restrict__ init_state, const int32_t* __restrict__ ev_slot,

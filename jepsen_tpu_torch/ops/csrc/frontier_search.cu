@@ -259,6 +259,9 @@ __device__ __forceinline__ uint32_t table_entry(uint32_t epoch, uint32_t h,
 }
 
 // One warp per history; see the note at the top.
+// The main path's cas-register instance at C <= 32, then every other one:
+// jt: ptxas(STEP=1, W=1: regs<=48, spill<=58, smem<=0)
+// jt: ptxas(regs<=56, spill<=62, smem<=0)
 template <int STEP, int W>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32) frontier_warp_kernel(
     const int32_t* __restrict__ init_state, const int32_t* __restrict__ ev_slot,
@@ -611,6 +614,7 @@ __device__ int block_exclusive_scan(int v, int* total, int* s_warp,
   return (warp > 0 ? s_warp[warp - 1] : 0) + x - v;
 }
 
+// jt: ptxas(regs<=40, spill<=0, smem<=2080)
 template <int STEP>
 __global__ void __launch_bounds__(kMaxThreads) frontier_search_kernel(
     const int32_t* __restrict__ init_state, const int32_t* __restrict__ ev_slot,

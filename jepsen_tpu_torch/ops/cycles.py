@@ -637,11 +637,15 @@ def screen(rel: torch.Tensor, masks: Sequence[int],
 # ---------------------------------------------------------------------------
 
 
+# jt: budget(0.9..1.01, allocated=0.9..1.01)
 def cycles_row_bytes(n: int, n_filters: int = 1, n_lifted: int = 0) -> int:
     """Device bytes one row of a cycles dispatch holds: its ``n × n``
     relation bytes, a byte per vertex and a 4-byte round slot per plane,
     and its 4-byte ``rounds`` (the has-cycle kernel's one flag per row is
-    within the screen's count at one filter)."""
+    within the screen's count at one filter).  A launch holds 4 bytes a
+    plane less (its round slots live in shared memory), the has-cycle
+    kernel n + 3 less (one flag, not n member bytes): the kernel audit's
+    band."""
     return n * n + (max(1, n_filters) + n_lifted) * (n + 4) + 4
 
 

@@ -483,20 +483,29 @@ def dense_check_reference(
     max_closure = C + 2
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     slots = torch.arange(C, device=dev)
-    umask_b = umask[None, :, None, :]
-    ushl_b = ushl[None, :, None, None]
-    dmask_b = dmask[None, :, None, :]
-    dshr_b = dshr[None, :, None, None]
+    i32 = torch.int32
+    # the words are the reference's uint32 words in int32 (the same bits;
+    # a left shift drops what passes bit 31, and every right shift's
+    # sign bits are masked off): half the bytes of int64.  Slot j's union
+    # moves bits inside a word for j < 5 (mask, then shift by 2^j) and
+    # whole words for j ≥ 5 (a gather whose masked-out words read the
+    # all-zero word W, so the mask needs no pass of its own)
+    lo = min(C, 5)
+    umask_lo = umask[:lo].to(i32)[None, :, None, :]
+    ushl_lo = ushl[:lo].to(i32)[None, :, None, None]
+    gidx_hi = torch.where(umask[lo:] != 0, uidx[lo:], W)[None, :, None, :]
+    didx32, dmask32, dshr32 = didx, dmask.to(i32), dshr.to(i32)
     # slot j's targets live in rows j·(S+1) .. j·(S+1)+S of the closure's
     # scratch; row S of each block takes the moves that go nowhere
     block = (slots * (S + 1))[None, :, None]
 
-    D = torch.zeros((B, S, W), dtype=torch.int64, device=dev)
+    D = torch.zeros((B, S, W), dtype=i32, device=dev)
     init = _init_states(fam, init_state, S, params)
     D[torch.arange(B, device=dev), init, 0] = 1
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     failed_at = torch.full((B,), -1, dtype=torch.int32, device=dev)
-    int_ops = 0
+    # the operation count stays on the device: no sync per pass for it
+    int_ops = torch.zeros((), dtype=torch.int64, device=dev)
     max_passes = 0
     if work is not None:  # live words per slot, and ops to fold one in
         low = slots < 5
@@ -521,63 +530,114 @@ def dense_check_reference(
         tgt = _targets(fam, f_s, a_s, b_s, active, S, params)
         moves = tgt >= 0
         dst = torch.where(moves, tgt, S) + block  # [n, C, S] scratch rows
-        sources = moves.any(1).any(0).nonzero().flatten().tolist()
+        # the sources each (row, slot) moves to each target: the most is
+        # the number of collision layers the moves need
+        into = torch.zeros((n, C * (S + 1)), dtype=torch.int64, device=dev)
+        into.scatter_add_(1, dst.flatten(1), moves.flatten(1).long())
+        into = into.view(n, C, S + 1)[:, :, :S]
+        Dc = D[rows]
+        # one sync per event: the source states some slot moves, the
+        # states some row holds (the first pass's sources) and the layers
+        flags = torch.cat([moves.any(1).any(0), Dc.any(2).any(0),
+                           into.amax()[None]]).tolist()
+        sources = [v for v in range(S) if flags[v]]
+        held, layers = flags[S:2 * S], flags[2 * S]
+        rank = None  # built at the first pass that scatters in layers
         if work is not None:
-            hit = torch.zeros((n, C * (S + 1)), dtype=torch.int64, device=dev)
-            hit.scatter_(1, dst.flatten(1), 1)
-            n_tgt = hit.view(n, C, S + 1)[:, :, :S].sum(2)
+            n_tgt = (into > 0).sum(2)
             per_pass = ((moves.sum(2) * live_w).sum(1)
                         + (n_tgt * fold_w).sum(1) + 2 * S * W)
 
         # --- closure: Jacobi passes to fixpoint, capped, per-row stop ---
-        uidx_b = uidx[None, :, None, :].expand(n, C, S, W)
-        Dc = D[rows]
         on = torch.ones((n,), dtype=torch.bool, device=dev)
         for n_pass in range(max_closure):
-            # X[j, s'] = OR of D[s] over the sources s that slot j moves
-            # to s'; one source at a time, so no scratch row is written
-            # twice in one scatter, and only sources some row holds
-            X = torch.zeros((n, C * (S + 1), W), dtype=torch.int64,
-                            device=dev)
-            held = Dc.any(2).any(0).tolist()
-            for v in (v for v in sources if held[v]):
-                idx = dst[:, :, v, None].expand(n, C, W)
-                X.scatter_(1, idx, X.gather(1, idx) | Dc[:, v, None, :])
-            X = X.view(n, C, S + 1, W)[:, :, :S]
-            U = (torch.gather(X, 3, uidx_b) & umask_b) << ushl_b
+            # X[j, s'] = OR of D[s] over the held sources s that slot j
+            # moves to s', in scatters that never write a scratch row twice:
+            # one per collision layer (the sources of a (row, slot) that
+            # share a target fall in different layers) where there are
+            # fewer layers than held sources, else one per source
+            X = torch.zeros((n, C * (S + 1), W + 1), dtype=i32, device=dev)
+            live = [v for v in sources if held[v]]
+            if len(live) <= layers:
+                for v in live:
+                    idx = dst[:, :, v, None].expand(n, C, W)
+                    X.scatter_(1, idx, X.gather(1, idx) | Dc[:, v, None, :])
+            else:
+                if rank is None:
+                    rank = _collision_rank(dst, moves)
+                hv = torch.as_tensor(live, device=dev)
+                H = len(live)
+                d_h = dst.index_select(2, hv).flatten(1)
+                r_h = rank.index_select(2, hv).flatten(1)
+                t_h = (block + S).expand(n, C, H).flatten(1)
+                src = Dc.index_select(1, hv)[:, None].expand(
+                    n, C, H, W).reshape(n, C * H, W)
+                for r in range(layers):
+                    idx = torch.where(r_h == r, d_h, t_h)[:, :, None].expand(
+                        n, C * H, W)
+                    X.scatter_(1, idx, X.gather(1, idx) | src)
+            Xv = X.view(n, C, S + 1, W + 1)[:, :, :S]
+            U = (Xv[:, :lo, :, :W] & umask_lo) << ushl_lo
             add = U[:, 0]
-            for j in range(1, C):
-                add = add | U[:, j]
-            Dn = (Dc | add) & _U32
+            for j in range(1, lo):
+                add |= U[:, j]
+            if C > lo:
+                U = torch.gather(Xv[:, lo:], 3,
+                                 gidx_hi.expand(n, C - lo, S, W))
+                for j in range(C - lo):
+                    add |= U[:, j]
+            Dn = Dc | add
             changed = (Dn != Dc).flatten(1).any(1) & on
             if work is not None:
-                int_ops += int((per_pass * changed).sum())
+                int_ops += (per_pass * changed).sum()
             Dc = torch.where(on[:, None, None], Dn, Dc)
             on = changed
-            if not bool(on.any()):
+            # one sync per pass: whether any row changed, and the states
+            # the next pass's sources are held in
+            flags = torch.cat([on.any()[None], Dc.any(2).any(0)]).tolist()
+            if not flags[0]:
                 break
+            held = flags[1:]
             max_passes = max(max_passes, n_pass + 1)
 
         # --- completion: keep configs that linearized e_slot, then
-        # promote it out of the linset ---
-        Ds = torch.gather(Dc[:, None].expand(n, C, S, W), 3,
-                          didx[None, :, None, :].expand(n, C, S, W))
-        Dvar = (Ds >> dshr_b) & dmask_b
-        onehot = es[:, None] == slots[None, :]
-        # at most one slot selected per row, so the sum is the OR
-        Df = torch.where(onehot[:, :, None, None], Dvar, zero).sum(1)
+        # promote it out of the linset; only the event's own slot is
+        # gathered (at most one slot per row; an id outside [0, C)
+        # selects none and empties the row) ---
+        in_range = (es >= 0) & (es < C)
+        sel = es.clamp(0, C - 1)
+        Ds = torch.gather(Dc, 2, didx32[sel][:, None, :].expand(n, S, W))
+        Df = (Ds >> dshr32[sel][:, None, None]) & dmask32[sel][:, None, :]
+        Df = torch.where(in_range[:, None, None], Df, 0)
         empty = ~(Df != 0).flatten(1).any(1)
         if work is not None:
-            int_ops += int(torch.where(es < 5, 3 * S * W, S * (W // 2)).sum())
+            int_ops += torch.where(es < 5, 3 * S * W, S * (W // 2)).sum()
         D[rows] = Df  # an emptied row parks on D = 0
         failed = rows[empty]
         done[failed] = True
         failed_at[failed] = e
 
     if work is not None:
-        work["int_ops"] = work.get("int_ops", 0) + int_ops
+        work["int_ops"] = work.get("int_ops", 0) + int(int_ops)
         work["max_passes"] = max(work.get("max_passes", 0), max_passes)
     return ~done, failed_at, torch.zeros((B,), dtype=torch.bool, device=dev)
+
+
+def _collision_rank(dst: torch.Tensor, moves: torch.Tensor) -> torch.Tensor:
+    """``rank[b, j, s]``: how many sources s' < s slot j of row b moves to
+    the same target as s (0 for a source it does not move).  Sources of
+    one rank have distinct targets in every (row, slot), so each rank is
+    one collision-free scatter."""
+    S = dst.shape[2]
+    key = torch.where(moves, dst, -1)
+    order = torch.argsort(key, dim=2, stable=True)
+    sk = torch.gather(key, 2, order)
+    pos = torch.arange(S, device=dst.device).expand_as(sk)
+    new_run = torch.ones_like(sk, dtype=torch.bool)
+    new_run[..., 1:] = sk[..., 1:] != sk[..., :-1]
+    start = torch.where(new_run, pos, 0).cummax(dim=2).values
+    rank = torch.empty_like(order).scatter_(2, order, pos - start)
+    return torch.where(moves, rank, 0)
 
 
 def dense_queue_reference(
@@ -913,9 +973,16 @@ class DenseChecker(nn.Module):
         if not applicable(spec_name, C, V):
             raise ValueError(f"no dense kernel for {spec_name!r} at C={C}, "
                              f"V={V}")
+        from .wgl import DEFAULT_MAX_DISPATCH
+
         self.spec_name, self.E, self.C, self.V = spec_name, E, C, V
         self.family = family(spec_name)
         self.S = n_states(spec_name, V)
+        #: per-dispatch row cap: the engine's shared ceiling (the kernels
+        #: keep D on chip, so a row holds only its inputs and outputs;
+        #: the kernel audit prices them against the dispatch budget), as
+        #: the reference stamps it on its dense kernels
+        self.safe_dispatch = DEFAULT_MAX_DISPATCH
         for name, t in zip(("uidx", "umask", "ushl", "didx", "dmask", "dshr"),
                            subset_tables(C)):
             self.register_buffer(name, t, persistent=False)

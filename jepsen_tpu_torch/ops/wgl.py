@@ -438,19 +438,35 @@ def frontier_check_reference(
 # ---------------------------------------------------------------------------
 
 
-def frontier_row_bytes(F: int, E: int, C: int) -> int:
-    """Device bytes one row of a frontier dispatch holds, at most: its
-    inputs (4 + 4E + 6EC), its outputs (6) and the block design's
-    workspace — for K = F·(C+1) candidate lanes their states, W words each
-    and table slots, a dedup table of under 4K slots, two frontier buffers
-    of F configs, 4-byte elements (the kernel's own count,
-    ``frontier_search_workspace_bytes``, is what the wrapper allocates:
-    none for a shape that runs the warp design, which keeps its frontier
-    in shared memory)."""
+def _table_size(K: int) -> int:
+    """The block design's dedup table: the smallest power of two ≥ 2K."""
+    return 1 << max(0, 2 * K - 1).bit_length()
+
+
+def frontier_workspace_bytes(F: int, C: int) -> int:
+    """Device workspace bytes one row of a frontier launch at capacity
+    ``F`` over ``C`` slots takes: none for a shape that runs the warp
+    design (it keeps its frontier in shared memory), else the block
+    design's layout — for K = F·(C+1) candidate lanes their states, W
+    words each and table slots, a dedup table of :func:`_table_size` (K)
+    slots and two frontier buffers of F configs, 4-byte elements rounded
+    up to 16 bytes.  The kernel's own count,
+    ``frontier_search_workspace_bytes`` in ``csrc/frontier_search.cu``, is
+    what the wrapper allocates; the kernel audit holds the two equal."""
+    if frontier_design(F, C) == "warp":
+        return 0
     W = linset_words(C)
     K = F * (C + 1)
-    workspace = 4 * (K * (2 + W) + 4 * K + 2 * F * (1 + W)) + 16
-    return workspace + 4 + 4 * E + 6 * E * C + 6
+    elems = K * (2 + W) + _table_size(K) + 2 * F * (1 + W)
+    return (4 * elems + 15) // 16 * 16
+
+
+# jt: budget(0.99..1.01, allocated=0.99..1.01)
+def frontier_row_bytes(F: int, E: int, C: int) -> int:
+    """Device bytes one row of a frontier dispatch holds: its inputs (4 +
+    4E + 6EC), its outputs (6) and its workspace
+    (:func:`frontier_workspace_bytes`)."""
+    return frontier_workspace_bytes(F, C) + 4 + 4 * E + 6 * E * C + 6
 
 
 def frontier_design(F: int, C: int) -> str:
@@ -483,29 +499,38 @@ def frontier_max_dispatch(F: int, E: int, C: int,
 
 
 def check_frontier_inputs(arrays):
-    """:func:`dense.batch_shape` plus the frontier's own limits: C ≤ 127
-    (cand_slot is int8) and every slot id in [-1, C).  Returns
-    ``(B, E, C)``."""
+    """:func:`dense.batch_shape` plus the frontier's own limit C ≤ 127
+    (cand_slot is int8).  Returns ``(B, E, C)``.  Reads no element, so it
+    never synchronises a device: the slot ids are checked on the host
+    (:func:`check_slot_ids`) before the copy."""
     B, E, C = dense_mod.batch_shape(arrays)
     if not 1 <= C <= 127:
         raise ValueError(f"C={C} is outside 1..127 (int8 slot ids)")
-    for t, name in ((arrays[1], "ev_slot"), (arrays[2], "cand_slot")):
-        if t.numel():
-            lo, hi = (int(x) for x in torch.aminmax(t))
+    return B, E, C
+
+
+def check_slot_ids(ev_slot, cand_slot, C: int) -> None:
+    """Every slot id of a frontier batch in [-1, C): host arrays (numpy
+    or CPU tensors), checked by :func:`plan_bucket` before the engine
+    copies them to the card, and by the plain version."""
+    for a, name in ((ev_slot, "ev_slot"), (cand_slot, "cand_slot")):
+        a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        if a.size:
+            lo, hi = int(a.min()), int(a.max())
             if lo < -1 or hi >= C:
                 raise ValueError(f"{name} holds slot ids in [{lo}, {hi}], "
                                  f"outside [-1, {C})")
-    return B, E, C
 
 
 class FrontierSearchKernel:
     """Wrapper of the hand-written CUDA kernel ``csrc/frontier_search.cu``
     (replaces ``jepsen_tpu/ops/wgl.py:build_batched`` with its step
     functions and exact compaction; :func:`frontier_design` says which of
-    its two designs a shape runs).  Takes CUDA tensors only, allocates
-    the per-row workspace the kernel asks for, launches on the current
-    stream without synchronising, and counts its launches in
-    :attr:`launches`."""
+    its two designs a shape runs).  Takes CUDA tensors only, whose slot
+    ids the caller checked on the host (:func:`check_slot_ids`, as
+    :func:`plan_bucket` does before the engine's copy), allocates the
+    per-row workspace the kernel asks for, launches on the current stream
+    without synchronising, and counts its launches in :attr:`launches`."""
 
     name = "frontier_search"
 
@@ -569,8 +594,13 @@ class FrontierChecker:
     called as ``checker(init_state, ev_slot, cand_slot, cand_f, cand_a,
     cand_b) -> (ok, failed_at, overflow)``.  CUDA tensors go to the CUDA
     kernel, CPU tensors to the plain version; there is no fallback
-    between the two.  It holds no tensors, so one checker serves every
-    device.  :attr:`safe_dispatch` is the shape's per-dispatch row cap
+    between the two.  The kernel trusts its slot ids: CUDA inputs must
+    have passed :func:`check_slot_ids` on the host before their copy, as
+    :func:`plan_bucket` checks every engine bucket (an id outside [-1, C)
+    indexes past the kernel's slot arrays; checking it on the card would
+    synchronise every launch).  The plain version checks its own inputs.
+    It holds no tensors, so one checker serves every device.
+    :attr:`safe_dispatch` is the shape's per-dispatch row cap
     (:func:`frontier_max_dispatch`)."""
 
     def __init__(self, spec_name: str, E: int, C: int, F: int,
@@ -583,7 +613,8 @@ class FrontierChecker:
 
     def reference(self, *arrays, work: Optional[dict] = None):
         """The plain PyTorch version on the arrays' device."""
-        check_frontier_inputs(arrays)
+        _, _, C = check_frontier_inputs(arrays)
+        check_slot_ids(arrays[1].cpu(), arrays[2].cpu(), C)
         return frontier_check_reference(
             *arrays, spec_name=self.spec_name, F=self.F,
             max_closure=self.max_closure, work=work)
@@ -603,7 +634,8 @@ def make_check_fn(spec_name: str, E: int, C: int, F: int, max_closure: int,
     """The cached :class:`FrontierChecker` for a shape (one per shape, like
     the reference's per-shape jit cache).  ``device`` is taken for parity
     with :func:`.dense.make_dense_fn` and not used: the checker runs where
-    its inputs lie."""
+    its inputs lie.  CUDA inputs must have passed :func:`check_slot_ids`
+    on the host first (see :class:`FrontierChecker`)."""
     fn = _checker(spec_name, E, C, F, max_closure)
     if dense_mod.count_kernel_build(fn):
         obs.count("jepsen_kernel_builds_total", engine="frontier",
@@ -696,6 +728,10 @@ def plan_bucket(model, spec, arrays, *, device,
         plan.kernel = "frontier"
         plan.fn = (None if spec.dense_only
                    else make_check_fn(spec.name, E, C, frontier, mc, device))
+    if plan.kernel == "frontier" and plan.fn is not None:
+        # the kernel trusts its slot ids: check them here, on the host
+        # arrays, so the wrapper never reads the device before a launch
+        check_slot_ids(ev_slot, cand_slot, C)
     plan.disp = disp = (0 if plan.fn is None else
                         min(max_dispatch,
                             getattr(plan.fn, "safe_dispatch", max_dispatch)))

@@ -15,6 +15,10 @@ and same-shape buckets from concurrent runs share launches.
   fallback, and :func:`spawn_daemon`.
 - :mod:`.router` — :class:`Router`: one front over a fleet of daemons,
   rendezvous-hashed by request shape, with ``/feed`` sessions pinned.
+- :mod:`.chaos` — ``python -m jepsen_tpu_torch.serve.chaos``: the
+  self-chaos drills (kill -9 and WAL resume, a stalled socket and the
+  breaker, a dropped response, WAL compaction under a crash, a fleet
+  member's death).
 
 Start one with ``python -m jepsen_tpu_torch.serve`` (on the card) or
 ``--device cpu``, a supervised fleet with ``--supervise --fleet N`` and
@@ -25,7 +29,7 @@ algorithm="service", client=ServiceClient(port=...))``, ``elle``'s
 
 Not ported: the reference's shared AOT executable cache (a first dispatch
 on CUDA compiles nothing), its ``top`` command and web panel (harness
-parts), and its chaos drills (``serve/chaos.py``).
+parts).
 """
 
 from .client import (  # noqa: F401

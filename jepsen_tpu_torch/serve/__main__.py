@@ -4,7 +4,7 @@ It runs on the current CUDA device and exits non-zero, with the probe's
 error, when there is none; ``--device cpu`` runs the plain PyTorch
 versions instead.  ``POST /shutdown`` drains the queue and exits 0.  The
 daemon's other settings (row bound, request timeout, dispatch journal,
-drift sentinel, WAL compaction) are arguments of
+drift sentinel) are arguments of
 :func:`jepsen_tpu_torch.serve.daemon.serve`.
 
 ``--supervise`` runs the daemon as a child process and restarts it when
@@ -57,6 +57,10 @@ def main(argv=None) -> int:
                    help="verdict write-ahead log path (default off): a "
                    "restarted daemon replays it into retried request ids "
                    "and feed sessions, and GET /watch tails it")
+    p.add_argument("--wal-compact-bytes", type=int,
+                   default=daemon.DEFAULT_WAL_COMPACT_BYTES, metavar="N",
+                   help="compact the WAL on an idle turn once it passes N "
+                   "bytes (default %(default)s; 0 never)")
     p.add_argument("--supervise", action="store_true",
                    help="run the daemon as a child process and restart it "
                    "when it dies abnormally")
@@ -81,7 +85,7 @@ def main(argv=None) -> int:
             host=args.host, port=args.port, device=args.device,
             window=args.window, max_queue_runs=args.max_queue,
             coalesce_wait_s=args.coalesce_wait, wal_path=_off(args.wal),
-            block=True)
+            wal_compact_bytes=args.wal_compact_bytes, block=True)
     except RuntimeError as e:
         print(f"python -m jepsen_tpu_torch.serve: {e}", file=sys.stderr)
         return 1

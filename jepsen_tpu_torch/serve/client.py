@@ -522,7 +522,9 @@ def spawn_daemon(port: Optional[int] = None, wait_s: float = 120.0, *,
                  max_queue: Optional[int] = None,
                  wal: Optional[str] = None,
                  coalesce_wait: Optional[float] = None,
+                 wal_compact_bytes: Optional[int] = None,
                  log_path: Optional[str] = None,
+                 wait: bool = True,
                  **client_kw) -> ServiceClient:
     """Start ``python -m jepsen_tpu_torch.serve`` as a child process (on a
     free port unless ``port`` is given) and wait until ``/healthz``
@@ -530,14 +532,16 @@ def spawn_daemon(port: Optional[int] = None, wait_s: float = 120.0, *,
     it with ``client.shutdown()`` or :func:`_reap`).  The child's output
     goes to ``log_path`` (default: discarded).  Raises
     :class:`ServiceUnavailable` when it exits or stays unhealthy for
-    ``wait_s`` (it is then reaped)."""
+    ``wait_s`` (it is then reaped).  ``wait=False`` returns at once, so
+    several daemons can start together (:func:`wait_healthy`)."""
     port = free_port(host) if port is None else port
     client = ServiceClient(host, port, **client_kw)
     argv = [sys.executable, "-m", "jepsen_tpu_torch.serve",
             "--host", host, "--port", str(port)]
     for flag, value in (("--device", device), ("--window", window),
                         ("--max-queue", max_queue), ("--wal", wal),
-                        ("--coalesce-wait", coalesce_wait)):
+                        ("--coalesce-wait", coalesce_wait),
+                        ("--wal-compact-bytes", wal_compact_bytes)):
         if value is not None:
             argv += [flag, str(value)]
     out = open(log_path, "ab") if log_path else subprocess.DEVNULL
@@ -547,11 +551,21 @@ def spawn_daemon(port: Optional[int] = None, wait_s: float = 120.0, *,
     finally:
         if log_path:
             out.close()
+    client.spawned = proc
+    if wait:
+        wait_healthy(client, wait_s)
+    return client
+
+
+def wait_healthy(client: ServiceClient, wait_s: float = 120.0) -> None:
+    """Wait until the daemon :func:`spawn_daemon` started for ``client``
+    answers ``/healthz``; raises :class:`ServiceUnavailable` (and reaps
+    it) when it exits or stays unhealthy for ``wait_s``."""
+    proc = client.spawned
     deadline = time.monotonic() + wait_s
     while time.monotonic() < deadline:
         if client.healthy():
-            client.spawned = proc
-            return client
+            return
         if proc.poll() is not None:
             raise ServiceUnavailable(
                 f"spawned daemon exited with {proc.returncode}")

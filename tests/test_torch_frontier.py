@@ -488,12 +488,20 @@ def test_ladder_constants_equal_reference():
 
 
 def test_dispatch_cap_follows_the_workspace_budget():
-    # the slice's shape: one 1000-op row holds ~34 KB of workspace (K =
-    # 1152 lanes of state, word and table slot, a table of < 4K slots, two
-    # frontiers) beside its inputs and outputs
+    # the slice's shape runs the warp design: its frontier lives in shared
+    # memory, so a 1000-op row holds only its inputs and outputs
+    assert wgl.frontier_design(128, 8) == "warp"
+    assert wgl.frontier_workspace_bytes(128, 8) == 0
     per_row = wgl.frontier_row_bytes(128, 704, 8)
-    assert per_row == (4 * (1152 * 3 + 4 * 1152 + 2 * 128 * 2) + 16
-                       + 4 + 4 * 704 + 6 * 704 * 8 + 6)
+    assert per_row == 4 + 4 * 704 + 6 * 704 * 8 + 6
+    # a block-design shape adds the kernel's workspace layout: K = 18432
+    # lanes of state, word and table slot, a table of 65536 slots (the
+    # power of two ≥ 2K), two frontiers of 2048 configs, 16-byte rounded
+    assert wgl.frontier_design(2048, 8) == "block"
+    assert wgl.frontier_workspace_bytes(2048, 8) == 4 * (
+        18432 * 3 + 65536 + 2 * 2048 * 2)
+    assert wgl.frontier_row_bytes(2048, 704, 8) == \
+        wgl.frontier_workspace_bytes(2048, 8) + per_row
     assert wgl.frontier_max_dispatch(128, 704, 8) == min(
         wgl.DEFAULT_MAX_DISPATCH, wgl.FRONTIER_DISPATCH_BUDGET // per_row)
     assert wgl.frontier_max_dispatch(128, 704, 8, max_dispatch=5) == 5

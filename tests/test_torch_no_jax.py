@@ -55,7 +55,13 @@ _IMPORT_ALL = textwrap.dedent("""
                      "jepsen_tpu_torch.serve.client",
                      "jepsen_tpu_torch.serve.daemon",
                      "jepsen_tpu_torch.serve.protocol",
-                     "jepsen_tpu_torch.serve.router"):
+                     "jepsen_tpu_torch.serve.router",
+                     "jepsen_tpu_torch.serve.chaos",
+                     "jepsen_tpu_torch.lint",
+                     "jepsen_tpu_torch.lint.__main__",
+                     "jepsen_tpu_torch.lint.core",
+                     "jepsen_tpu_torch.lint.budget",
+                     "jepsen_tpu_torch.lint.kernel_audit"):
         assert required in names, required
     for name in names:
         importlib.import_module(name)
@@ -77,8 +83,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     # every module of the port, the lock checkers, the decomposition
     # front-end, the mesh, the checker seam, the independent lift, obs,
     # the cycle workloads, the probe, the journal, the drift sentinel and
-    # the tuner, trace propagation and the checker service included
-    assert int(out.stdout.split()[-1]) >= 59
+    # the tuner, trace propagation, the checker service, its chaos drills
+    # and the lint passes included
+    assert int(out.stdout.split()[-1]) >= 65
 
 
 def test_the_refusal_matches_names_exactly():
