@@ -281,6 +281,24 @@ line.
     beside it) beside its pricing and the ratio, the frontier library's workspace beside the pricing's
     term, the dense entries' bytes at the planner's most rows against the
     dispatch budget.  Any finding raises.
+29. the test harness — (a) ``python -m jepsen_tpu_torch.cli test
+    --workload linearizable-register`` in-process (``cli.run_cli``) at the
+    reference's smoke: 5 nodes, ``--concurrency 3n`` (15 workers in key
+    groups of 5), the CLI's per-key limit of 32, ``--time-limit 10``, the
+    in-memory keyed fake client, analysed on the card; it must exit 0,
+    valid, every key on the ``gpu`` engine, K1 launched (counters reset
+    first); the stored ``test.jtpu`` is loaded again (``store.load``) and
+    every key's whole result must equal the plain versions' on that
+    history (``batched_linearizable(device="cpu")``).  (b) ``cli analyze``
+    on that store must give the same results from the file alone.  (c)
+    ``core.run`` of the same workload with a client that crashes before
+    every 11th invoke and answers every 97th read stale, under an
+    in-process nemesis (``nemesis.validate`` over ``f_map``; start and
+    stop every second, no network): at least one key invalid, the
+    nemesis ops in the history and in no key's subhistory, and the card's
+    per-key results equal the plain versions' key by key.  The lines give
+    ops recorded, keys, ops/s, and the analysis, per-key artifact and
+    store seconds.
 
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -304,6 +322,11 @@ import numpy as np
 import torch
 
 from jepsen_tpu_torch import checker as checker_mod
+from jepsen_tpu_torch import cli, core, fake
+from jepsen_tpu_torch import generator as harness_gen
+from jepsen_tpu_torch import nemesis as nemesis_mod
+from jepsen_tpu_torch import store as store_mod
+from jepsen_tpu_torch import workloads
 from jepsen_tpu_torch import elle, independent, models, obs, synth, tune
 from jepsen_tpu_torch import platform as platform_mod
 from jepsen_tpu_torch.checker import linear
@@ -3243,6 +3266,221 @@ def audit_phase(card, report, device):
          findings=0, seconds=time.perf_counter() - t0, card=card)
 
 
+# ---------------------------------------------------------------------------
+# the test harness (phase 29)
+# ---------------------------------------------------------------------------
+
+#: phase 29's cluster and run: the reference's in-process smoke
+#: (``python -m jepsen_tpu.cli test --workload linearizable-register
+#: --time-limit 10``) on 5 nodes at 3n workers
+HARNESS_NODES = "n1,n2,n3,n4,n5"
+HARNESS_SECONDS, HARNESS_FAULT_SECONDS = 10, 5
+
+
+def plain_per_key(history, test) -> dict:
+    """Every key's result by the plain versions on the CPU, as JSON
+    gives it back (string keys)."""
+    plain = independent.batched_linearizable(
+        models.cas_register(), device="cpu").check(
+            {**test, "store?": False}, history, {})
+    return json.loads(json.dumps(plain["results"], default=repr))
+
+
+def harness_run_stats(results: dict, history_len: int, keys: int) -> dict:
+    """The phase's figures from a run's ``results["obs"]`` phase rows and
+    the batched lift's per-key artifact span: ops recorded, keys, ops/s
+    over the generator phase, and the analysis, artifact and store
+    seconds."""
+    phases = {r["name"]: r["wall_s"]
+              for r in (results.get("obs") or {}).get("phases", [])}
+    artifacts = sum(rec.duration_s() for rec in obs.tracer().finished(
+        cat="checker") if rec.name == "independent/artifacts"
+        and rec.t1 is not None)
+    run_s = phases.get("generator")
+    return {"ops": history_len, "keys": keys, "generator_s": run_s,
+            "ops_per_s": history_len / run_s if run_s else None,
+            "analysis_s": phases.get("analyze"),
+            "key_artifacts_s": artifacts,
+            "save_history_s": phases.get("save-history")}
+
+
+class StaleCrashingClient(fake.KeyedAtomClient):
+    """Phase 29c's client: the keyed CAS-register fake, but it crashes
+    before applying every 11th invoke (an ``:info`` op, a retired
+    process) and answers every 97th read with a value other than the
+    register's."""
+
+    CRASH_EVERY, STALE_EVERY = 11, 97
+
+    def __init__(self, registers=None, latency: float = 0.0, shared=None):
+        super().__init__(registers, latency)
+        self.shared = shared if shared is not None else {
+            "n": 0, "lock": threading.Lock()}
+
+    def open(self, test, node):
+        c = StaleCrashingClient(self.registers, self.latency, self.shared)
+        c.lock = self.lock
+        return c
+
+    def invoke(self, test, op):
+        with self.shared["lock"]:
+            self.shared["n"] += 1
+            n = self.shared["n"]
+        if n % self.CRASH_EVERY == 0:
+            raise RuntimeError("crashed before applying")
+        res = super().invoke(test, op)
+        if op["f"] == "read" and n % self.STALE_EVERY == 0:
+            k, v = res["value"]
+            res = {**res, "value": independent.kv(k, ((v or 0) + 1) % 5)}
+        return res
+
+
+class StartStopNemesis(nemesis_mod.Nemesis):
+    """An in-process fault: start and stop flip a flag (no network)."""
+
+    def __init__(self):
+        self.active = False
+
+    def invoke(self, test, op):
+        self.active = op["f"] == "start"
+        return {**op, "type": "info", "value": self.active}
+
+    def fs(self):
+        return {"start", "stop"}
+
+
+def harness_phase(card):
+    """Phase 29: the CLI's ``test`` and ``analyze`` and ``core.run`` under
+    faults, each checked on the card and held against the plain
+    versions on the history it recorded."""
+    import contextlib
+    import glob
+    import io
+    import shutil
+
+    root = os.path.join("build", "chip_smoke_harness")
+    shutil.rmtree(root, ignore_errors=True)
+    base = os.path.join(root, "store")
+    name = "linearizable-register"
+
+    # -- 29a. the CLI's test --------------------------------------------------
+    dense.DENSE_AUTOMATON.launches = 0
+    wgl.FRONTIER_SEARCH.launches = 0
+    t0 = time.perf_counter()
+    code = cli.run_cli(cli.default_commands(), [
+        "test", "--workload", name, "--nodes", HARNESS_NODES,
+        "--concurrency", "3n", "--time-limit", str(HARNESS_SECONDS),
+        "--store-base", base])
+    cli_s = time.perf_counter() - t0
+    k1, k4 = dense.DENSE_AUTOMATON.launches, wgl.FRONTIER_SEARCH.launches
+    require(code == cli.EXIT_VALID, f"harness: cli test exited {code}")
+    require(k1 > 0, "harness: the CLI's run never launched K1")
+    [run_dir] = [d for d in glob.glob(os.path.join(base, name, "2*"))
+                 if not os.path.islink(d)]
+    with open(os.path.join(run_dir, "results.json")) as f:
+        results = json.load(f)
+    lin = results["linearizable"]
+    keys = len(lin["results"])
+    require(results["valid?"] is True, "harness: the CLI's run is not valid")
+    require(lin["batch-stats"]["engines"] == {"gpu": keys},
+            f"harness: keys off the gpu engine: {lin['batch-stats']}")
+    t0 = time.perf_counter()
+    stored = store_mod.load({"name": name, "start-time":
+                             os.path.basename(run_dir), "store-base": base})
+    load_s = time.perf_counter() - t0
+    require(not stored.get("recovered"), "harness: the store was torn")
+    t0 = time.perf_counter()
+    plain = plain_per_key(stored["history"], stored)
+    plain_s = time.perf_counter() - t0
+    require(plain == lin["results"],
+            "harness: a key's card result differs from its plain version's")
+    stats = harness_run_stats(results, len(stored["history"]), keys)
+    emit(phase="harness_cli", code=code, seconds=cli_s, **stats,
+         load_s=load_s, plain_s=plain_s, k1_launches=k1, k4_launches=k4,
+         kernels=lin["batch-stats"]["kernels"], card=card)
+
+    # -- 29b. analyze, from the store alone ----------------------------------
+    dense.DENSE_AUTOMATON.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = cli.run_cli(cli.default_commands(), [
+            "analyze", "--test-name", name, "--store-base", base])
+    analyze_s = time.perf_counter() - t0
+    again = json.loads(out.getvalue())
+    k1 = dense.DENSE_AUTOMATON.launches
+    require(code == cli.EXIT_VALID, f"harness: cli analyze exited {code}")
+    require(k1 > 0, "harness: analyze never launched K1")
+    require(again["linearizable"]["batch-stats"]["engines"] == {"gpu": keys},
+            f"harness: analyze's keys off the gpu engine: "
+            f"{again['linearizable']['batch-stats']}")
+    require(again["linearizable"]["results"] == lin["results"],
+            "harness: analyze's per-key results differ from the run's")
+    emit(phase="harness_analyze", code=code, seconds=analyze_s, keys=keys,
+         k1_launches=k1, card=card)
+
+    # -- 29c. core.run with crashes, stale reads and a nemesis --------------
+    wl = workloads.workload(name, {"nodes": HARNESS_NODES.split(","),
+                                   "concurrency": "3n",
+                                   "per-key-limit": 32})
+    faults = nemesis_mod.validate(nemesis_mod.f_map(
+        lambda f: f"fault-{f}", StartStopNemesis()))
+    g = harness_gen.time_limit(HARNESS_FAULT_SECONDS, harness_gen.any(
+        wl["generator"], harness_gen.nemesis(harness_gen.delay(1.0, (
+            harness_gen.cycle([{"f": "fault-start"},
+                               {"f": "fault-stop"}]))))))
+    test = {"name": name + "-faults", "nodes": HARNESS_NODES.split(","),
+            "concurrency": wl["concurrency"],
+            "client": StaleCrashingClient(), "nemesis": faults,
+            "generator": g, "checker": wl["checker"], "store?": False}
+    dense.DENSE_AUTOMATON.launches = 0
+    wgl.FRONTIER_SEARCH.launches = 0
+    t0 = time.perf_counter()
+    run = core.run(test)
+    run_s = time.perf_counter() - t0
+    k1, k4 = dense.DENSE_AUTOMATON.launches, wgl.FRONTIER_SEARCH.launches
+    h = run["history"]
+    card_lin = run["results"]["linearizable"]
+    card_results = json.loads(json.dumps(card_lin["results"], default=repr))
+    invalid = [k for k, r in card_results.items() if r["valid?"] is not True]
+    nemesis_ops = [op for op in h if op.process == "nemesis"]
+    crashed = [op for op in h if op.type == "info" and op.process != "nemesis"]
+    require(k1 > 0, "harness: the faulted run never launched K1")
+    require(invalid, "harness: stale reads left no key invalid")
+    require({op.f for op in nemesis_ops} == {"fault-start", "fault-stop"},
+            "harness: the nemesis ops are missing from the history")
+    require(crashed, "harness: no client op crashed")
+    # each key's subhistory holds every nemesis op at its place, as the
+    # reference's does, and the ops the lift checks are exactly the
+    # key's own client ops
+    own: dict = {}
+    for op in h:
+        if isinstance(op.value, independent.KV):
+            own.setdefault(op.value.key, []).append(
+                (op.index, op.type, op.f, op.value.value))
+    subs = independent.split_by_key(h)
+    require(set(subs) == set(own), "harness: the split lost a key")
+    for k, sub in subs.items():
+        require([op.index for op in sub if op.process == "nemesis"]
+                == [op.index for op in nemesis_ops],
+                f"harness: key {k}'s subhistory misplaces the nemesis ops")
+        require([(op.index, op.type, op.f, op.value)
+                 for op in sub.client_ops()] == own[k],
+                f"harness: key {k}'s checked ops are not its own")
+    t0 = time.perf_counter()
+    plain = plain_per_key(h, test)
+    plain_s = time.perf_counter() - t0
+    require(plain == card_results,
+            "harness: a faulted key's card result differs from its plain "
+            "version's")
+    stats = harness_run_stats(run["results"], len(h), len(card_results))
+    emit(phase="harness_faults", seconds=run_s, **stats, invalid=len(invalid),
+         crashed=len(crashed), nemesis_ops=len(nemesis_ops),
+         plain_s=plain_s, k1_launches=k1, k4_launches=k4,
+         batch_stats=card_lin["batch-stats"], card=card)
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -3494,6 +3732,9 @@ def main() -> int:
 
     # -- 28. the kernel audit's card half ------------------------------------
     audit_phase(card, report, device)
+
+    # -- 29. the test harness: the CLI, analyze, core.run under faults -------
+    harness_phase(card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

@@ -29,8 +29,11 @@ Differences from the reference, by design:
   ``None`` runs on the current CUDA device (and raises without CUDA),
   ``"cpu"`` runs the plain PyTorch versions.
 
-The reference's O(n) checkers (``stats``, ``set``, ``queue``,
-``counter``, …) serve the test harness and are not ported.
+The reference's O(n) checkers run on the host, as there: unhandled
+exceptions (checker.clj:124-151), stats (:153-183), queue (:218-238),
+set (:240-291), set-full (:294-592), total-queue (:594-687), unique-ids
+(:689-734) and counter (:737-795); ``timeline.html`` is in
+:mod:`.timeline`.  The perf, clock and SVG renderers are not ported yet.
 (reference semantics: jepsen/src/jepsen/checker.clj)
 """
 
@@ -38,11 +41,12 @@ from __future__ import annotations
 
 import threading
 import traceback
+from collections import Counter
 from typing import Any, Callable, Dict, Optional
 
 from .. import obs
-from ..history import History
-from ..util import real_pmap
+from ..history import FAIL, INFO, INVOKE, OK, History, Op
+from ..util import integer_interval_set_str, real_pmap
 
 UNKNOWN = "unknown"
 
@@ -178,6 +182,424 @@ class _UnbridledOptimism(Checker):
 def unbridled_optimism() -> Checker:
     """Everything is awesome.  (reference: checker.clj:118-122)"""
     return _UnbridledOptimism()
+
+
+class _UnhandledExceptions(Checker):
+    def check(self, test, history, opts=None):
+        infos = [
+            op
+            for op in history
+            if op.type == INFO and op.extra.get("exception") is not None
+        ]
+        groups: Dict[Any, list] = {}
+        for op in infos:
+            groups.setdefault(op.extra.get("exception_class"), []).append(op)
+        exes = [
+            {
+                "class": cls,
+                "count": len(ops),
+                "example": ops[0].to_dict(),
+            }
+            for cls, ops in sorted(
+                groups.items(), key=lambda kv: len(kv[1]), reverse=True
+            )
+        ]
+        out: dict = {"valid?": True}
+        if exes:
+            out["exceptions"] = exes
+        return out
+
+
+def unhandled_exceptions() -> Checker:
+    """Frequency table of unhandled exceptions attached to :info ops.
+    (reference: checker.clj:124-151)"""
+    return _UnhandledExceptions()
+
+
+def _stats_for(completions) -> dict:
+    ok = sum(1 for op in completions if op.type == OK)
+    fail = sum(1 for op in completions if op.type == FAIL)
+    info = sum(1 for op in completions if op.type == INFO)
+    return {
+        "valid?": ok > 0,
+        "count": ok + fail + info,
+        "ok-count": ok,
+        "fail-count": fail,
+        "info-count": info,
+    }
+
+
+class _Stats(Checker):
+    def check(self, test, history, opts=None):
+        completions = [
+            op
+            for op in history
+            if op.type != INVOKE and isinstance(op.process, int)
+        ]
+        by_f: Dict[Any, list] = {}
+        for op in completions:
+            by_f.setdefault(op.f, []).append(op)
+        groups = {f: _stats_for(ops) for f, ops in sorted(by_f.items(), key=lambda kv: str(kv[0]))}
+        out = _stats_for(completions)
+        out["by-f"] = groups
+        out["valid?"] = merge_valid(g["valid?"] for g in groups.values()) if groups else True
+        return out
+
+
+def stats() -> Checker:
+    """Success/failure rates overall and by :f; valid iff every :f has some
+    ok op.  (reference: checker.clj:153-183)"""
+    return _Stats()
+
+
+class _Queue(Checker):
+    def __init__(self, model):
+        self.model = model
+
+    def check(self, test, history, opts=None):
+        state = self.model
+        for op in history:
+            if op.f == "enqueue" and op.type == INVOKE:
+                state = state.step(op)
+            elif op.f == "dequeue" and op.type == OK:
+                state = state.step(op)
+            if state.is_inconsistent:
+                return {"valid?": False, "error": state.msg}
+        return {"valid?": True, "final-queue": repr(state)}
+
+
+def queue(model) -> Checker:
+    """Every dequeue must come from somewhere: assume every non-failing
+    enqueue succeeded, only OK dequeues succeeded, and reduce the model over
+    that. O(n).  (reference: checker.clj:218-238)"""
+    return _Queue(model)
+
+
+class _SetChecker(Checker):
+    def check(self, test, history, opts=None):
+        attempts = {
+            op.value for op in history if op.type == INVOKE and op.f == "add"
+        }
+        adds = {op.value for op in history if op.type == OK and op.f == "add"}
+        final_read = None
+        for op in history:
+            if op.type == OK and op.f == "read":
+                final_read = op.value
+        if final_read is None:
+            return {"valid?": UNKNOWN, "error": "Set was never read"}
+        final_read = set(final_read)
+        ok = final_read & attempts
+        unexpected = final_read - attempts
+        lost = adds - final_read
+        recovered = ok - adds
+        return {
+            "valid?": not lost and not unexpected,
+            "attempt-count": len(attempts),
+            "acknowledged-count": len(adds),
+            "ok-count": len(ok),
+            "lost-count": len(lost),
+            "recovered-count": len(recovered),
+            "unexpected-count": len(unexpected),
+            "ok": integer_interval_set_str(ok),
+            "lost": integer_interval_set_str(lost),
+            "unexpected": integer_interval_set_str(unexpected),
+            "recovered": integer_interval_set_str(recovered),
+        }
+
+
+def set_checker() -> Checker:
+    """Adds followed by a final read: every acknowledged add must be
+    present; nothing unattempted may appear.  (reference: checker.clj:240-291)"""
+    return _SetChecker()
+
+
+# ---------------------------------------------------------------------------
+# set-full: per-element visibility state machine
+# ---------------------------------------------------------------------------
+
+
+class _SetFullElement:
+    """Tracks one element's timeline.  (reference: checker.clj:294-407)"""
+
+    __slots__ = ("element", "known", "last_present", "last_absent")
+
+    def __init__(self, element):
+        self.element = element
+        self.known: Optional[Op] = None       # completion proving existence
+        self.last_present: Optional[Op] = None  # latest read invoke observing it
+        self.last_absent: Optional[Op] = None   # latest read invoke missing it
+
+    def on_add_ok(self, op: Op):
+        if self.known is None:
+            self.known = op
+
+    def on_read_present(self, inv: Op, op: Op):
+        if self.known is None:
+            self.known = op
+        if self.last_present is None or self.last_present.index < inv.index:
+            self.last_present = inv
+
+    def on_read_absent(self, inv: Op, op: Op):
+        if self.last_absent is None or self.last_absent.index < inv.index:
+            self.last_absent = inv
+
+    def results(self) -> dict:
+        idx = lambda op, d=-1: op.index if op is not None else d  # noqa: E731
+        stable = bool(
+            self.last_present is not None
+            and idx(self.last_absent) < idx(self.last_present)
+        )
+        lost = bool(
+            self.known is not None
+            and self.last_absent is not None
+            and idx(self.last_present) < idx(self.last_absent)
+            and self.known.index < self.last_absent.index
+        )
+        known_time = self.known.time if self.known else None
+        stable_time = (
+            (self.last_absent.time + 1 if self.last_absent else 0) if stable else None
+        )
+        lost_time = (
+            (self.last_present.time + 1 if self.last_present else 0) if lost else None
+        )
+        ns_to_ms = lambda ns: int(ns // 1_000_000)  # noqa: E731
+        return {
+            "element": self.element,
+            "outcome": "stable" if stable else ("lost" if lost else "never-read"),
+            "stable-latency": (
+                ns_to_ms(max(0, stable_time - known_time)) if stable else None
+            ),
+            "lost-latency": (
+                ns_to_ms(max(0, lost_time - known_time)) if lost else None
+            ),
+        }
+
+
+def frequency_distribution(points, values) -> Optional[dict]:
+    """Percentiles (0–1) of a collection.  (reference: checker.clj:409-420)"""
+    ordered = sorted(values)
+    if not ordered:
+        return None
+    n = len(ordered)
+    return {p: ordered[min(n - 1, int(n * p))] for p in points}
+
+
+class _SetFull(Checker):
+    def __init__(self, linearizable: bool = False):
+        self.linearizable = linearizable
+
+    def check(self, test, history, opts=None):
+        elements: Dict[Any, _SetFullElement] = {}
+        pending_reads: Dict[Any, Op] = {}
+        dups: Dict[Any, int] = {}
+        for op in history:
+            if not isinstance(op.process, int):
+                continue
+            if op.f == "add":
+                if op.type == INVOKE:
+                    if op.value not in elements:
+                        elements[op.value] = _SetFullElement(op.value)
+                elif op.type == OK:
+                    el = elements.get(op.value)
+                    if el is not None:
+                        el.on_add_ok(op)
+            elif op.f == "read":
+                if op.type == INVOKE:
+                    pending_reads[op.process] = op
+                elif op.type == FAIL:
+                    pending_reads.pop(op.process, None)
+                elif op.type == INFO:
+                    pass
+                elif op.type == OK:
+                    inv = pending_reads.pop(op.process, op)
+                    values = op.value or []
+                    counts = Counter(values)
+                    for v, c in counts.items():
+                        if c > 1:
+                            dups[v] = max(dups.get(v, 0), c)
+                    vset = set(values)
+                    for element, state in elements.items():
+                        if element in vset:
+                            state.on_read_present(inv, op)
+                        else:
+                            state.on_read_absent(inv, op)
+        rs = [
+            elements[k].results()
+            for k in sorted(elements.keys(), key=lambda x: (str(type(x)), x))
+        ]
+        outcomes: Dict[str, list] = {}
+        for r in rs:
+            outcomes.setdefault(r["outcome"], []).append(r)
+        stable = outcomes.get("stable", [])
+        lost = outcomes.get("lost", [])
+        never_read = outcomes.get("never-read", [])
+        stale = [r for r in stable if r["stable-latency"] and r["stable-latency"] > 0]
+        worst_stale = sorted(stale, key=lambda r: r["stable-latency"], reverse=True)[:8]
+        if lost:
+            valid: Any = False
+        elif not stable:
+            valid = UNKNOWN
+        elif self.linearizable and stale:
+            valid = False
+        else:
+            valid = True
+        if dups:
+            valid = merge_valid([valid, False])
+        out = {
+            "valid?": valid,
+            "attempt-count": len(rs),
+            "stable-count": len(stable),
+            "lost-count": len(lost),
+            "lost": sorted(r["element"] for r in lost),
+            "never-read-count": len(never_read),
+            "never-read": sorted(r["element"] for r in never_read),
+            "stale-count": len(stale),
+            "stale": sorted(r["element"] for r in stale),
+            "worst-stale": worst_stale,
+            "duplicated-count": len(dups),
+            "duplicated": dict(sorted(dups.items(), key=lambda kv: str(kv[0]))),
+        }
+        points = [0, 0.5, 0.95, 0.99, 1]
+        sl = frequency_distribution(points, [r["stable-latency"] for r in rs if r["stable-latency"] is not None])
+        ll = frequency_distribution(points, [r["lost-latency"] for r in rs if r["lost-latency"] is not None])
+        if sl:
+            out["stable-latencies"] = sl
+        if ll:
+            out["lost-latencies"] = ll
+        return out
+
+
+def set_full(linearizable: bool = False) -> Checker:
+    """Rigorous set analysis: per-element stable/lost/never-read outcomes
+    with stability latencies; stale reads fail linearizable sets.
+    (reference: checker.clj:461-592)"""
+    return _SetFull(linearizable=linearizable)
+
+
+# ---------------------------------------------------------------------------
+# queues, ids, counters
+# ---------------------------------------------------------------------------
+
+
+def expand_queue_drain_ops(history: History) -> History:
+    """Expand ok :drain ops (value = list of elements) into dequeue
+    invoke/ok pairs.  (reference: checker.clj:594-626)"""
+    out = History()
+    for op in history:
+        if op.f != "drain":
+            out.append(op)
+        elif op.type in (INVOKE, FAIL):
+            continue
+        elif op.type == OK:
+            for element in op.value or []:
+                out.append(op.copy(type=INVOKE, f="dequeue", value=None))
+                out.append(op.copy(type=OK, f="dequeue", value=element))
+        else:
+            raise ValueError(f"Not sure how to handle a crashed drain operation: {op!r}")
+    return out
+
+
+class _TotalQueue(Checker):
+    def check(self, test, history, opts=None):
+        history = expand_queue_drain_ops(history)
+        attempts = Counter(
+            op.value for op in history if op.type == INVOKE and op.f == "enqueue"
+        )
+        enqueues = Counter(
+            op.value for op in history if op.type == OK and op.f == "enqueue"
+        )
+        dequeues = Counter(
+            op.value for op in history if op.type == OK and op.f == "dequeue"
+        )
+        ok = dequeues & attempts
+        unexpected = Counter(
+            {v: c for v, c in dequeues.items() if v not in attempts}
+        )
+        duplicated = dequeues - attempts - unexpected
+        lost = enqueues - dequeues
+        recovered = ok - enqueues
+        return {
+            "valid?": not lost and not unexpected,
+            "attempt-count": sum(attempts.values()),
+            "acknowledged-count": sum(enqueues.values()),
+            "ok-count": sum(ok.values()),
+            "unexpected-count": sum(unexpected.values()),
+            "duplicated-count": sum(duplicated.values()),
+            "lost-count": sum(lost.values()),
+            "recovered-count": sum(recovered.values()),
+            "lost": dict(lost),
+            "unexpected": dict(unexpected),
+            "duplicated": dict(duplicated),
+            "recovered": dict(recovered),
+        }
+
+
+def total_queue() -> Checker:
+    """What goes in must come out (assuming the history drains the queue).
+    O(n).  (reference: checker.clj:628-687)"""
+    return _TotalQueue()
+
+
+class _UniqueIds(Checker):
+    def check(self, test, history, opts=None):
+        attempted = sum(
+            1 for op in history if op.type == INVOKE and op.f == "generate"
+        )
+        acks = [op.value for op in history if op.type == OK and op.f == "generate"]
+        counts = Counter(acks)
+        dups = {k: v for k, v in counts.items() if v > 1}
+        rng = [min(acks), max(acks)] if acks else [None, None]
+        return {
+            "valid?": not dups,
+            "attempted-count": attempted,
+            "acknowledged-count": len(acks),
+            "duplicated-count": len(dups),
+            "duplicated": dict(
+                sorted(dups.items(), key=lambda kv: kv[1], reverse=True)[:48]
+            ),
+            "range": rng,
+        }
+
+
+def unique_ids() -> Checker:
+    """A unique-id generator must emit distinct values.
+    (reference: checker.clj:689-734)"""
+    return _UniqueIds()
+
+
+class _CounterChecker(Checker):
+    def check(self, test, history, opts=None):
+        lower = 0
+        upper = 0
+        pending_reads: Dict[Any, list] = {}
+        reads = []
+        completed = history.complete().without_failures()
+        for op in completed:
+            if op.f == "read":
+                if op.type == INVOKE:
+                    pending_reads[op.process] = [lower, op.value]
+                elif op.type == OK:
+                    r = pending_reads.pop(op.process, None)
+                    if r is not None:
+                        # observed value was propagated onto the invoke by
+                        # complete(); prefer the completion's value
+                        reads.append([r[0], op.value, upper])
+            elif op.f == "add":
+                if op.type == INVOKE:
+                    if op.value is None or op.value < 0:
+                        raise ValueError(f"counter add must be non-negative: {op!r}")
+                    upper += op.value
+                elif op.type == OK:
+                    lower += op.value
+        errors = [r for r in reads if not (r[0] <= r[1] <= r[2])]
+        return {"valid?": not errors, "reads": reads, "errors": errors}
+
+
+def counter() -> Checker:
+    """Monotonically increasing counter: each read must fall within
+    [sum of ok adds at invoke, sum of attempted adds at completion].
+    (reference: checker.clj:737-795)"""
+    return _CounterChecker()
 
 
 #: after one race arm answers, how long a wedged straggler may hold up

@@ -16,16 +16,20 @@ flagship keyspace — 1024 keys of 1000-op histories — that is one pass
 over two million ops instead of two billion steps.  The subhistories
 are the same.
 
-The keyed generators (``tuple_gen``, ``concurrent_generator``, …) drive
-the test harness and are not ported.
+The keyed generators (:func:`tuple_gen`, :func:`sequential_generator`,
+:func:`concurrent_generator`) are the reference's, drawing from the
+port's :mod:`.generator` in the reference's order, so a seed gives the
+same operations in both packages.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, Iterable, List, Sequence
 
+from . import generator as gen
+from . import obs
 from . import store as store_mod
 from .checker import Checker, check_safe, merge_valid
 from .history import History, Op
@@ -68,9 +72,213 @@ def is_tuple(value: Any) -> bool:
     return isinstance(value, KV)
 
 
+def tuple_gen(k, g):
+    """Wrap a generator so invoke ops carry ``[k, v]`` values.
+    (reference: independent.clj:94-101)"""
+
+    def wrap(op):
+        if op.get("type", "invoke") == "invoke":
+            out = dict(op)
+            out["value"] = KV(k, op.get("value"))
+            return out
+        return op
+
+    return gen.map(wrap, g)
+
+
+def sequential_generator(keys: Sequence[Any], fgen: Callable[[Any], Any]):
+    """One key at a time: exhaust fgen(k1), move to k2, …  Values are
+    wrapped in [k, v] tuples.  fgen must be pure.
+    (reference: independent.clj:31-47)"""
+    return [tuple_gen(k, fgen(k)) for k in keys]
+
+
+def group_threads(n: int, ctx: dict) -> List[List[Any]]:
+    """Partition the context's threads into groups of n.
+    (reference: independent.clj:49-76)"""
+    threads = sorted(
+        gen.all_threads(ctx),
+        key=lambda t: (1, str(t)) if isinstance(t, str) else (0, t),
+    )
+    thread_count = len(threads)
+    group_count = thread_count // n
+    if n > thread_count:
+        raise ValueError(
+            f"With {thread_count} worker threads, this concurrent-generator "
+            f"cannot run a key with {n} threads concurrently. Consider "
+            f"raising the test's concurrency to at least {n}."
+        )
+    if thread_count != n * group_count:
+        raise ValueError(
+            f"This concurrent-generator has {thread_count} threads but can "
+            f"only use {n * group_count} of them to run {group_count} "
+            f"concurrent keys with {n} threads apiece. Consider raising or "
+            f"lowering the test's concurrency to a multiple of {n}."
+        )
+    return [threads[i * n : (i + 1) * n] for i in range(group_count)]
+
+
+class _LazyKeys:
+    """Memoizing view over a (possibly infinite) key iterable.  The
+    reference's concurrent-generator takes lazy seqs like ``(range)``
+    (generator_test.clj independent-deadlock-case); materializing with
+    ``list()`` would hang forever on those.  Generator states hold
+    (lazy-keys, position) pairs — the cache only ever appends, so every
+    persistent-generator branch reading a position sees the same key."""
+
+    def __init__(self, iterable):
+        self._it = iter(iterable)
+        self._cache: list = []
+
+    def get(self, i: int):
+        """Key at position ``i``; IndexError once the sequence ends."""
+        while len(self._cache) <= i:
+            try:
+                self._cache.append(next(self._it))
+            except StopIteration:
+                raise IndexError(i) from None
+        return self._cache[i]
+
+
+class ConcurrentGenerator(gen.Generator):
+    """Splits client threads into groups of n; each group works one key
+    via fgen(k), drawing a fresh key when its generator is exhausted.
+    Updates route to the group of the event's thread.
+    (reference: independent.clj:103-211)
+    """
+
+    def __init__(self, n, fgen, group_to_threads, thread_to_group, keys, gens):
+        self.n = n
+        self.fgen = fgen
+        self.group_to_threads = group_to_threads  # list[set], lazy
+        self.thread_to_group = thread_to_group  # dict, lazy
+        self.keys = keys  # (_LazyKeys, next-position)
+        self.gens = gens  # per-group generators, lazy
+
+    def _init(self, ctx):
+        """Resolve lazy thread-mapping + per-group generator state."""
+        g2t = self.group_to_threads
+        t2g = self.thread_to_group
+        if g2t is None:
+            groups = group_threads(self.n, ctx)
+            g2t = [set(g) for g in groups]
+            t2g = {t: i for i, g in enumerate(groups) for t in g}
+        lazy, pos = self.keys
+        if self.gens is None:
+            gens = []
+            for _ in range(len(g2t)):
+                try:
+                    k = lazy.get(pos)
+                except IndexError:
+                    gens.append(None)
+                    continue
+                pos += 1
+                gens.append(tuple_gen(k, self.fgen(k)))
+        else:
+            gens = list(self.gens)
+        return g2t, t2g, (lazy, pos), gens
+
+    def op(self, test, ctx):
+        g2t, t2g, keys, gens = self._init(ctx)
+        free_groups = {t2g[t] for t in gen.free_threads(ctx) if t in t2g}
+
+        soonest = None
+        for group in free_groups:
+            while True:
+                g = gens[group]
+                if g is None:
+                    break
+                group_ctx = gen.on_threads_context(
+                    lambda t, s=g2t[group]: t in s, ctx
+                )
+                res = gen.op(g, test, group_ctx)
+                if res is not None:
+                    o, g2 = res
+                    soonest = gen.soonest_op_map(
+                        soonest,
+                        {
+                            "op": o,
+                            "group": group,
+                            "gen": g2,
+                            "weight": len(g2t[group]),
+                        },
+                    )
+                    break
+                # exhausted: replace with a generator for the next key
+                lazy, pos = keys
+                try:
+                    k = lazy.get(pos)
+                except IndexError:
+                    gens[group] = None
+                else:
+                    keys = (lazy, pos + 1)
+                    gens[group] = tuple_gen(k, self.fgen(k))
+
+        if soonest is not None and soonest["op"] != gen.PENDING:
+            gens2 = list(gens)
+            gens2[soonest["group"]] = soonest["gen"]
+            return (
+                soonest["op"],
+                ConcurrentGenerator(self.n, self.fgen, g2t, t2g, keys, gens2),
+            )
+        if soonest is not None or any(g is not None for g in gens):
+            # Pending: a group may free up later.
+            return (
+                gen.PENDING,
+                ConcurrentGenerator(self.n, self.fgen, g2t, t2g, keys, gens),
+            )
+        return None
+
+    def update(self, test, ctx, event):
+        if self.thread_to_group is None or self.gens is None:
+            return self
+        thread = gen.process_to_thread(ctx, event.get("process"))
+        group = self.thread_to_group.get(thread)
+        if group is None or self.gens[group] is None:
+            return self
+        gens = list(self.gens)
+        gens[group] = gen.update(gens[group], test, ctx, event)
+        return ConcurrentGenerator(
+            self.n, self.fgen, self.group_to_threads, self.thread_to_group,
+            self.keys, gens,
+        )
+
+
+def concurrent_generator(n: int, keys: Iterable[Any], fgen: Callable[[Any], Any]):
+    """n threads per key, keys drawn in order as groups free up; excludes
+    the nemesis.  (reference: independent.clj:213-238)"""
+    if not (isinstance(n, int) and n > 0):
+        raise ValueError(f"group size must be a positive integer: {n!r}")
+    return gen.clients(
+        ConcurrentGenerator(n, fgen, None, None, (_LazyKeys(keys), 0), None)
+    )
+
+
 # ---------------------------------------------------------------------------
 # History partitioning
 # ---------------------------------------------------------------------------
+
+
+def _unkeyed_pair(op: Op) -> bool:
+    """A client op (integer process) whose value is a bare two-element
+    list or tuple: a ``[k, v]`` that lost its :class:`KV` on the way
+    through JSON."""
+    v = op.value
+    return (isinstance(op.process, int) and not isinstance(v, KV)
+            and isinstance(v, (list, tuple)) and len(v) == 2)
+
+
+def rekey(history: History) -> History:
+    """A keyed history with its ``[k, v]`` values as :class:`KV` again: a
+    history read back from JSON (``store.load``) carries plain lists,
+    which :func:`split_by_key` would take for un-keyed values.  Only
+    client ops are rewrapped; a nemesis value of two elements stays as
+    it is.  A history with nothing to rewrap (a live run's) is returned
+    as it is.  The lifts below call it on their input."""
+    if not any(_unkeyed_pair(op) for op in history):
+        return history
+    return History(op.copy(value=KV(op.value[0], op.value[1]))
+                   if _unkeyed_pair(op) else op for op in history)
 
 
 def history_keys(history: History) -> set:
@@ -155,7 +363,7 @@ class _IndependentChecker(Checker):
 
     def check(self, test, history, opts=None):
         opts = opts or {}
-        subs = split_by_key(history)
+        subs = split_by_key(rekey(history))
         ks = sorted(subs, key=str)
 
         def check_key(k):
@@ -199,7 +407,7 @@ class _BatchedLinearizable(Checker):
         from .ops import wgl
         from .parallel import mesh as mesh_mod
 
-        by_key = split_by_key(history)
+        by_key = split_by_key(rekey(history))
         ks = sorted(by_key, key=str)
         subs = [by_key[k].client_ops().index_ops() for k in ks]
         per_key = wgl.check_batch(
@@ -216,10 +424,14 @@ class _BatchedLinearizable(Checker):
         results = dict(zip(ks, per_key))
         if test.get("store?", True):
             base_subdir = list((opts or {}).get("subdirectory", []))
-            for k, h in zip(ks, subs):
-                _write_key_artifacts(
-                    test, base_subdir + [DIR, str(k)], results[k], h
-                )
+            # two files a key: thousands on a wide keyspace, so the span
+            # shows what persisting them costs beside the check itself
+            with obs.span("independent/artifacts", cat="checker",
+                          keys=len(ks)):
+                for k, h in zip(ks, subs):
+                    _write_key_artifacts(
+                        test, base_subdir + [DIR, str(k)], results[k], h
+                    )
         failures = [k for k in ks if results[k].get("valid?") is not True]
         return {
             "valid?": merge_valid(r.get("valid?") for r in results.values())

@@ -12,6 +12,10 @@ seams and under its names:
   padding, routing and row counters, the frontier's high-water and
   safe-dispatch gauges — ``engine``
 - Elle's screen routes and closure counters
+- the harness: ``core.run`` phases (setup / generator / teardown /
+  save-history / analyze) — ``phase``; interpreter op invokes and their
+  ok/info/fail counters (:func:`count_op`) — ``op``; nemesis fault
+  invokes — ``nemesis``; control commands — ``control``
 
 Exports (:mod:`.export`): ``trace.json`` (Chrome trace_event),
 ``trace-spans.jsonl`` and ``metrics.prom`` (Prometheus text), plus a
@@ -24,9 +28,6 @@ Disabled hooks cost one branch: :func:`span` returns a shared null
 context with no allocation, and counters check the flag before taking
 their lock.  No hook synchronises the device: spans time what the engine
 already waits on.
-
-Not ported: ``count_op``, ``set_run_anchor`` and ``phase_intervals``
-serve the test harness's interpreter and run phases.
 """
 
 from __future__ import annotations
@@ -107,6 +108,61 @@ def observe(name: str, v: float, **labels) -> None:
     if not _registry.enabled:
         return
     _registry.histogram(name, **labels).observe(v)
+
+
+def count_op(completion_type) -> None:
+    """Interpreter hot-loop counter: one branch when disabled."""
+    if not _registry.enabled:
+        return
+    _registry.counter(
+        "jepsen_interpreter_ops_total", type=str(completion_type)
+    ).inc()
+
+
+# -- run anchoring ----------------------------------------------------------
+
+
+def set_run_anchor() -> None:
+    """Record the monotonic instant of the run's t=0 (call inside
+    ``util.with_relative_time``) so exports can align span times with
+    history op times."""
+    if not _tracer.enabled:
+        return
+    import time as _t
+
+    from ..util import relative_time_nanos
+
+    try:
+        _tracer.run_anchor_ns = _t.monotonic_ns() - relative_time_nanos()
+    except RuntimeError:
+        _tracer.run_anchor_ns = None
+
+
+def run_anchor_ns() -> Optional[int]:
+    return _tracer.run_anchor_ns
+
+
+def phase_intervals() -> list:
+    """Completed lifecycle phases as ``(name, start_s, end_s)`` relative
+    to the run anchor (history time axis); empty when no anchor was set
+    or tracing is off.  Used by checker.perf's phase overlay."""
+    if not _tracer.enabled:
+        # disable() doesn't clear the buffer/anchor — without this
+        # check an obs-off run following an obs-on run in the same
+        # process would overlay the PREVIOUS run's stale phases
+        return []
+    anchor = _tracer.run_anchor_ns
+    if anchor is None:
+        return []
+    out = []
+    for rec in _tracer.finished(cat="phase"):
+        if rec.t1 is None:
+            continue
+        out.append(
+            (rec.name, (rec.t0 - anchor) / 1e9, (rec.t1 - anchor) / 1e9)
+        )
+    out.sort(key=lambda t: t[1])
+    return out
 
 
 # -- exports ----------------------------------------------------------------

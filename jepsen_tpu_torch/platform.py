@@ -2,11 +2,11 @@
 probe half.
 
 :func:`probe_accelerator` asks a fresh interpreter whether a CUDA device
-is present AND executes: it imports ``torch``, allocates on ``cuda:0``,
-runs one operation and synchronises.  A subprocess, because a wedged
-driver can hang the first CUDA call, and a hung probe must not wedge the
-caller.  The verdict is memoised process-wide under a lock
-(:func:`forget_probe` drops it).
+is present AND executes: through ``libcuda`` alone (no ``torch``
+import), it allocates on device 0, launches one kernel and synchronises.
+A subprocess, because a wedged card can hang the first CUDA call, and a
+hung probe must not wedge the caller.  The verdict is memoised
+process-wide under a lock (:func:`forget_probe` drops it).
 
 The reference's ``JEPSEN_TPU_PROBE_RETRIES``, ``_PROBE_TIMEOUT`` and
 ``_PROBE_TRAIL`` variables are the ``retries``, ``timeout_s`` and
@@ -31,17 +31,99 @@ from typing import Optional, Tuple
 
 #: the probe EXECUTES an operation, not just a device query: a driver
 #: that lists the card but hangs at the first launch reports healthy to a
-#: query while every dispatch blocks.  Exit 3 means "no CUDA device", a
-#: clean answer that is not retried.
-_PROBE_SRC = (
-    "import sys, torch; "
-    "sys.exit(3) if not (torch.cuda.is_available() "
-    "and torch.cuda.device_count() > 0) else None; "
-    "x = torch.ones((8, 8), device='cuda:0'); "
-    "s = float((x + 1).sum().item()); "
-    "torch.cuda.synchronize(); "
-    "sys.exit(0 if s == 128.0 else 4)"
-)
+#: query while every dispatch blocks.  It speaks to CUDA's low-level API
+#: (``libcuda``) through ctypes and imports nothing else: device 0's
+#: primary context, an allocation, a memset, a kernel JIT-compiled from
+#: the PTX below and launched on 64 threads, a synchronise and a copy
+#: back, which must hold the memset's words plus one.  A fresh interpreter
+#: that imported torch to do the same took 12 s of a daemon's 25 s start
+#: on an H100 host (``scripts/daemon_stages.py``), most of it the import.
+#: Exit 3 means "no CUDA device" (no ``libcuda``, CUDA_ERROR_NO_DEVICE
+#: or no device counted), a clean answer that is not retried; exit 4 a
+#: failed step, named on stderr.
+_PROBE_PTX = r"""
+.version 7.0
+.target sm_50
+.address_size 64
+.visible .entry probe(.param .u64 words)
+{
+    .reg .b32 %r<4>;
+    .reg .b64 %rd<5>;
+    ld.param.u64 %rd1, [words];
+    cvta.to.global.u64 %rd2, %rd1;
+    mov.u32 %r1, %tid.x;
+    mul.wide.u32 %rd3, %r1, 4;
+    add.s64 %rd4, %rd2, %rd3;
+    ld.global.u32 %r2, [%rd4];
+    add.s32 %r3, %r2, 1;
+    st.global.u32 [%rd4], %r3;
+    ret;
+}
+"""
+
+_PROBE_SRC = r"""
+import ctypes, sys
+from ctypes import POINTER, byref, c_char_p, c_int, c_size_t, c_uint, \
+    c_uint32, c_uint64, c_void_p
+try:
+    cu = ctypes.CDLL("libcuda.so.1")
+except OSError:
+    sys.exit(3)
+for name, args in (
+        ("cuGetErrorName", [c_int, POINTER(c_char_p)]),
+        ("cuInit", [c_uint]),
+        ("cuDeviceGetCount", [POINTER(c_int)]),
+        ("cuDeviceGet", [POINTER(c_int), c_int]),
+        ("cuDevicePrimaryCtxRetain", [POINTER(c_void_p), c_int]),
+        ("cuCtxSetCurrent", [c_void_p]),
+        ("cuMemAlloc_v2", [POINTER(c_uint64), c_size_t]),
+        ("cuMemsetD32_v2", [c_uint64, c_uint, c_size_t]),
+        ("cuModuleLoadData", [POINTER(c_void_p), c_char_p]),
+        ("cuModuleGetFunction", [POINTER(c_void_p), c_void_p, c_char_p]),
+        ("cuLaunchKernel", [c_void_p, c_uint, c_uint, c_uint, c_uint, c_uint,
+                            c_uint, c_uint, c_void_p, POINTER(c_void_p),
+                            POINTER(c_void_p)]),
+        ("cuCtxSynchronize", []),
+        ("cuMemcpyDtoH_v2", [c_void_p, c_uint64, c_size_t]),
+        ("cuMemFree_v2", [c_uint64])):
+    fn = getattr(cu, name)
+    fn.argtypes, fn.restype = args, c_int
+
+def check(rc, what):
+    if rc != 0:
+        name = c_char_p()
+        cu.cuGetErrorName(rc, byref(name))
+        sys.stderr.write(f"{what}: {(name.value or b'?').decode()} ({rc})\n")
+        sys.exit(4)
+
+rc = cu.cuInit(0)
+if rc == 100:  # CUDA_ERROR_NO_DEVICE
+    sys.exit(3)
+check(rc, "cuInit")
+n = c_int(0)
+check(cu.cuDeviceGetCount(byref(n)), "cuDeviceGetCount")
+if n.value < 1:
+    sys.exit(3)
+dev, ctx = c_int(0), c_void_p()
+check(cu.cuDeviceGet(byref(dev), 0), "cuDeviceGet")
+check(cu.cuDevicePrimaryCtxRetain(byref(ctx), dev), "cuDevicePrimaryCtxRetain")
+check(cu.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
+words = c_uint64()
+check(cu.cuMemAlloc_v2(byref(words), 256), "cuMemAlloc")
+check(cu.cuMemsetD32_v2(words.value, 0x2A2A2A2A, 64), "cuMemsetD32")
+module, fn = c_void_p(), c_void_p()
+check(cu.cuModuleLoadData(byref(module), PTX), "cuModuleLoadData")
+check(cu.cuModuleGetFunction(byref(fn), module, b"probe"),
+      "cuModuleGetFunction")
+params = (c_void_p * 1)(ctypes.cast(byref(words), c_void_p))
+check(cu.cuLaunchKernel(fn, 1, 1, 1, 64, 1, 1, 0, None, params, None),
+      "cuLaunchKernel")
+check(cu.cuCtxSynchronize(), "cuCtxSynchronize")
+out = (c_uint32 * 64)()
+check(cu.cuMemcpyDtoH_v2(out, words.value, 256), "cuMemcpyDtoH")
+check(cu.cuMemFree_v2(words.value), "cuMemFree")
+sys.exit(0 if all(v == 0x2A2A2A2B for v in out) else 4)
+""".replace("PTX", repr(_PROBE_PTX.encode()), 1)
 
 #: the exit code of a probe that found no CUDA device
 NO_DEVICE_EXIT = 3

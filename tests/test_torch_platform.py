@@ -124,3 +124,110 @@ def test_a_trail_that_cannot_be_written_is_ignored(tmp_path, monkeypatch):
     monkeypatch.setattr(subprocess, "run", _Stub([0]))
     assert platform.probe_accelerator(
         trail=str(tmp_path / "no" / "such" / "dir.jsonl")) == (True, None)
+
+
+#: a ctypes-level stand-in for ``libcuda.so.1``, put in front of the
+#: probe's own source: ``ctypes.CDLL`` hands back plain functions that
+#: keep device memory in a dict and run the probe kernel's "add one to
+#: each thread's word" on the host, each step failing where ``MODE`` says
+_FAKE_LIBCUDA = '''
+import ctypes, types
+
+MODE = {mode!r}
+MEM = {{}}
+NAMES = {{100: b"CUDA_ERROR_NO_DEVICE", 719: b"CUDA_ERROR_LAUNCH_FAILED"}}
+
+
+def put(ref, value):
+    ref._obj.value = value
+    return 0
+
+
+def cuGetErrorName(rc, name):
+    return put(name, NAMES.get(rc, b"CUDA_ERROR_UNKNOWN"))
+
+
+def cuMemAlloc_v2(ptr, size):
+    MEM[4096] = [0] * (size // 4)
+    return put(ptr, 4096)
+
+
+def cuMemsetD32_v2(ptr, value, n):
+    MEM[ptr][:n] = [value] * n
+    return 0
+
+
+def cuModuleLoadData(module, image):
+    return put(module, 1) if b".entry probe" in image else 218
+
+
+def cuLaunchKernel(fn, gx, gy, gz, bx, by, bz, shared, stream, params,
+                   extra):
+    if MODE == "launch-fails":
+        return 719
+    ptr = ctypes.cast(params[0], ctypes.POINTER(ctypes.c_uint64))[0]
+    for t in range(bx if MODE != "wrong-words" else bx - 1):
+        MEM[ptr][t] += 1
+    return 0
+
+
+def cuMemcpyDtoH_v2(out, ptr, size):
+    for i in range(size // 4):
+        out[i] = MEM[ptr][i]
+    return 0
+
+
+FAKE = types.SimpleNamespace(
+    cuGetErrorName=cuGetErrorName,
+    cuInit=lambda flags: 100 if MODE == "no-device" else 0,
+    cuDeviceGetCount=lambda n: put(n, 0 if MODE == "zero-count" else 1),
+    cuDeviceGet=lambda dev, i: put(dev, i),
+    cuDevicePrimaryCtxRetain=lambda ctx, dev: put(ctx, 1),
+    cuCtxSetCurrent=lambda ctx: 0,
+    cuMemAlloc_v2=cuMemAlloc_v2,
+    cuMemsetD32_v2=cuMemsetD32_v2,
+    cuModuleLoadData=cuModuleLoadData,
+    cuModuleGetFunction=lambda fn, module, name: put(fn, 2),
+    cuLaunchKernel=cuLaunchKernel,
+    cuCtxSynchronize=lambda: 0,
+    cuMemcpyDtoH_v2=cuMemcpyDtoH_v2,
+    cuMemFree_v2=lambda ptr: 0)
+
+
+def CDLL(name, *args, **kwargs):
+    if name != "libcuda.so.1" or MODE == "no-driver":
+        raise OSError(name + ": cannot open shared object file")
+    return FAKE
+
+
+ctypes.CDLL = CDLL
+'''
+
+
+@pytest.mark.parametrize("mode,verdict", [
+    ("ok", (True, None)),
+    ("no-driver", (False, "no CUDA device present")),
+    ("no-device", (False, "no CUDA device present")),
+    ("zero-count", (False, "no CUDA device present")),
+    ("launch-fails",
+     (False, "cuLaunchKernel: CUDA_ERROR_LAUNCH_FAILED (719)")),
+    ("wrong-words", (False, "probe exit 4")),
+])
+def test_the_probe_source_against_a_fake_driver(tmp_path, monkeypatch, mode,
+                                                verdict):
+    """The probe's own subprocess and source, with ``libcuda`` replaced
+    by :data:`_FAKE_LIBCUDA`: exit 0 when the launched kernel's words
+    come back, 3 (no retry) without a driver or a device, 4 (retried)
+    when a step fails, named on stderr, or the words are wrong."""
+    trail = str(tmp_path / "trail.jsonl")
+    monkeypatch.setattr(platform, "_PROBE_SRC",
+                        _FAKE_LIBCUDA.format(mode=mode) + platform._PROBE_SRC)
+    assert platform.probe_accelerator(retries=2, timeout_s=60.0,
+                                      backoff_s=0.0, trail=trail) == verdict
+    attempts = [x["outcome"] for x in _trail_lines(trail)]
+    if verdict[0]:
+        assert attempts == ["ok"]
+    elif verdict[1].startswith("no "):
+        assert attempts == ["no-accelerator"]
+    else:
+        assert attempts == [verdict[1]] * 2
