@@ -194,8 +194,8 @@ line.
     window's wall seconds, the kernels' summed device seconds and their
     ratio, the device's busy share of the seam run.
 23. tuning — the CUDA probe (``platform.probe_accelerator``) must pass;
-    ``tune.run_tune(profile="smoke")`` writes its artifact into a
-    temporary directory, keyed to the card's name, with budget checks and
+    the CLI's ``tune --profile smoke`` (``tune.run_tune``) writes its
+    artifact into a temporary directory, keyed to the card's name, with budget checks and
     no breach; the line gives the picks beside the pinned defaults, the
     measured configs, the cost table and the tuner's launches of K1, K4,
     K7 (and K1m's).  Then, with that artifact active, phase 4's corpus
@@ -226,8 +226,11 @@ line.
     history of phase 21's form through ``check_safe`` with
     ``linearizable(algorithm="service")`` under the independent lift must
     equal the in-process lift key for key, with no fallback.  Then phase
-    25 on the same daemon; ``POST /shutdown`` must drain and the process
-    exit 0.
+    25 on the same daemon, and the CLI's ``status`` (its launches line),
+    ``top --once`` (the last-60 s rates and settled verdicts off the
+    WAL) and ``profile`` (a one-second ``torch.profiler`` window on the
+    daemon, its ``profile.json`` written); the CLI's ``shutdown`` must
+    drain and the process exit 0.
 25. online checking — on phase 24's daemon, a ``/watch`` subscriber from
     the WAL's tail; a feed session of 256 of phase 4's histories in 16
     deltas of 16 (each stamped with ``t_inv``): the first ``valid? =
@@ -245,10 +248,12 @@ line.
     equal to phase 8's.  ``/status`` must show no open session and the
     sessions, deltas and histories sent; the ``/watch`` thread must end at
     phase 24's drain.
-26. the fleet — ``python -m jepsen_tpu_torch.serve --supervise --fleet 2``
-    (started when phase 24's daemon is ready: two daemons on the one
-    card, one WAL each) behind an in-process ``serve.Router``: the seconds
-    until both answer ``/healthz``; through the router phase 4's corpus
+26. the fleet — ``python -m jepsen_tpu_torch.cli serve --checker
+    --supervise --fleet 2`` (started when phase 24's daemon is ready: two
+    daemons on the one card, one WAL each) behind the CLI's ``route`` run
+    on a thread of this process: the seconds until both answer
+    ``/healthz``, and the CLI's ``status`` with ``--daemon`` must show both
+    members; through the router phase 4's corpus
     as four concurrent requests, 72 of phase 8's rows, phase 16's graphs
     through ``/elle`` and a feed session of 64 of phase 4's histories,
     each equal to its phase, each on the member the router ranks first
@@ -258,8 +263,9 @@ line.
     the request must complete on its sibling with phase 4's results and a
     counted reroute, the supervisor must restart the member on the same
     port and WAL (seconds to ``/healthz``), one ``probe_once()`` must mark
-    it up and the key's next request must reach it again.  ``POST
-    /shutdown`` to both members: the supervisor exits 0, the router stops.
+    it up and the key's next request must reach it again.  The CLI's
+    ``shutdown`` of both members: the supervisor exits 0; its
+    ``shutdown`` of the router: the ``route`` command returns 0.
 27. the chaos drills — ``serve.chaos.run`` on the card: kill -9 mid-request
     and after settled batches with the WAL's last line torn, a stalled
     socket tripping the breaker and its half-open recovery, a dropped
@@ -299,6 +305,26 @@ line.
     per-key results equal the plain versions' key by key.  The lines give
     ops recorded, keys, ops/s, and the analysis, per-key artifact and
     store seconds.
+30. real processes — the CLI's ``test --suite localkv --faults
+    partition,kill --time-limit 10 --concurrency 6 --rate 40 -o
+    interval=2`` (the reference's documented real-cluster run,
+    ``doc/example-local-cluster/README.md:13-16``) in-process at the
+    CLI's five nodes, the launch counters reset first: five ``repregd``
+    replicas compiled from ``native/repregd.cc`` with the host's g++ and
+    started under ``start-stop-daemon`` under ``build/``, every peer link
+    through a loopback forwarder, partitions and SIGKILLs every 2 s, the
+    single-register history checked by ``linearizable(cas_register(0))``
+    on the card.  It must exit 0 (valid) with more than 20 ok ops, a
+    partition and a kill in the history, a K1 or K4 launch, each node's
+    ``server.log`` snarfed into the store naming ``repregd``; the stored
+    history re-checked on the card, by the plain versions
+    (``device="cpu"``) and by the CPU oracle must give the stored result
+    (whole maps; the oracle's shares every key it has); ``cli analyze``
+    of the store must give it again.  The line gives the ops, oks, fails,
+    infos, the nemesis fs, the history's E, C and V, its engine, kernel
+    and escalation rungs, the K1 and K4 launches, and the card's, plain
+    and oracle seconds.  Any ``repregd`` left under its directory is
+    killed.
 
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -2550,8 +2576,14 @@ def service_phase(card, model, hs, results, e2e_rate, f_hs, f_results,
             watcher = feed_phase(card, client, model, hs, results, f_hs,
                                  f_results)
 
-            # -- drain and exit ------------------------------------------
-            require(client.shutdown()["ok"], "service: /shutdown refused")
+            # -- the CLI's status, top and profile on this daemon ---------
+            cli_service_commands(card, client, tmp)
+
+            # -- drain and exit, through the CLI's shutdown ---------------
+            code, out = run_cli_captured(["shutdown", "--port",
+                                          str(client.port)])
+            require(code == cli.EXIT_VALID and "draining" in out,
+                    f"service: cli shutdown exited {code}: {out!r}")
             rc = client.spawned.wait(timeout=300)
             require(rc == 0, f"service: the daemon exited {rc}")
             watcher.thread.join(timeout=60)
@@ -2565,6 +2597,32 @@ def service_phase(card, model, hs, results, e2e_rate, f_hs, f_results,
             for c in clients:
                 if c.spawned is not None and c.spawned.poll() is None:
                     serve.client._reap(c.spawned)
+
+
+def cli_service_commands(card, client, tmp) -> None:
+    """Phase 24's daemon through the CLI: ``status``, ``top --once`` and
+    ``profile`` (a one-second ``torch.profiler`` window on the daemon)."""
+    port = ["--port", str(client.port)]
+    t0 = time.perf_counter()
+    code, status = run_cli_captured(["status", *port])
+    require(code == cli.EXIT_VALID and status.startswith(
+        "── checker service") and "launches:" in status,
+        f"service: cli status exited {code}: {status!r}")
+    code, top = run_cli_captured(["top", "--once", *port])
+    require(code == cli.EXIT_VALID and "last 60s:" in top
+            and "── verdicts" in top and "(no settled verdicts yet)"
+            not in top, f"service: cli top exited {code}: {top!r}")
+    prof_dir = os.path.join(tmp, "profile")
+    code, prof = run_cli_captured(["profile", *port, "--seconds", "1",
+                                   "--label", "chip-smoke", "--dir",
+                                   prof_dir])
+    require(code == cli.EXIT_VALID and prof.startswith(
+        f"profile capture → {prof_dir}")
+        and os.path.exists(os.path.join(prof_dir, "profile.json")),
+        f"service: cli profile exited {code}: {prof!r}")
+    emit(phase="service", step="cli", status=status.splitlines(),
+         top=top.splitlines(), profile=prof.splitlines(),
+         seconds=time.perf_counter() - t0, card=card)
 
 
 # ---------------------------------------------------------------------------
@@ -2752,10 +2810,10 @@ def free_port_run(n: int) -> int:
 
 
 def start_fleet(fleet: dict) -> None:
-    """``python -m jepsen_tpu_torch.serve --supervise --fleet 2`` on the
-    card, its WALs and log in a directory under ``build/``, described in
-    ``fleet``; a thread notes there when both members first answer
-    ``/healthz``."""
+    """``python -m jepsen_tpu_torch.cli serve --checker --supervise --fleet
+    2`` on the card, its WALs and log in a directory under ``build/``,
+    described in ``fleet``; a thread notes there when both members first
+    answer ``/healthz``."""
     import tempfile
 
     from jepsen_tpu_torch.serve import client as serve_client
@@ -2764,9 +2822,9 @@ def start_fleet(fleet: dict) -> None:
     port = free_port_run(FLEET_MEMBERS)
     with open(os.path.join(root, "fleet.log"), "ab") as log:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "jepsen_tpu_torch.serve", "--supervise",
-             "--fleet", str(FLEET_MEMBERS), "--port", str(port), "--wal",
-             os.path.join(root, "wal.jsonl")],
+            [sys.executable, "-m", "jepsen_tpu_torch.cli", "serve",
+             "--checker", "--supervise", "--fleet", str(FLEET_MEMBERS),
+             "--port", str(port), "--wal", os.path.join(root, "wal.jsonl")],
             stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
     fleet.update(proc=proc, port=port, root=root, t0=time.perf_counter(),
                  ready_s=None)
@@ -2810,10 +2868,49 @@ def check_key(model, hs, opts) -> str:
                                    "opts": dict(opts), "histories": hs})
 
 
+def start_router(members):
+    """``cli route`` over ``members`` on a thread of this process (probes
+    only when asked: the weights stay put while the phase predicts each
+    key's member).  Returns the :class:`Router` the command built, its
+    thread and a box that gets the command's exit code."""
+    from jepsen_tpu_torch.serve import client as serve_client
+    from jepsen_tpu_torch.serve import router as router_mod
+
+    built = []
+
+    class Noted(router_mod.Router):
+        def start(self, block=True):
+            built.append(self)
+            return super().start(block)
+
+    port = serve_client.free_port()
+    box: dict = {}
+    argv = ["route", "--port", str(port), "--probe-interval", "3600"]
+    for m in members:
+        argv += ["--member", m]
+    plain_router = router_mod.Router
+    router_mod.Router = Noted
+    try:
+        # not captured: redirecting stdout on this thread would take the
+        # main thread's lines for the command's whole life
+        t = threading.Thread(target=lambda: box.update(
+            code=cli.run_cli(cli.default_commands(), argv)), daemon=True)
+        t.start()
+        deadline = time.monotonic() + 60
+        while not (built and serve_client.probe_healthz(
+                f"127.0.0.1:{port}")):
+            require(t.is_alive() and time.monotonic() < deadline,
+                    f"fleet: cli route did not come up ({box})")
+            time.sleep(0.05)
+    finally:
+        router_mod.Router = plain_router
+    return built[0], t, box
+
+
 def fleet_phase(card, fleet, model, hs, results, f_hs, f_results, la_hs,
                 device):
-    """Phase 26: a supervised fleet of two daemons on the card behind an
-    in-process router."""
+    """Phase 26: a supervised fleet of two daemons on the card behind
+    ``cli route``."""
     from jepsen_tpu_torch import serve
     from jepsen_tpu_torch.elle import list_append as elle_la
     from jepsen_tpu_torch.serve import router as router_mod
@@ -2845,8 +2942,13 @@ def fleet_phase(card, fleet, model, hs, results, f_hs, f_results, la_hs,
         return sum(daemon_delta(st1[m], st0[m]).get(name, 0)
                    for m in members)
 
-    router = router_mod.Router(members, port=0, probe_interval_s=3600.0)
-    router.start(block=False)
+    code, table = run_cli_captured(["status", "--port", str(port),
+                                    "--daemon", members[1]])
+    require(code == cli.EXIT_VALID and table.startswith("── fleet")
+            and all(m in table for m in members)
+            and "unreachable" not in table,
+            f"fleet: cli status exited {code}: {table!r}")
+    router, router_thread, router_box = start_router(members)
     try:
         require(router.probe_once() == FLEET_MEMBERS,
                 "fleet: the router's probe found a member down")
@@ -3055,16 +3157,30 @@ def fleet_phase(card, fleet, model, hs, results, f_hs, f_results, la_hs,
              reroutes=rerouted() - before, restart_to_healthz_s=restart_s,
              next_request_s=secs, card=card)
 
-        # -- drain both members; the supervisor exits 0 ---------------------
-        for c in mclients.values():
-            require(c.shutdown()["ok"], "fleet: a member refused /shutdown")
+        # -- drain both members and the router through the CLI; the
+        # supervisor and the route command exit 0 --------------------------
+        code, out = run_cli_captured(["shutdown", "--port", str(port),
+                                      "--daemon", members[1]])
+        require(code == cli.EXIT_VALID and out.count("draining") == 2,
+                f"fleet: cli shutdown exited {code}: {out!r}")
         rc = proc.wait(timeout=300)
         require(rc == 0, f"fleet: the supervisor exited {rc}")
+        code, out = run_cli_captured(["shutdown", "--port",
+                                      str(router.port)])
+        require(code == cli.EXIT_VALID, f"fleet: the router's cli shutdown "
+                f"exited {code}")
+        router_thread.join(timeout=60)
+        require(not router_thread.is_alive()
+                and router_box.get("code") == cli.EXIT_VALID,
+                f"fleet: cli route ended with {router_box}")
     finally:
-        router.stop()
+        if router_thread.is_alive():
+            router.stop()
+            router_thread.join(timeout=60)
     require(not client.healthy(), "fleet: the router still answers")
-    emit(phase="fleet", step="drain", exit_code=rc,
-         phase_seconds=time.perf_counter() - t_phase, card=card)
+    emit(phase="fleet", step="drain", exit_code=rc, fleet_table=
+         table.splitlines(), phase_seconds=time.perf_counter() - t_phase,
+         card=card)
 
 
 # ---------------------------------------------------------------------------
@@ -3109,9 +3225,21 @@ def tuning_phase(card, model, hs, results):
                 "closure_mode": cycles.DEFAULT_CLOSURE_MODE}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
         before = {k: w().launches for k, w in TUNER_KERNELS.items()}
-        path, data = tune.run_tune(
-            out_path=os.path.join(tmp, "calibration.json"), profile="smoke",
-            activate=False)
+        # the tuner through the CLI's ``tune``, which also activates the
+        # fresh artifact in this process (reset below)
+        try:
+            code, out = run_cli_captured([
+                "tune", "--out", os.path.join(tmp, "calibration.json"),
+                "--profile", "smoke"])
+        finally:
+            tune.use(None)
+        require(code == 0, f"cli tune exited {code}")
+        line = json.loads(out.strip().splitlines()[-1])
+        path = line["path"]
+        with open(path) as f:
+            data = json.load(f)
+        require(line["calibration"] == data["calibration_id"],
+                "cli tune's line names another artifact")
         tuner_launches = {k: w().launches - before[k]
                           for k, w in TUNER_KERNELS.items()}
         sweep = data["sweep"]
@@ -3481,6 +3609,144 @@ def harness_phase(card):
     shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the real-process path: the localkv suite (phase 30)
+# ---------------------------------------------------------------------------
+
+#: phase 30's run: the reference's documented real-cluster run
+#: (doc/example-local-cluster/README.md:13-16) at the CLI's five nodes
+LOCALKV_ARGS = ["--suite", "localkv", "--faults", "partition,kill",
+                "--time-limit", "10", "--concurrency", "6", "--rate", "40",
+                "-o", "interval=2"]
+
+
+def run_cli_captured(argv):
+    """``cli.run_cli`` of the default commands with its standard output
+    captured: ``(exit code, output)``."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli.run_cli(cli.default_commands(), argv)
+    return code, out.getvalue()
+
+
+def as_json(x):
+    """``x`` as JSON gives it back (tuples become lists)."""
+    return json.loads(json.dumps(x, default=repr))
+
+
+def localkv_phase(card):
+    """Phase 30: ``cli test --suite localkv`` — five ``repregd`` replicas
+    built with g++, partitioned and killed, the history checked on the
+    card — held against the plain versions and the CPU oracle, then
+    ``cli analyze`` of the stored run on the card."""
+    import shutil
+
+    root = os.path.abspath(os.path.join("build", "chip_smoke_localkv"))
+    shutil.rmtree(root, ignore_errors=True)
+    base = os.path.join(root, "store")
+    nodes_dir = os.path.join(root, "nodes")
+    model = models.cas_register(0)
+    try:
+        reset_dense_launches()
+        wgl.FRONTIER_SEARCH.launches = 0
+        wgl.ESCALATIONS.clear()
+        t0 = time.perf_counter()
+        code, _ = run_cli_captured(["test", *LOCALKV_ARGS, "--store-base",
+                                    base, "-o", f"dir={nodes_dir}"])
+        run_s = time.perf_counter() - t0
+        k1 = dense.DENSE_AUTOMATON.launches
+        k4 = wgl.FRONTIER_SEARCH.launches
+        rungs = {str(k): v for k, v in wgl.ESCALATIONS.items()}
+        require(code == cli.EXIT_VALID, f"localkv: cli test exited {code}")
+        require(k1 + k4 > 0, "localkv: the check launched no kernel")
+        start = store_mod.latest_time(base, "localkv")
+        stored = store_mod.load({"name": "localkv", "start-time": start,
+                                 "store-base": base})
+        require(not stored.get("recovered"), "localkv: the store was torn")
+        h, results = stored["history"], stored["results"]
+        card_result = results["workload"]
+        client = [op for op in h if isinstance(op.process, int)]
+        types = {t: sum(1 for op in client if op.type == t)
+                 for t in ("invoke", "ok", "fail", "info")}
+        nemesis_fs = sorted({op.f for op in h if op.process == "nemesis"})
+        require(types["ok"] > 20, f"localkv: only {types['ok']} ok ops")
+        require({"start-partition", "kill"} <= set(nemesis_fs),
+                f"localkv: the faults seen were {nemesis_fs}")
+        enc = encode.encode_history(h, model)
+        E = len(enc.ev_slot) if enc is not None else None
+        C = enc.max_open if enc is not None else None
+        V = (wgl.value_domain("cas-register", enc.init_state, enc.cand_a,
+                              enc.cand_b) if enc is not None else None)
+        run_dir = os.path.join(base, "localkv", start)
+        for n in cli.DEFAULT_NODES:
+            log = os.path.join(run_dir, n, "server.log")
+            require(os.path.exists(log), f"localkv: {log} was not snarfed")
+            with open(log) as f:
+                require("repregd" in f.read(),
+                        f"localkv: {log} does not name repregd")
+
+        # the card again, the plain versions and the oracle on the history
+        # the store holds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again_card = as_json(checker_mod.check_safe(
+            checker_mod.linearizable(model), {}, h))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = as_json(checker_mod.check_safe(
+            checker_mod.linearizable(model, device="cpu"), {}, h))
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        oracle = as_json(checker_mod.check_safe(
+            checker_mod.linearizable(model, algorithm="oracle"), {}, h))
+        oracle_s = time.perf_counter() - t0
+        require(again_card == card_result,
+                f"localkv: the stored result {card_result} differs from a "
+                f"re-check on the card {again_card}")
+        require(card_result == plain, f"localkv: the card's result "
+                f"{card_result} differs from the plain versions' {plain}")
+        # the oracle's map has no engine and the device's no op count:
+        # every key the two share, the verdict first, must agree
+        shared = sorted(set(card_result) & set(oracle))
+        require("valid?" in shared and all(
+            card_result[k] == oracle[k] for k in shared),
+            f"localkv: the card's result {card_result} differs from the "
+            f"oracle's {oracle}")
+
+        # -- cli analyze of the stored run, on the card --------------------
+        k4_before = wgl.FRONTIER_SEARCH.launches
+        t0 = time.perf_counter()
+        code, out = run_cli_captured(["analyze", "--test-name", "localkv",
+                                      "--store-base", base])
+        analyze_s = time.perf_counter() - t0
+        require(code == cli.EXIT_VALID, f"localkv: cli analyze exited {code}")
+        again = json.loads(out)
+        require(again["workload"] == card_result,
+                f"localkv: analyze says {again['workload']}, the run said "
+                f"{card_result}")
+        phases = {r["name"]: r["wall_s"]
+                  for r in (results.get("obs") or {}).get("phases", [])}
+        emit(phase="localkv", args=LOCALKV_ARGS, code=code, seconds=run_s,
+             ops=types["invoke"], oks=types["ok"], fails=types["fail"],
+             infos=types["info"], nemesis_fs=nemesis_fs, E=E, C=C, V=V,
+             engine=card_result.get("engine"),
+             kernel=card_result.get("kernel"), escalations=rungs,
+             k1_launches=k1, k4_launches=k4, valid=card_result["valid?"],
+             card_check_s=card_s, plain_s=plain_s, oracle_s=oracle_s,
+             analysis_s=phases.get("analyze"),
+             db_start_s=phases.get("db-start"),
+             generator_s=phases.get("generator"), analyze_cli_s=analyze_s,
+             analyze_k4_launches=wgl.FRONTIER_SEARCH.launches - k4_before,
+             equal_plain=True, equal_oracle_keys=shared, card=card)
+    finally:
+        subprocess.run(["pkill", "-9", "-f", nodes_dir], capture_output=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -3735,6 +4001,9 @@ def main() -> int:
 
     # -- 29. the test harness: the CLI, analyze, core.run under faults -------
     harness_phase(card)
+
+    # -- 30. real processes: the localkv suite under partitions and kills ----
+    localkv_phase(card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

@@ -33,7 +33,9 @@ The reference's O(n) checkers run on the host, as there: unhandled
 exceptions (checker.clj:124-151), stats (:153-183), queue (:218-238),
 set (:240-291), set-full (:294-592), total-queue (:594-687), unique-ids
 (:689-734) and counter (:737-795); ``timeline.html`` is in
-:mod:`.timeline`.  The perf, clock and SVG renderers are not ported yet.
+:mod:`.timeline`; the latency and rate plots (:func:`perf_checker`,
+checker.clj:797-829) in :mod:`.perf` over :mod:`.svg`.  The clock plot
+and ``log_file_pattern`` are not ported yet.
 (reference semantics: jepsen/src/jepsen/checker.clj)
 """
 
@@ -823,3 +825,55 @@ def linearizable(
     (reference: checker.clj:185-216)"""
     return _Linearizable(model, algorithm, pure_fs, oracle_budget_s, device,
                          client)
+
+
+# ---------------------------------------------------------------------------
+# Graph checkers (SVG renderers; reference used gnuplot)
+# ---------------------------------------------------------------------------
+
+
+class _LatencyGraph(Checker):
+    def __init__(self, opts: Optional[dict] = None):
+        self.opts = opts or {}
+
+    def check(self, test, history, opts=None):
+        if not test.get("store?", True):
+            return {"valid?": True}
+        from . import perf as perf_mod
+
+        o = {**self.opts, **(opts or {})}
+        perf_mod.point_graph(test, history, o)
+        perf_mod.quantiles_graph(test, history, o)
+        return {"valid?": True}
+
+
+def latency_graph(opts: Optional[dict] = None) -> Checker:
+    """Plots latency raw + quantiles.  (reference: checker.clj:797-808)"""
+    return _LatencyGraph(opts)
+
+
+class _RateGraph(Checker):
+    def __init__(self, opts: Optional[dict] = None):
+        self.opts = opts or {}
+
+    def check(self, test, history, opts=None):
+        if not test.get("store?", True):
+            return {"valid?": True}
+        from . import perf as perf_mod
+
+        perf_mod.rate_graph(test, history, {**self.opts, **(opts or {})})
+        return {"valid?": True}
+
+
+def rate_graph(opts: Optional[dict] = None) -> Checker:
+    """Plots throughput over time.  (reference: checker.clj:810-820)"""
+    return _RateGraph(opts)
+
+
+def perf_checker(opts: Optional[dict] = None) -> Checker:
+    """Composes latency + rate graphs.  (reference: checker.clj:822-829;
+    named perf_checker because the submodule jepsen_tpu_torch.checker.perf
+    holds the plot functions)"""
+    return compose(
+        {"latency-graph": latency_graph(opts), "rate-graph": rate_graph(opts)}
+    )

@@ -1,10 +1,12 @@
-"""Command-line runner: ``test`` / ``analyze`` — the port's copy of
-:mod:`jepsen_tpu.cli`.
+"""Command-line runner — the port's copy of :mod:`jepsen_tpu.cli`:
+``test`` / ``analyze`` (in-process workloads, or a DB suite with
+``--suite``), the checker service's ``serve --checker`` / ``status`` /
+``shutdown`` / ``route`` / ``top`` / ``profile``, and ``tune``.
 
 (reference: jepsen/src/jepsen/cli.clj — run! dispatcher:258, standard
 test opt spec:64-111 incl. the "3n" concurrency convention:150-168,
 single-test-cmd:355 providing both `test` and `analyze`:389-431,
-exit codes:129-138)
+serve-cmd:336, exit codes:129-138)
 
 Exit codes: 0 valid, 1 invalid, 2 unknown/errors, 254 usage error,
 255 crash.
@@ -12,17 +14,25 @@ Exit codes: 0 valid, 1 invalid, 2 unknown/errors, 254 usage error,
     python -m jepsen_tpu_torch.cli test --workload linearizable-register
     python -m jepsen_tpu_torch.cli test --workload linearizable-register \
         --device cpu --time-limit 3
-    python -m jepsen_tpu_torch.cli analyze --test-name linearizable-register
+    python -m jepsen_tpu_torch.cli test --suite localkv \
+        --faults partition,kill --time-limit 10 --concurrency 6 --rate 40 \
+        -o interval=2
+    python -m jepsen_tpu_torch.cli analyze --test-name localkv
+    python -m jepsen_tpu_torch.cli serve --checker --supervise --fleet 2 \
+        --port 8519
+    python -m jepsen_tpu_torch.cli status --port 8519 --daemon 127.0.0.1:8520
 
 The analysis runs on the current CUDA device unless ``--device cpu``
 asks for the plain PyTorch versions; without CUDA and without
 ``--device cpu`` a run raises before it starts, never falling back to
 the CPU.  ``--engine-window`` is the test map's ``engine-window``, which
-the checkers pass to the engine; no environment variable is set.  The
-reference's ``serve``, ``tune`` and ``test-all`` commands are not here:
-the checker daemon and the tuner keep their own entry points (``python
--m jepsen_tpu_torch.serve``, ``python -m jepsen_tpu_torch.tune``), and
-``--suite`` waits for the port of the DB suites.
+the checkers pass to the engine.  Flags stand in for the reference's
+environment variables: the service commands' daemon is ``--host`` and
+``--port`` (default ``127.0.0.1:8519``), the daemon's WAL is
+``serve --wal``; no environment variable is read or set.  Not ported
+yet: ``serve`` without ``--checker`` (the store's web UI, the
+reference's ``web.py``), ``test-all`` and the in-process workloads other
+than linearizable-register.
 
 A DB suite builds its CLI by passing its test-constructor to
 :func:`single_test_cmd` and calling :func:`run_cli` with the command map.
@@ -401,6 +411,475 @@ def single_test_cmd(
     }
 
 
+def _daemon_client(host: Optional[str], port: Optional[int], **kw):
+    """A :class:`~jepsen_tpu_torch.serve.client.ServiceClient` of a daemon
+    address given on the command line (``--host``/``--port``; the
+    defaults are the daemon's, ``127.0.0.1:8519``)."""
+    from .serve import ServiceClient, protocol
+
+    return ServiceClient(host or protocol.DEFAULT_HOST,
+                         protocol.DEFAULT_PORT if port is None else port,
+                         **kw)
+
+
+def _parse_addr(addr: str):
+    """``HOST:PORT`` → ``(host or None, port)``; ValueError when the port
+    is not an integer."""
+    host, _, port = str(addr).rpartition(":")
+    return host or None, int(port)
+
+
+def serve_cmd() -> Dict[str, dict]:
+    """``serve --checker`` (the resident checker daemon, optionally
+    supervised, or a supervised fleet), ``status``/``shutdown`` of one or
+    more daemons, ``route`` (the fleet's front), ``top`` (the live fleet
+    view) and ``profile`` (a bounded profiling window on a daemon).
+    (reference: cli.clj:336-354; jepsen_tpu/cli.py:410-862)
+
+    Each command is thin over a ported part: :func:`..serve.daemon.serve`
+    and :func:`~..serve.daemon.supervise`/:func:`~..serve.daemon.
+    supervise_fleet` (through ``python -m jepsen_tpu_torch.serve``'s
+    entry), :class:`~..serve.client.ServiceClient`'s ``status``,
+    ``shutdown``, ``profile`` and ``watch``, and :class:`~..serve.router.
+    Router`.  Flags replace the reference's environment variables.
+    ``serve`` without ``--checker`` is the store's web UI, which is not
+    ported: it exits with a usage error naming it."""
+
+    def add_opts(p):
+        p.add_argument("--host", default=None,
+                       help="bind address (default 127.0.0.1)")
+        p.add_argument("--port", "-b", type=int, default=None,
+                       help="TCP port (default 8519; with --fleet N the "
+                       "members take PORT … PORT+N-1)")
+        p.add_argument(
+            "--checker",
+            action="store_true",
+            help="serve the resident checker daemon (the card, its "
+            "kernels and the oracle pool stay warm across runs) instead "
+            "of the store web UI",
+        )
+        p.add_argument("--device", default=None,
+                       help="(--checker) the daemon's device (default: the "
+                       "current CUDA device, required to exist; 'cpu' runs "
+                       "the plain versions)")
+        p.add_argument(
+            "--engine-window",
+            type=_engine_window_arg,
+            help="(--checker) the resident dispatch-window bound",
+        )
+        p.add_argument(
+            "--max-queue",
+            type=int,
+            help="(--checker) queued client runs before /check "
+            "answers 503 backlogged (default 32)",
+        )
+        p.add_argument("--wal", default=None,
+                       help="(--checker) verdict write-ahead log path "
+                       "(default off); a fleet's member i writes "
+                       "ROOT-i.EXT")
+        p.add_argument(
+            "--supervise",
+            action="store_true",
+            help="(--checker) run the daemon as a supervised child "
+            "and restart it on abnormal exit, on the same port and WAL",
+        )
+        p.add_argument(
+            "--fleet",
+            type=int,
+            default=1,
+            metavar="N",
+            help="(--checker --supervise) run N daemons on ports "
+            "PORT..PORT+N-1 with one WAL each; front them with "
+            "`route`",
+        )
+
+    def run(args) -> int:
+        if not args.checker:
+            print("serve: the store web UI (the reference's web.py) is "
+                  "not ported to jepsen_tpu_torch yet; `serve --checker` "
+                  "runs the checker daemon", file=sys.stderr)
+            return EXIT_USAGE
+        if args.fleet > 1 and not args.supervise:
+            print("--fleet requires --supervise", file=sys.stderr)
+            return EXIT_USAGE
+        from .serve import __main__ as serve_main
+
+        argv: List[str] = []
+        for flag, value in (("--host", args.host), ("--port", args.port),
+                            ("--device", args.device),
+                            ("--window", args.engine_window),
+                            ("--max-queue", args.max_queue),
+                            ("--wal", args.wal)):
+            if value is not None:
+                argv += [flag, str(value)]
+        if args.supervise:
+            argv.append("--supervise")
+            if args.fleet > 1:
+                argv += ["--fleet", str(args.fleet)]
+        return serve_main.main(argv)
+
+    def add_daemon_opts(p):
+        p.add_argument("--host", default=None,
+                       help="daemon host (default 127.0.0.1)")
+        p.add_argument("--port", "-b", type=int, default=None,
+                       help="daemon port (default 8519)")
+
+    def add_fleet_daemon_opts(p):
+        add_daemon_opts(p)
+        p.add_argument(
+            "--daemon",
+            action="append",
+            default=[],
+            metavar="HOST:PORT",
+            help="additional daemon address (repeatable) — address "
+            "the whole fleet in one command, like `top`",
+        )
+
+    def fleet_clients(args, timeout=None):
+        """The primary ``--host``/``--port`` client plus one per
+        repeatable ``--daemon HOST:PORT``; ``None`` on a malformed
+        address (after printing the usage error)."""
+        clients = [_daemon_client(args.host, args.port, timeout=timeout)]
+        for addr in getattr(args, "daemon", []):
+            try:
+                host, port = _parse_addr(addr)
+            except ValueError:
+                print(f"bad --daemon address {addr!r} (want HOST:PORT)",
+                      file=sys.stderr)
+                return None
+            clients.append(_daemon_client(host, port, timeout=timeout))
+        return clients
+
+    def status(args) -> int:
+        from .serve import ServiceError, ServiceUnavailable, client
+
+        clients = fleet_clients(args)
+        if clients is None:
+            return EXIT_USAGE
+        if len(clients) == 1:
+            c = clients[0]
+            try:
+                print(client.format_status(c.status()))
+            except ServiceUnavailable:
+                print(
+                    f"no checker service at http://{c.host}:{c.port}/ "
+                    "(start one: serve --checker)",
+                    file=sys.stderr,
+                )
+                return EXIT_UNKNOWN
+            return EXIT_VALID
+        rows, unreachable = [], 0
+        for c in clients:
+            try:
+                rows.append((f"{c.host}:{c.port}", c.status()))
+            except (ServiceError, ServiceUnavailable):
+                rows.append((f"{c.host}:{c.port}", None))
+                unreachable += 1
+        print(client.format_fleet_status(rows))
+        return EXIT_UNKNOWN if unreachable == len(clients) else EXIT_VALID
+
+    def shutdown(args) -> int:
+        from .serve import ServiceUnavailable
+
+        clients = fleet_clients(args)
+        if clients is None:
+            return EXIT_USAGE
+        unreachable = 0
+        for c in clients:
+            try:
+                out = c.shutdown()
+            except ServiceUnavailable:
+                print(
+                    f"no checker service at http://{c.host}:{c.port}/",
+                    file=sys.stderr,
+                )
+                unreachable += 1
+                continue
+            print(
+                f"checker service at {c.host}:{c.port} draining "
+                f"({out.get('draining', 0)} queued runs), then stopping"
+            )
+        return EXIT_UNKNOWN if unreachable == len(clients) else EXIT_VALID
+
+    def add_profile_opts(p):
+        add_daemon_opts(p)
+        p.add_argument(
+            "--seconds", type=float, default=1.0,
+            help="capture window length in seconds (clamped to 30)",
+        )
+        p.add_argument(
+            "--label", default="",
+            help="label recorded in the capture manifest (and the "
+            "capture directory name)",
+        )
+        p.add_argument(
+            "--dir", dest="out_dir", default=None,
+            help="capture directory (default: a timestamped subdir of "
+            "the daemon's profiles/ dir)",
+        )
+
+    def profile(args) -> int:
+        from .serve import ServiceError, ServiceUnavailable
+
+        c = _daemon_client(args.host, args.port)
+        try:
+            out = c.profile(seconds=args.seconds, label=args.label,
+                            out_dir=args.out_dir)
+        except ServiceUnavailable:
+            print(
+                f"no checker service at http://{c.host}:{c.port}/ "
+                "(start one: serve --checker)",
+                file=sys.stderr,
+            )
+            return EXIT_UNKNOWN
+        except ServiceError as e:
+            print(f"profile failed: {e}", file=sys.stderr)
+            return EXIT_UNKNOWN
+        man = out.get("manifest") or {}
+        peaks = ", ".join(
+            f"{d.get('device')} "
+            + (f"{d['peak_bytes_in_use'] / 1e6:.1f}MB"
+               if isinstance(d.get("peak_bytes_in_use"), (int, float))
+               else "n/a")
+            for d in (man.get("memory") or [])
+        ) or "no devices"
+        print(
+            f"profile capture → {out.get('dir')}"
+            f" ({man.get('wall_seconds', 0)}s, "
+            + ("trace collected" if man.get("trace") else "no trace")
+            + ")"
+        )
+        print(f"  device memory peak: {peaks}")
+        return EXIT_VALID
+
+    def add_route_opts(p):
+        p.add_argument(
+            "--member",
+            action="append",
+            required=True,
+            metavar="HOST:PORT",
+            help="fleet member daemon address (repeatable)",
+        )
+        p.add_argument("--host", default=None,
+                       help="router bind host (default 127.0.0.1)")
+        p.add_argument(
+            "--port", "-b", type=int, default=None,
+            help="router bind port (default 8519 — clients point at the "
+            "router unchanged; 0 picks a free one)",
+        )
+        p.add_argument("--probe-interval", type=float, default=None,
+                       metavar="S",
+                       help="seconds between probes of every member's "
+                       "/healthz and /status")
+
+    def route(args) -> int:
+        from .serve import protocol, router
+
+        for m in args.member:
+            try:
+                _parse_addr(m)
+            except ValueError:
+                print(f"bad --member address {m!r} (want HOST:PORT)",
+                      file=sys.stderr)
+                return EXIT_USAGE
+        kw = {}
+        if args.probe_interval is not None:
+            kw["probe_interval_s"] = args.probe_interval
+        router.Router(
+            args.member,
+            host=args.host or protocol.DEFAULT_HOST,
+            port=protocol.DEFAULT_PORT if args.port is None else args.port,
+            **kw,
+        ).start(block=True)
+        return EXIT_VALID
+
+    def add_top_opts(p):
+        add_daemon_opts(p)
+        p.add_argument(
+            "--daemon",
+            action="append",
+            default=[],
+            metavar="HOST:PORT",
+            help="additional daemon address (repeatable) — one block "
+            "per daemon in the fleet view",
+        )
+        p.add_argument(
+            "--once",
+            action="store_true",
+            help="render a single frame and exit (scripts/CI)",
+        )
+        p.add_argument(
+            "--interval",
+            type=float,
+            default=2.0,
+            help="refresh period in seconds (default 2)",
+        )
+
+    def top(args) -> int:
+        import time as time_mod
+
+        from .serve import ServiceError, ServiceUnavailable, \
+            client as client_mod
+
+        clients = fleet_clients(args, timeout=2.0)
+        if clients is None:
+            return EXIT_USAGE
+
+        def tail_verdicts(c, st, limit: int = 8) -> list:
+            """Bounded tail of one daemon's verdict channel: replay
+            only the last ``limit`` WAL rows via ``Last-Event-ID``,
+            stop as soon as they've arrived (or the read times out)."""
+            rows: list = []
+            wal_rows = st.get("wal_rows") or 0
+            if not wal_rows:
+                return rows
+            try:
+                for off, row in c.watch(
+                        last_id=max(-1, wal_rows - limit - 1),
+                        timeout=1.0):
+                    rows.append((f"{c.host}:{c.port}", off, row))
+                    if off >= wal_rows - 1 or len(rows) >= limit:
+                        break
+            except (ServiceError, ServiceUnavailable, OSError):
+                pass
+            return rows
+
+        def frame():
+            """One rendered fleet frame + the per-address errors (an
+            entry per daemon that did not answer /status)."""
+            blocks, verdicts, errors = [], [], []
+            for c in clients:
+                try:
+                    st = c.status()
+                except (ServiceError, ServiceUnavailable) as e:
+                    blocks.append(f"○ {c.host}:{c.port}  (unreachable)")
+                    errors.append((f"{c.host}:{c.port}", str(e)))
+                    continue
+                blocks.append(client_mod.format_top(c.host, c.port, st))
+                verdicts.extend(tail_verdicts(c, st))
+            verdicts.sort(key=lambda e: (e[2].get("ts") or 0, e[1]))
+            blocks.append(client_mod.format_verdicts(verdicts))
+            return "\n".join(blocks), errors
+
+        if args.once:
+            text, errors = frame()
+            print(text)
+            if len(errors) == len(clients):
+                # every daemon unreachable: a monitoring script must
+                # see a nonzero exit, with the reason per address
+                for addr, err in errors:
+                    print(f"top: {addr}: {err}", file=sys.stderr)
+                return EXIT_UNKNOWN
+            return EXIT_VALID
+        try:
+            while True:
+                # clear + home, then the frame: a refreshing view
+                # without curses
+                print("\\x1b[2J\\x1b[H" + frame()[0], flush=True)
+                time_mod.sleep(max(0.1, args.interval))
+        except KeyboardInterrupt:
+            return EXIT_VALID
+
+    return {
+        "serve": {
+            "help": "serve the resident checker daemon (--checker; the "
+            "store web UI is not ported yet)",
+            "add_opts": add_opts,
+            "run": run,
+        },
+        "status": {
+            "help": "show the resident checker service's status "
+            "(repeatable --daemon: one fleet table row per member)",
+            "add_opts": add_fleet_daemon_opts,
+            "run": status,
+        },
+        "shutdown": {
+            "help": "drain and stop the resident checker service "
+            "(repeatable --daemon: every addressed member)",
+            "add_opts": add_fleet_daemon_opts,
+            "run": shutdown,
+        },
+        "route": {
+            "help": "run the fleet routing front: rendezvous-hash "
+            "request shapes over --member daemons so same-shape "
+            "traffic coalesces on one resident executor, with "
+            "breaker-driven spillover",
+            "add_opts": add_route_opts,
+            "run": route,
+        },
+        "top": {
+            "help": "live fleet view of one or more checker daemons "
+            "(last-60s rates, queue wait, journal, drift, settled "
+            "verdicts; --once for one frame, nonzero exit when no "
+            "daemon answers)",
+            "add_opts": add_top_opts,
+            "run": top,
+        },
+        "profile": {
+            "help": "capture a bounded torch.profiler window and the "
+            "device memory peak on the resident checker daemon "
+            "(POST /profile)",
+            "add_opts": add_profile_opts,
+            "run": profile,
+        },
+    }
+
+
+def tune_cmd() -> Dict[str, dict]:
+    """``tune``: the offline tune pass (``python -m jepsen_tpu_torch.tune``)
+    — measure the attached device and persist a calibration artifact
+    the engine loads at its first lookup."""
+
+    def add_opts(p):
+        p.add_argument(
+            "--out",
+            default=None,
+            help="artifact path (default calibration.json in the working "
+            "directory: the path the engine loads by default)",
+        )
+        p.add_argument(
+            "--profile",
+            default="default",
+            help="sweep profile: 'default' (the full sweep) or 'smoke' "
+            "(the tiny gate)",
+        )
+        p.add_argument(
+            "--budget-s",
+            type=float,
+            default=None,
+            help="wall-clock budget for the sweep; a truncated sweep "
+            "still persists every config it measured",
+        )
+        p.add_argument(
+            "--device",
+            default=None,
+            help="where to measure (default cuda; cpu runs the plain "
+            "versions, for tests only)",
+        )
+
+    def run(args) -> int:
+        from .tune import __main__ as tune_main
+
+        argv = []
+        if args.out:
+            argv += ["--out", args.out]
+        argv += ["--profile", args.profile]
+        if args.budget_s is not None:
+            argv += ["--budget-s", str(args.budget_s)]
+        if args.device is not None:
+            argv += ["--device", args.device]
+        return tune_main.main(argv)
+
+    return {
+        "tune": {
+            "help": "measure the attached device and persist a "
+            "calibration artifact (the engine's dispatch knobs)",
+            "add_opts": add_opts,
+            "run": run,
+        }
+    }
+
+
 def logging_safe_repr(obj: Any) -> str:
     import json
 
@@ -438,16 +917,35 @@ def run_cli(commands: Dict[str, dict], argv: Optional[List[str]] = None) -> int:
 
 def default_commands() -> Dict[str, dict]:
     """The built-in command set: run a registered workload in-process
-    against the in-memory fake client (dummy remote), or re-analyze a
-    stored run.  (The reference's map also has ``--suite``, ``test-all``,
-    ``serve`` and ``tune``.)"""
+    against the in-memory fake client (dummy remote) or a DB suite
+    (``--suite``), re-analyze a stored run, the checker service's
+    commands and the tuner.  (The reference's map also has
+    ``test-all``.)"""
 
     def add_workload_opt(p):
         p.add_argument(
+            "--suite",
+            help="DB suite to run against real nodes (see "
+            "jepsen_tpu_torch.suites.SUITES: localkv).  Without --suite, "
+            "the workload runs in-process against the in-memory fake "
+            "client.",
+        )
+        p.add_argument(
             "--workload",
             default=None,
-            help="workload name (see jepsen_tpu_torch.workloads.names; "
-            "default linearizable-register)",
+            help="workload name (suite-specific with --suite; see "
+            "jepsen_tpu_torch.workloads.names otherwise; default "
+            "linearizable-register)",
+        )
+        p.add_argument(
+            "--faults",
+            help="comma-separated nemesis faults for --suite runs "
+            "(partition,kill,pause)",
+        )
+        p.add_argument(
+            "--rate",
+            type=float,
+            help="target ops/sec for --suite runs",
         )
         p.add_argument(
             "--per-key-limit",
@@ -461,7 +959,8 @@ def default_commands() -> Dict[str, dict]:
             action="append",
             default=[],
             metavar="KEY=VALUE",
-            help="extra workload option (repeatable); ints parse as ints",
+            help="extra workload or suite option (repeatable), e.g. -o "
+            "interval=2; ints parse as ints",
         )
 
     def make_test(opts: dict) -> dict:
@@ -481,6 +980,19 @@ def default_commands() -> Dict[str, dict]:
                 opts[k] = int(v)
             except ValueError:
                 opts[k] = v
+
+        if opts.get("suite"):
+            from . import suites
+
+            if opts.get("faults"):
+                opts["faults"] = [
+                    f for f in str(opts["faults"]).split(",") if f
+                ]
+            else:
+                opts["faults"] = []
+            if not opts.get("workload"):
+                opts.pop("workload", None)  # let the suite pick its default
+            return suites.suite(opts["suite"]).test(opts)
 
         opts.setdefault("workload", "linearizable-register")
         wl = workloads.workload(opts["workload"], opts)
@@ -511,7 +1023,11 @@ def default_commands() -> Dict[str, dict]:
             test["concurrency"] = wl["concurrency"]
         return test
 
-    return single_test_cmd(make_test, add_workload_opt)
+    cmds: Dict[str, dict] = {}
+    cmds.update(single_test_cmd(make_test, add_workload_opt))
+    cmds.update(serve_cmd())
+    cmds.update(tune_cmd())
+    return cmds
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -8,10 +8,10 @@ This module holds the dynamic execution context (current node, session,
 sudo/dir state, thread-local) and the session lifecycle; ``core`` holds
 the Remote protocol, escaping and the dummy remote mirroring the
 reference's ``:dummy?`` mode (control.clj:40), which in-process tests
-run under.  The port has no network transport yet (the reference's
-``ssh``, ``agent_ssh``, ``docker``, ``k8s``, ``local``, ``retry`` and
-``scp`` submodules): a ``Remote`` of the caller's own plugs in through
-:func:`with_session`.
+run under; ``local`` runs commands on this host (the localkv suite's
+remote); ``util`` holds the node-side helpers (daemons, files, ports).
+The port has no network transport yet (the reference's ``ssh``,
+``agent_ssh``, ``docker``, ``k8s``, ``retry`` and ``scp`` submodules).
 """
 
 from __future__ import annotations
@@ -89,8 +89,8 @@ def current_session() -> Optional[Remote]:
 
 
 # ---------------------------------------------------------------------------
-# Command DSL (reference: control.clj:138-218 exec/su/sudo,
-# :179-189 download)
+# Command DSL (reference: control.clj:138-218 exec/su/sudo/cd,
+# :167-189 upload/download)
 # ---------------------------------------------------------------------------
 
 
@@ -116,6 +116,41 @@ def sudo(user: str = "root", password: Optional[str] = None):
 
 su = sudo  # reference aliases su to sudo-as-root
 
+#: process-wide default for command tracing, the `*trace*` dynamic var
+#: (reference: control.clj:43); the `trace` context manager overrides it
+#: per thread.
+TRACE = False
+
+
+@contextmanager
+def trace(enabled: bool = True):
+    """Log every command (with its node) before it runs in the body.
+    (reference: control.clj:43 *trace* + :115-119 wrap-trace)"""
+    # restore by deletion when previously unset: leaving `None` behind
+    # would shadow the module-level TRACE default on this thread
+    had = hasattr(_local, "trace")
+    prev = _dyn("trace")
+    _local.trace = enabled
+    try:
+        yield
+    finally:
+        if had:
+            _local.trace = prev
+        else:
+            del _local.trace
+
+
+@contextmanager
+def cd(dir: str):
+    """Run body's commands within `dir`.  (reference: control.clj:214-218)"""
+    prev = _dyn("dir")
+    _local.dir = dir
+    try:
+        yield
+    finally:
+        _local.dir = prev
+
+
 def execute(*args, stdin: Optional[str] = None, check: bool = True):
     """Build + run one shell command on the current node's session.
     Args are escaped (Lit passes raw).  Returns stdout (stripped), like
@@ -129,10 +164,17 @@ def execute(*args, stdin: Optional[str] = None, check: bool = True):
             "use with_session/on_nodes"
         )
     cmd = " ".join(escape(a) for a in args)
+    if _dyn("trace", TRACE):
+        import logging
+
+        logging.getLogger(__name__).info(
+            "Host: %s cmd: %s", current_node(), cmd
+        )
     command = Command(
         cmd=cmd,
         stdin=stdin,
         sudo=_dyn("sudo"),
+        dir=_dyn("dir"),
         sudo_password=_dyn("sudo_password"),
     )
     from .. import obs
@@ -144,6 +186,18 @@ def execute(*args, stdin: Optional[str] = None, check: bool = True):
     if check:
         throw_on_nonzero_exit(result)
     return result.out.strip()
+
+
+# short name matching the reference's c/exec
+exec_ = execute
+
+
+def upload(local_path, remote_path):
+    """(reference: control.clj:167-178)"""
+    session = current_session()
+    if session is None:
+        raise RuntimeError("no session bound")
+    session.upload(local_path, remote_path)
 
 
 def download(remote_path, local_path):
@@ -159,14 +213,18 @@ def _binding_snapshot() -> dict:
     them — the reference's binding conveyance (util.clj:65-83)."""
     return {
         "sudo": _dyn("sudo"),
+        "dir": _dyn("dir"),
         "sudo_password": _dyn("sudo_password"),
+        "trace": _dyn("trace", TRACE),
     }
 
 
 @contextmanager
 def _with_bindings(snapshot: dict):
-    # restore-by-deletion for keys that weren't set (the worker may be
-    # the calling thread itself when the pool runs a task inline)
+    # restore-by-deletion for keys that weren't set: leaving e.g.
+    # trace=None behind would shadow its module-level default (the
+    # worker may be the calling thread itself when the pool runs a task
+    # inline)
     had = {k: hasattr(_local, k) for k in snapshot}
     prev = {k: _dyn(k) for k in snapshot}
     for k, v in snapshot.items():

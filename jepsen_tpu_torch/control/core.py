@@ -1,16 +1,15 @@
 """Remote protocol, shell escaping, sudo wrapping.
 
 (reference: jepsen/src/jepsen/control/core.clj — Remote protocol :7-58,
-lit :62-66, escape :67-110, throw-on-nonzero-exit :155-171.)  The
-transports' helpers (``env``, ``wrap_sudo``) come with the first
-transport the port gets.
+lit :62-66, escape :67-110, env :112-140, wrap-sudo :142-153,
+throw-on-nonzero-exit :155-171.)
 """
 
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 
 class Lit:
@@ -53,6 +52,14 @@ def escape(arg: Any) -> str:
     return "'" + s.replace("'", "'\\''") + "'"
 
 
+def env(env_map: Optional[Dict[str, Any]]) -> List[str]:
+    """k=v tokens for an environment prefix.
+    (reference: control/core.clj:112-140)"""
+    if not env_map:
+        return []
+    return [f"{k}={escape(v)}" for k, v in sorted(env_map.items())]
+
+
 @dataclass
 class Command:
     """An action to run on a remote node."""
@@ -62,6 +69,26 @@ class Command:
     sudo: Optional[str] = None
     dir: Optional[str] = None
     sudo_password: Optional[str] = None
+
+
+def wrap_sudo(command: Command) -> str:
+    """Wrap a command string in sudo -u / cd as needed.
+    (reference: control/core.clj:142-153)"""
+    cmd = command.cmd
+    if command.dir:
+        cmd = f"cd {escape(command.dir)}; {cmd}"
+    if command.sudo:
+        cmd = f"sudo -k -S -u {escape(command.sudo)} bash -c {escape(cmd)}"
+    return cmd
+
+
+def effective_stdin(command: Command) -> Optional[str]:
+    """The stdin a transport should feed: sudo -S reads the password from
+    the first stdin line, so prepend it ahead of any command stdin
+    (reference semantics: control/core.clj:142-153 feeds *password*)."""
+    if command.sudo and command.sudo_password is not None:
+        return command.sudo_password + "\n" + (command.stdin or "")
+    return command.stdin
 
 
 @dataclass

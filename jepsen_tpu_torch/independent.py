@@ -271,11 +271,15 @@ def _unkeyed_pair(op: Op) -> bool:
 def rekey(history: History) -> History:
     """A keyed history with its ``[k, v]`` values as :class:`KV` again: a
     history read back from JSON (``store.load``) carries plain lists,
-    which :func:`split_by_key` would take for un-keyed values.  Only
-    client ops are rewrapped; a nemesis value of two elements stays as
-    it is.  A history with nothing to rewrap (a live run's) is returned
-    as it is.  The lifts below call it on their input."""
-    if not any(_unkeyed_pair(op) for op in history):
+    which :func:`split_by_key` would take for un-keyed values.  Only a
+    history in which no op carries a :class:`KV` is rewrapped, and only
+    its client ops; a nemesis value of two elements stays as it is.  A
+    live run's history (one with a :class:`KV`) is returned as it is, so
+    an un-keyed client op there lands unwrapped in every key's
+    subhistory, as the reference's :func:`subhistory` puts it.  The lifts
+    below call it on their input."""
+    if any(isinstance(op.value, KV) for op in history) \
+            or not any(_unkeyed_pair(op) for op in history):
         return history
     return History(op.copy(value=KV(op.value[0], op.value[1]))
                    if _unkeyed_pair(op) else op for op in history)

@@ -4,9 +4,8 @@
 validation; grudges :108-281, composition :285-428, clock, process and
 file faults :430-539.)
 
-The reference's ``Partitioner`` family (nemesis.clj:157-281) cuts links
-through its ``net`` module, which the port does not have yet; the
-grudge functions that plan those cuts are here.
+The ``Partitioner`` family (nemesis.clj:157-281) plans cuts with the
+grudge functions and makes them through :mod:`jepsen_tpu_torch.net`.
 """
 
 from __future__ import annotations
@@ -225,6 +224,86 @@ def majorities_ring(nodes):
     if len(nodes) <= 5:
         return majorities_ring_perfect(nodes)
     return majorities_ring_stochastic(nodes)
+
+
+# ---------------------------------------------------------------------------
+# Partitioners (reference: nemesis.clj:157-281)
+# ---------------------------------------------------------------------------
+
+
+class Partitioner(Nemesis):
+    """:start cuts links per (grudge nodes); :stop heals.
+    (reference: nemesis.clj:157-183)"""
+
+    def __init__(self, grudge_fn=None):
+        self.grudge_fn = grudge_fn
+
+    def setup(self, test):
+        from .. import net
+
+        net.heal(test)
+        return self
+
+    def invoke(self, test, op):
+        from .. import net
+
+        f = op.get("f")
+        if f == "start":
+            grudge = op.get("value")
+            if grudge is None:
+                if self.grudge_fn is None:
+                    raise ValueError(
+                        f"Expected op {op!r} to have a grudge for a value"
+                    )
+                grudge = self.grudge_fn(test["nodes"])
+            net.drop_all(test, grudge)
+            return {
+                **op,
+                "type": "info",
+                "value": ["isolated", {str(k): sorted(map(str, v)) for k, v in grudge.items()}],
+            }
+        elif f == "stop":
+            net.heal(test)
+            return {**op, "type": "info", "value": "network-healed"}
+        raise ValueError(f"partitioner cannot handle f={f!r}")
+
+    def teardown(self, test):
+        from .. import net
+
+        net.heal(test)
+
+    def fs(self):
+        return {"start", "stop"}
+
+
+def partitioner(grudge_fn=None) -> Nemesis:
+    return Partitioner(grudge_fn)
+
+
+def partition_halves() -> Nemesis:
+    """(reference: nemesis.clj:185-190)"""
+    return partitioner(lambda nodes: complete_grudge(bisect(nodes)))
+
+
+def partition_random_halves() -> Nemesis:
+    """(reference: nemesis.clj:192-195)"""
+
+    def grudge(nodes):
+        nodes = list(nodes)
+        _rng().shuffle(nodes)
+        return complete_grudge(bisect(nodes))
+
+    return partitioner(grudge)
+
+
+def partition_random_node() -> Nemesis:
+    """(reference: nemesis.clj:197-200)"""
+    return partitioner(lambda nodes: complete_grudge(split_one(nodes)))
+
+
+def partition_majorities_ring() -> Nemesis:
+    """(reference: nemesis.clj:277-281)"""
+    return partitioner(majorities_ring)
 
 
 # ---------------------------------------------------------------------------

@@ -27,9 +27,11 @@ HOST:PORT …``; reach it with ``checker.linearizable(model,
 algorithm="service", client=ServiceClient(port=...))``, ``elle``'s
 ``client=`` arguments, :func:`check_batch`, or a feed session.
 
-Not ported: the reference's shared AOT executable cache (a first dispatch
-on CUDA compiles nothing), its ``top`` command and web panel (harness
-parts).
+The CLI's ``serve --checker``, ``status``, ``shutdown``, ``route``,
+``top`` and ``profile`` commands (:mod:`jepsen_tpu_torch.cli`) drive
+these parts.  Not ported: the reference's shared AOT executable cache (a
+first dispatch on CUDA compiles nothing) and its web panel (the store's
+web UI, ``web.py``).
 """
 
 from .client import (  # noqa: F401

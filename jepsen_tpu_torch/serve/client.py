@@ -24,6 +24,7 @@ read from the environment.
 
 from __future__ import annotations
 
+import http.client
 import json
 import random
 import socket
@@ -147,16 +148,19 @@ def reset_breakers() -> None:
 
 
 def probe_healthz(addr: str, timeout: float = 0.5) -> bool:
-    """The ``/healthz`` probe of ``HOST:PORT``: a connection failure and a
-    malformed body both mean down.  Counted in
+    """The ``/healthz`` probe of ``HOST:PORT``: a connection failure, a
+    malformed answer and a malformed body all mean down.  A malformed
+    answer includes the probe's own request read back: polling a free
+    loopback port in the ephemeral range before its daemon binds it can
+    connect the probe's socket to itself.  Counted in
     ``jepsen_probe_healthz_total`` by outcome; never raises."""
     req = urllib.request.Request(f"http://{addr}/healthz", method="GET")
     try:
         with urllib.request.urlopen(req, timeout=timeout) as resp:
             ok = (resp.status == 200
                   and bool(protocol.decode_body(resp.read()).get("ok")))
-    except (urllib.error.URLError, ConnectionError, OSError, ValueError,
-            AttributeError):
+    except (urllib.error.URLError, http.client.HTTPException,
+            ConnectionError, OSError, ValueError, AttributeError):
         ok = False
     obs.count("jepsen_probe_healthz_total", outcome="up" if ok else "down")
     return ok
@@ -704,9 +708,15 @@ def format_status(st: dict) -> str:
             f"{k} {v}" for k, v in sorted(launches.items()))
             + (" · rows/launch " + ", ".join(
                 f"{k} {v}" for k, v in sorted(rpl.items())) if rpl else ""))
+    live = st.get("live")
+    if live:
+        lines.append("  " + format_live(live))
     jp = st.get("journal_path")
     if jp:
         lines.append(f"  journal: {st.get('journal_rows', 0)} rows → {jp}")
+    drift = st.get("drift")
+    if drift:
+        lines.append("  " + format_drift(drift))
     return "\n".join(lines)
 
 
@@ -748,4 +758,120 @@ def format_fleet_status(rows) -> str:
             c.ljust(w) for c, w in zip(r, widths)).rstrip())
         if i == 0:
             lines.append("  " + "  ".join("─" * w for w in widths))
+    return "\n".join(lines)
+
+
+def format_drift(drift: dict) -> str:
+    """One-line drift-sentinel view of a /status ``drift`` block
+    (obs.drift): aggregate score vs threshold, shape census, and —
+    when the sentinel recommends one — the retune call-out naming the
+    stale shapes."""
+    score = drift.get("score")
+    score_s = (f"{score:.2f}×" if isinstance(score, (int, float))
+               else "n/a")
+    line = (
+        f"drift: score {score_s}"
+        f" (threshold {drift.get('threshold')}×)"
+        f" · {drift.get('shapes', 0)} shape(s)"
+        f" · {drift.get('rows_scored', 0)} rows scored"
+    )
+    stale = drift.get("stale") or []
+    if drift.get("retune_recommended"):
+        shapes = ", ".join(
+            f"{s.get('kernel')}(E={s.get('E')},C={s.get('C')},"
+            f"F={s.get('F')})@{s.get('ratio')}×"
+            for s in stale
+        )
+        line += f" · RETUNE RECOMMENDED: {shapes or 'aggregate'}"
+    return line
+
+
+def _rate(live: dict, key: str) -> str:
+    v = live.get(key)
+    return f"{v:.2f}/s" if isinstance(v, (int, float)) else "n/a"
+
+
+def format_live(live: dict) -> str:
+    """One-line last-60 s view of a /status ``live`` dict (the
+    sliding-window rates)."""
+    qw = live.get("queue_wait_mean_s")
+    busy = live.get("device_busy_ratio")
+    return (
+        f"last 60s: req {_rate(live, 'requests_per_s')}"
+        f" · hist {_rate(live, 'histories_per_s')}"
+        f" · elle {_rate(live, 'elle_graphs_per_s')}"
+        f" · disp {_rate(live, 'dispatches_per_s')}"
+        f" · feed {_rate(live, 'feed_deltas_per_s')}"
+        f" · watch {_rate(live, 'watch_events_per_s')}"
+        f" · wait "
+        + (f"{qw * 1e3:.1f}ms" if isinstance(qw, (int, float)) else "n/a")
+        + " · busy "
+        + (f"{busy:.0%}" if isinstance(busy, (int, float)) else "n/a")
+    )
+
+
+def format_top(host: str, port, st: dict) -> str:
+    """One daemon's fleet-view block for ``top``: identity line, last-60 s
+    rates, queue/journal line."""
+    mesh = st.get("mesh_shape")
+    live = st.get("live") or {}
+    head = (
+        f"● {host}:{port}  pid {st.get('pid')}"
+        f" · {st.get('n_devices') or 1} device(s)"
+        + (f" · mesh {mesh}" if mesh else "")
+        + f" · up {st.get('uptime_s', 0):.0f}s"
+        + (" · DRAINING" if st.get("stopping") else "")
+    )
+    jp = st.get("journal_path")
+    # quarantined routes + drift score ride the same summary line:
+    # the two "this daemon needs an operator" signals the fleet view
+    # previously never showed
+    quarantined = len(st.get("quarantine") or [])
+    drift = st.get("drift") or {}
+    score = drift.get("score")
+    tail = (
+        f"  queue {st.get('queue_depth', 0)}/{st.get('max_queue_runs')}"
+        f" · in-flight {st.get('in_flight', 0)}"
+        f" · coalesced {st.get('coalesced', 0)}"
+        + (f" · feeds {st.get('feed_open', 0)}"
+           if st.get("feed_open") else "")
+        + (f" · watchers {st.get('watch_subscribers', 0)}"
+           if st.get("watch_subscribers") else "")
+        + (f" · journal {st.get('journal_rows', 0)} rows" if jp else "")
+        + f" · quarantined {quarantined}"
+        + (f" · drift {score:.2f}×"
+           + ("!" if drift.get("retune_recommended") else "")
+           if isinstance(score, (int, float)) else "")
+    )
+    return "\n".join([head, "  " + format_live(live), tail])
+
+
+def format_verdicts(events, limit: int = 8) -> str:
+    """Render the newest settled verdicts as ``top``'s verdicts pane.  ``events`` is a sequence of ``(addr, offset, row)``
+    tuples collected off one or more ``/watch`` channels (newest
+    last); only the trailing ``limit`` rows are shown."""
+    lines = ["── verdicts " + "─" * 36]
+    rows = list(events)[-limit:]
+    if not rows:
+        lines.append("  (no settled verdicts yet)")
+        return "\n".join(lines)
+    now = time.time()
+    for addr, off, row in rows:
+        res = row.get("result") or {}
+        valid = res.get("valid?")
+        mark = "✗" if valid is False else ("✓" if valid is True else "?")
+        ts = row.get("ts")
+        age = (f"{max(0.0, now - float(ts)):.0f}s ago"
+               if isinstance(ts, (int, float)) else "t?")
+        extra = ""
+        if valid is False:
+            anom = res.get("anomaly-types") or res.get("anomalies")
+            if anom:
+                extra = f" · {anom}"
+        lines.append(
+            f"  {mark} {addr} #{off}"
+            f" req {str(row.get('req'))[:8]}"
+            f" {row.get('stream')}[{row.get('idx')}]"
+            f" · {age}{extra}"
+        )
     return "\n".join(lines)

@@ -137,6 +137,19 @@ def retry(delay_seconds: float, fn: Callable[[], T], tries: Optional[int] = None
 # ---------------------------------------------------------------------------
 
 
+def free_port() -> int:
+    """An ephemeral localhost TCP port (bind to 0, read, release).
+    The one shared copy — the localkv suite and the tests allocate
+    scratch ports this way."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
 def majority(n: int) -> int:
     """Smallest integer strictly greater than half of n; majority(0) = 1.
     (reference: util.clj:84-90)"""

@@ -109,6 +109,70 @@ def test_one_pass_split_equals_reference_subhistory():
         [op.index for op in h if op.process == "nemesis"]
 
 
+def _mixed_live_dicts():
+    """A live keyed history: ``KV("a", v)`` writes and reads, one
+    un-keyed client ``cas`` whose value is a bare ``[1, 2]``, and an
+    un-keyed nemesis op."""
+    return [
+        {"type": "invoke", "process": 0, "f": "write", "value": ["a", 1],
+         "time": 0},
+        {"type": "ok", "process": 0, "f": "write", "value": ["a", 1],
+         "time": 1},
+        {"type": "info", "process": "nemesis", "f": "start", "value": None,
+         "time": 2},
+        {"type": "invoke", "process": 1, "f": "cas", "value": [1, 2],
+         "time": 3},
+        {"type": "ok", "process": 1, "f": "cas", "value": [1, 2],
+         "time": 4},
+        {"type": "invoke", "process": 0, "f": "read", "value": ["a", None],
+         "time": 5},
+        {"type": "ok", "process": 0, "f": "read", "value": ["a", 1],
+         "time": 6},
+    ]
+
+
+def _kv_keyed(dicts, pkg_history, kv):
+    """Only the ops whose value is a list with a string key become KVs:
+    the un-keyed ``cas [1, 2]`` stays a bare list, as a live run has it."""
+    ops = []
+    for d in dicts:
+        d = dict(d)
+        v = d["value"]
+        if isinstance(v, list) and isinstance(v[0], str):
+            d["value"] = kv(*v)
+        ops.append(d)
+    return pkg_history.History.from_dicts(ops).index_ops()
+
+
+def test_live_keyed_history_keeps_unkeyed_pairs_in_every_key():
+    dicts = _mixed_live_dicts()
+    h = _kv_keyed(dicts, history, independent.KV)
+    rh = _kv_keyed(dicts, ref_history, ref_ind.KV)
+    assert independent.rekey(h) is h
+    split = independent.split_by_key(independent.rekey(h))
+    keys = ref_ind.history_keys(rh)
+    assert set(split) == keys == {"a"}
+    for k in keys:
+        ref_sub = ref_ind.subhistory(k, rh).to_dicts()
+        assert [1, 2] in [d["value"] for d in ref_sub]
+        assert split[k].to_dicts() == ref_sub
+
+
+def test_history_from_json_is_still_rekeyed():
+    dicts = keyed_dicts(n_keys=6, nemesis_every=5)
+    stored = history.History.from_dicts(
+        json.loads(json.dumps(dicts))).index_ops()
+    assert not any(isinstance(op.value, independent.KV) for op in stored)
+    _, rh = both(dicts)
+    split = independent.split_by_key(independent.rekey(stored))
+    keys = ref_ind.history_keys(rh)
+    assert set(split) == keys == set(range(6))
+    for k in keys:
+        # JSON gives lists where the live history had tuples (cas values)
+        assert json.loads(json.dumps(split[k].to_dicts())) == json.loads(
+            json.dumps(ref_ind.subhistory(k, rh).to_dicts()))
+
+
 def test_kv_matches_reference():
     t = independent.kv("k", 3)
     assert independent.is_tuple(t) and not independent.is_tuple(("k", 3))
