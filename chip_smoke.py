@@ -18,7 +18,8 @@ line.
    16384 rows by per-row value relabelings (the batch bench.py builds),
    E = 832, C = 8, V = 8.  Outputs must be byte-equal (tolerance: exact,
    every output is an integer or a bool), and rows of one template must
-   agree (a relabeling preserves the verdict).
+   agree (a relabeling preserves the verdict).  The compared plain run
+   also counts the integer operations the bound is priced with.
 3. edges — the same comparison at the envelope's edges: C = 4, 6 and 7
    (W = 1, 2 and 4 words: 32, 16 and 8 histories per warp), C = 12 (128
    words), V = 32, C = 12 with V = 32, and mutex op codes; then rows
@@ -325,6 +326,24 @@ line.
     and escalation rungs, the K1 and K4 launches, and the card's, plain
     and oracle seconds.  Any ``repregd`` left under its directory is
     killed.
+31. every in-process workload — the CLI's ``test-all --dummy
+    --time-limit 5`` (the reference's documented command,
+    ``README.md:595``) in-process at the CLI's defaults: bank, long-fork,
+    adya-g2 (its own 2n concurrency), causal, causal-reverse,
+    linearizable-register, list-append and rw-register, each against its
+    fake client and analysed on the card, the launch counters reset and
+    the Elle router's pinned choices cleared first (a fresh process's
+    router).  It must exit 0, the store must hold exactly the registry's
+    names, every workload's history ok ops (causal excepted: its ops come
+    a second apart behind a nemesis that sleeps ten) and every verdict
+    valid; one line per workload gives ops, oks, seconds, generator and
+    analysis seconds.  rw-register's per-key version graphs must form one
+    screened batch (at least ``ELLE_SCREEN_MIN_BATCH`` graphs, none past
+    ``DEVICE_SCREEN_MAX_VERTICES``) and launch K6; the stored history
+    re-checked with ``screen-route cpu`` (no launch) must give the card's
+    anomalies, verdict and transaction count.  list-append's dependency
+    graph (its vertex count) is a batch of one and stays on the CPU, as
+    the reference routes it (K7's launches are printed).
 
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -1963,7 +1982,7 @@ def same_results(a, b) -> bool:
             == json.dumps(b, sort_keys=True, default=repr))
 
 
-def mesh_phase(mesh, card, model, hs, results, f_hs):
+def mesh_phase(mesh, card, model, hs, results, f_hs, la_hs):
     """Phase 19: check_batch over the mesh on the dense and the frontier
     (with escalation) paths, and Elle through an Executor on the mesh,
     each equal to its unsharded run."""
@@ -2007,7 +2026,6 @@ def mesh_phase(mesh, card, model, hs, results, f_hs):
          escalations={str(k): v for k, v in rungs.items()},
          batch_stats=wgl.batch_stats(sharded), **stats, card=card)
 
-    la_hs = elle_histories("append", 47100)
     opts = {"workload": "list-append",
             "consistency-models": ["strict-serializable"],
             "screen-route": "device"}
@@ -3747,6 +3765,122 @@ def localkv_phase(card):
     shutil.rmtree(root, ignore_errors=True)
 
 
+TEST_ALL_ARGS = ["test-all", "--dummy", "--time-limit", "5"]
+
+
+def test_all_phase(card):
+    """Phase 31: ``cli test-all --dummy --time-limit 5`` (the README's
+    command for every in-process workload) on the card at the CLI's
+    defaults; rw-register's version graphs through K6, re-checked with
+    ``screen-route cpu``; list-append's dependency graph and its route."""
+    import shutil
+
+    from jepsen_tpu_torch.elle import list_append as elle_la
+
+    root = os.path.abspath(os.path.join("build", "chip_smoke_test_all"))
+    shutil.rmtree(root, ignore_errors=True)
+    base = os.path.join(root, "store")
+    names = workloads.names()
+    # a fresh process's router: no (device, bucket) choice pinned by the
+    # earlier phases, so the auto route calibrates as a user's run does
+    elle_cycles._SCREEN_CHOICE.clear()
+    elle_cycles._CLASSIFY_CHOICE.clear()
+    screens = []
+    mask = elle_cycles.cyclic_graph_mask
+
+    def recording_mask(graphs, *a, **kw):
+        screens.append([len(g.vertices) for g in graphs])
+        return mask(graphs, *a, **kw)
+
+    elle_cycles.cyclic_graph_mask = recording_mask
+    reset_dense_launches()
+    wgl.FRONTIER_SEARCH.launches = 0
+    cycles.HAS_CYCLE.launches = 0
+    cycles.SCREEN.launches = 0
+    try:
+        t0 = time.perf_counter()
+        code, _ = run_cli_captured([*TEST_ALL_ARGS, "--store-base", base])
+        run_s = time.perf_counter() - t0
+    finally:
+        elle_cycles.cyclic_graph_mask = mask
+    k1 = dense.DENSE_AUTOMATON.launches
+    k4 = wgl.FRONTIER_SEARCH.launches
+    k6 = cycles.HAS_CYCLE.launches
+    k7 = cycles.SCREEN.launches
+    require(code == cli.EXIT_VALID, f"test-all: exited {code}")
+    ran = sorted(n for n in os.listdir(base)
+                 if not n.startswith((".", "latest", "current")))
+    require(ran == names, f"test-all: the store holds {ran}, the registry "
+            f"{names}")
+    stored = {}
+    for name in names:
+        start = store_mod.latest_time(base, name)
+        t = store_mod.load({"name": name, "start-time": start,
+                            "store-base": base})
+        require(not t.get("recovered"), f"test-all: {name}'s store is torn")
+        h, results = t["history"], t["results"]
+        client = [op for op in h if isinstance(op.process, int)]
+        oks = sum(1 for op in client if op.type == "ok")
+        # causal paces its ops at one a second behind a nemesis that
+        # sleeps ten: a run may complete only a few (tests/test_cli_web.py)
+        require(oks > 0 or name == "causal", f"test-all: {name} has no ok op")
+        phases = {r["name"]: r["wall_s"]
+                  for r in (results.get("obs") or {}).get("phases", [])}
+        stored[name] = (t, h, results)
+        emit(phase="test_all_run", workload=name, ops=sum(
+            1 for op in client if op.type == "invoke"), oks=oks,
+             seconds=sum(phases.values()),
+             generator_s=phases.get("generator"),
+             analysis_s=phases.get("analyze"), valid=results["valid?"],
+             card=card)
+        require(results["valid?"] is True, f"test-all: {name} is "
+                f"{results['valid?']}")
+
+    # rw-register: its version graphs went through K6; the CPU route on
+    # the stored history gives the card's anomalies and verdict
+    require(len(screens) == 1, f"rw-register: {len(screens)} version-graph "
+            "screens, not one")
+    require(len(screens[0]) >= elle_cycles.ELLE_SCREEN_MIN_BATCH and max(
+        screens[0]) <= elle_cycles.DEVICE_SCREEN_MAX_VERTICES,
+        f"rw-register: {len(screens[0])} version graphs, the largest of "
+        f"{max(screens[0])} vertices: not a screened batch")
+    require(k6 > 0, "rw-register: the version graphs never launched K6")
+    t, h, results = stored["rw-register"]
+    launches = cycles.HAS_CYCLE.launches
+    t0 = time.perf_counter()
+    cpu = as_json(workloads.workload("rw-register", {
+        **{k: v for k, v in t.items() if k not in ("history", "results")},
+        "screen-route": "cpu"})["checker"].check({}, h, {}))
+    cpu_s = time.perf_counter() - t0
+    require(cycles.HAS_CYCLE.launches == launches,
+            "rw-register: the cpu route launched K6")
+    for k in ("valid?", "anomaly-types", "anomalies", "txn-count"):
+        require(cpu[k] == results[k], f"rw-register: {k} is {results[k]} on "
+                f"the card and {cpu[k]} on the cpu route")
+    emit(phase="test_all_rw_register", version_graphs=len(screens[0]),
+         largest_vertices=max(screens[0]), k6_launches=k6,
+         txns=results["txn-count"], cpu_recheck_s=cpu_s, equal_cpu=True,
+         card=card)
+
+    # list-append: one dependency graph a history, so a batch of one,
+    # under ELLE_SCREEN_MIN_BATCH (and past DEVICE_SCREEN_MAX_VERTICES
+    # when it is large): classify_graphs keeps it on the CPU, as the
+    # reference's does; no screen launched (K7 0) shows it
+    t, h, results = stored["list-append"]
+    g = elle_la.prepare(h, {"anomalies": ["G1", "G2"]})[0]
+    n_vertices = len(g.vertices)
+    emit(phase="test_all_list_append", vertices=n_vertices, batch=1,
+         min_batch=elle_cycles.ELLE_SCREEN_MIN_BATCH,
+         max_vertices=elle_cycles.DEVICE_SCREEN_MAX_VERTICES,
+         route="cpu" if k7 == 0 else "device", k7_launches=k7,
+         txns=results["txn-count"], card=card)
+    emit(phase="test_all", args=TEST_ALL_ARGS, code=code, seconds=run_s,
+         workloads=names, k1_launches=k1, k4_launches=k4, k6_launches=k6,
+         k7_launches=k7, card=card)
+    shutil.rmtree(root, ignore_errors=True)
+    return k6
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -3774,9 +3908,10 @@ def main() -> int:
     B, E, C = arrays_np[2].shape
     arrays = to_device(arrays_np, device)
     checker = dense.make_dense_fn("cas-register", E, C, V, device)
-    (ok, failed_at, _), plain_s, err = compare(checker, arrays)
-    work: dict = {}  # a second plain run counts the integer operations
-    checker.reference(*arrays, work=work)
+    # the compared plain run also counts the integer operations (as the
+    # family phases' do: the count stays on the device)
+    work: dict = {}
+    (ok, failed_at, _), plain_s, err = compare(checker, arrays, work)
     for t in np.unique(reps):
         rows = reps == t
         require(len(set(ok[rows])) == 1 and len(set(failed_at[rows])) == 1,
@@ -3966,7 +4101,7 @@ def main() -> int:
 
     # -- 19. sharded dispatch over a two-shard mesh --------------------------
     mesh = pick_mesh(device)
-    mesh_phase(mesh, card, model, hs, results, f_hs)
+    mesh_phase(mesh, card, model, hs, results, f_hs, la_hs)
 
     # -- 20. verdict statistics over the shards ------------------------------
     stats_entry = stats_phase(mesh, device, card,
@@ -4004,6 +4139,9 @@ def main() -> int:
 
     # -- 30. real processes: the localkv suite under partitions and kills ----
     localkv_phase(card)
+
+    # -- 31. every in-process workload: cli test-all on the card -----------
+    test_all_phase(card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

@@ -34,13 +34,17 @@ exceptions (checker.clj:124-151), stats (:153-183), queue (:218-238),
 set (:240-291), set-full (:294-592), total-queue (:594-687), unique-ids
 (:689-734) and counter (:737-795); ``timeline.html`` is in
 :mod:`.timeline`; the latency and rate plots (:func:`perf_checker`,
-checker.clj:797-829) in :mod:`.perf` over :mod:`.svg`.  The clock plot
-and ``log_file_pattern`` are not ported yet.
+checker.clj:797-829) in :mod:`.perf` over :mod:`.svg`; the clock plot
+(:func:`clock_plot`, checker.clj:831-837) in :mod:`.clock`; and
+:func:`log_file_pattern` (checker.clj:839-881) searches the nodes'
+downloaded logs.
 (reference semantics: jepsen/src/jepsen/checker.clj)
 """
 
 from __future__ import annotations
 
+import os
+import re
 import threading
 import traceback
 from collections import Counter
@@ -827,6 +831,38 @@ def linearizable(
                          client)
 
 
+class _LogFilePattern(Checker):
+    def __init__(self, pattern, filename: str):
+        self.pattern = re.compile(pattern)
+        self.filename = filename
+
+    def check(self, test, history, opts=None):
+        from .. import store as store_mod
+
+        def search(node):
+            path = store_mod.path(test, node, self.filename)
+            if not os.path.exists(path):
+                return []
+            found = []
+            with open(path, "r", errors="replace") as f:
+                for line in f:
+                    if self.pattern.search(line):
+                        found.append({"node": node, "line": line.rstrip("\n")})
+            return found
+
+        matches = [
+            m for ms in real_pmap(search, test.get("nodes", [])) for m in ms
+        ]
+        return {"valid?": not matches, "count": len(matches), "matches": matches}
+
+
+def log_file_pattern(pattern, filename: str) -> Checker:
+    """Search each node's downloaded log file for a pattern; matches fail
+    the test.  (reference: checker.clj:839-881; uses Python re instead of
+    shelling out to grep -P)"""
+    return _LogFilePattern(pattern, filename)
+
+
 # ---------------------------------------------------------------------------
 # Graph checkers (SVG renderers; reference used gnuplot)
 # ---------------------------------------------------------------------------
@@ -877,3 +913,10 @@ def perf_checker(opts: Optional[dict] = None) -> Checker:
     return compose(
         {"latency-graph": latency_graph(opts), "rate-graph": rate_graph(opts)}
     )
+
+
+def clock_plot() -> Checker:
+    """Plots clock offsets on all nodes.  (reference: checker.clj:831-837)"""
+    from . import clock as clock_mod
+
+    return clock_mod.plotter()

@@ -208,3 +208,28 @@ def rate_graph(test: dict, history: History, opts: dict) -> Optional[str]:
         ylabel="Throughput (hz)",
         regions=graph_regions(test, history),
     )
+
+
+def scatter_plot(
+    test: dict,
+    series_map: Dict[Any, List[Tuple[float, float]]],
+    path_components: List[Any],
+    title: str = "",
+    ylabel: str = "",
+    history: Optional[History] = None,
+) -> Optional[str]:
+    """General named-series scatter (used by e.g. the bank plotter)."""
+    series = [
+        svg.Series(str(k), pts, mode="points")
+        for k, pts in sorted(series_map.items(), key=lambda kv: str(kv[0]))
+    ]
+    regions = (
+        graph_regions(test, history) if history is not None and len(history) else []
+    )
+    return svg.render(
+        store_mod.path_(test, *path_components),
+        series,
+        title=title,
+        ylabel=ylabel,
+        regions=regions,
+    )

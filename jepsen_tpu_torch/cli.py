@@ -1,7 +1,9 @@
 """Command-line runner — the port's copy of :mod:`jepsen_tpu.cli`:
 ``test`` / ``analyze`` (in-process workloads, or a DB suite with
-``--suite``), the checker service's ``serve --checker`` / ``status`` /
-``shutdown`` / ``route`` / ``top`` / ``profile``, and ``tune``.
+``--suite``), ``test-all`` (every in-process workload, or every workload
+of ``--suite``), ``serve`` (the store's web UI, or with ``--checker`` the
+checker daemon), the checker service's ``status`` / ``shutdown`` /
+``route`` / ``top`` / ``profile``, and ``tune``.
 
 (reference: jepsen/src/jepsen/cli.clj — run! dispatcher:258, standard
 test opt spec:64-111 incl. the "3n" concurrency convention:150-168,
@@ -18,6 +20,8 @@ Exit codes: 0 valid, 1 invalid, 2 unknown/errors, 254 usage error,
         --faults partition,kill --time-limit 10 --concurrency 6 --rate 40 \
         -o interval=2
     python -m jepsen_tpu_torch.cli analyze --test-name localkv
+    python -m jepsen_tpu_torch.cli test-all --dummy --time-limit 5
+    python -m jepsen_tpu_torch.cli serve --store-base store --port 8080
     python -m jepsen_tpu_torch.cli serve --checker --supervise --fleet 2 \
         --port 8519
     python -m jepsen_tpu_torch.cli status --port 8519 --daemon 127.0.0.1:8520
@@ -29,10 +33,9 @@ the CPU.  ``--engine-window`` is the test map's ``engine-window``, which
 the checkers pass to the engine.  Flags stand in for the reference's
 environment variables: the service commands' daemon is ``--host`` and
 ``--port`` (default ``127.0.0.1:8519``), the daemon's WAL is
-``serve --wal``; no environment variable is read or set.  Not ported
-yet: ``serve`` without ``--checker`` (the store's web UI, the
-reference's ``web.py``), ``test-all`` and the in-process workloads other
-than linearizable-register.
+``serve --wal``; no environment variable is read or set.  Each
+in-process workload runs against the fake client whose semantics it
+needs (the reference's table, ``jepsen_tpu/cli.py:1021-1033``).
 
 A DB suite builds its CLI by passing its test-constructor to
 :func:`single_test_cmd` and calling :func:`run_cli` with the command map.
@@ -132,9 +135,8 @@ def add_test_opts(p: argparse.ArgumentParser) -> None:
     p.add_argument("--store-base", default="store", help="artifact directory")
     p.add_argument(
         "--tracing",
-        help="per-client span tracing to this JSONL file (the "
-        "reference's trace.py): not ported yet, so a run that asks for "
-        "it fails naming it",
+        help="enable span tracing and append each client call's span "
+        "to this JSONL file (jepsen_tpu_torch.trace)",
     )
     p.add_argument(
         "--no-obs",
@@ -411,6 +413,43 @@ def single_test_cmd(
     }
 
 
+def test_all_cmd(
+    tests_fn: Callable[[dict], List[Callable[[], dict]]],
+    opt_fn: Optional[Callable[[argparse.ArgumentParser], None]] = None,
+) -> Dict[str, dict]:
+    """Run every test a suite defines; worst exit code wins.
+    ``tests_fn`` returns zero-arg BUILDERS, one per test, so a single
+    test's construction error (like its run-time crash) folds into the
+    worst-wins aggregate instead of aborting the whole sweep.
+    (reference: cli.clj:491-519)"""
+
+    def add_opts(p):
+        add_test_opts(p)
+        if opt_fn is not None:
+            opt_fn(p)
+
+    def run(args) -> int:
+        worst = EXIT_VALID
+        for _ in range(getattr(args, "test_count", 1) or 1):
+            for build in tests_fn(
+                {**given_opts(args), **test_opts_to_map(args)}
+            ):
+                try:
+                    code = run_test(build())
+                except Exception:  # noqa: BLE001 — one crash (building
+                    # OR running) must not swallow the remaining tests'
+                    # results; it folds into the worst-wins aggregate
+                    # (reference: cli.clj test-all catches per-test
+                    # throwables and continues)
+                    traceback.print_exc()
+                    code = EXIT_CRASH
+                worst = max(worst, code)
+        return worst
+
+    return {"test-all": {"help": "run every defined test",
+                         "add_opts": add_opts, "run": run}}
+
+
 def _daemon_client(host: Optional[str], port: Optional[int], **kw):
     """A :class:`~jepsen_tpu_torch.serve.client.ServiceClient` of a daemon
     address given on the command line (``--host``/``--port``; the
@@ -442,15 +481,23 @@ def serve_cmd() -> Dict[str, dict]:
     entry), :class:`~..serve.client.ServiceClient`'s ``status``,
     ``shutdown``, ``profile`` and ``watch``, and :class:`~..serve.router.
     Router`.  Flags replace the reference's environment variables.
-    ``serve`` without ``--checker`` is the store's web UI, which is not
-    ported: it exits with a usage error naming it."""
+    ``serve`` without ``--checker`` is the store's web UI (:mod:`.web`)
+    over ``--store-base``, on ``--host``/``--port`` (default
+    ``0.0.0.0:8080``); its checker-service panel shows the daemon at
+    ``--service HOST:PORT`` (default ``127.0.0.1:8519``)."""
 
     def add_opts(p):
         p.add_argument("--host", default=None,
                        help="bind address (default 127.0.0.1)")
         p.add_argument("--port", "-b", type=int, default=None,
-                       help="TCP port (default 8519; with --fleet N the "
-                       "members take PORT … PORT+N-1)")
+                       help="TCP port (default 8080 for the web UI, 8519 "
+                       "for --checker; with --fleet N the members take "
+                       "PORT … PORT+N-1)")
+        p.add_argument("--store-base", default="store",
+                       help="the store directory the web UI serves")
+        p.add_argument("--service", default=None, metavar="HOST:PORT",
+                       help="the checker daemon whose live panel the web "
+                       "UI shows (default 127.0.0.1:8519)")
         p.add_argument(
             "--checker",
             action="store_true",
@@ -495,10 +542,21 @@ def serve_cmd() -> Dict[str, dict]:
 
     def run(args) -> int:
         if not args.checker:
-            print("serve: the store web UI (the reference's web.py) is "
-                  "not ported to jepsen_tpu_torch yet; `serve --checker` "
-                  "runs the checker daemon", file=sys.stderr)
-            return EXIT_USAGE
+            from . import web
+
+            service = None
+            if args.service:
+                try:
+                    service = _parse_addr(args.service)
+                except ValueError:
+                    print(f"serve: --service {args.service!r} is not "
+                          "HOST:PORT", file=sys.stderr)
+                    return EXIT_USAGE
+                service = (service[0] or "127.0.0.1", service[1])
+            web.serve(host=args.host or "0.0.0.0",
+                      port=args.port if args.port is not None else 8080,
+                      base=args.store_base, service=service)
+            return EXIT_VALID
         if args.fleet > 1 and not args.supervise:
             print("--fleet requires --supervise", file=sys.stderr)
             return EXIT_USAGE
@@ -782,8 +840,8 @@ def serve_cmd() -> Dict[str, dict]:
 
     return {
         "serve": {
-            "help": "serve the resident checker daemon (--checker; the "
-            "store web UI is not ported yet)",
+            "help": "serve the store web UI, or the resident checker "
+            "daemon (--checker)",
             "add_opts": add_opts,
             "run": run,
         },
@@ -917,10 +975,9 @@ def run_cli(commands: Dict[str, dict], argv: Optional[List[str]] = None) -> int:
 
 def default_commands() -> Dict[str, dict]:
     """The built-in command set: run a registered workload in-process
-    against the in-memory fake client (dummy remote) or a DB suite
-    (``--suite``), re-analyze a stored run, the checker service's
-    commands and the tuner.  (The reference's map also has
-    ``test-all``.)"""
+    against its fake client (dummy remote) or a DB suite (``--suite``),
+    one run or every workload (``test-all``), re-analyze a stored run,
+    the store's web UI, the checker service's commands and the tuner."""
 
     def add_workload_opt(p):
         p.add_argument(
@@ -964,12 +1021,11 @@ def default_commands() -> Dict[str, dict]:
         )
 
     def make_test(opts: dict) -> dict:
-        from . import core
+        from . import fake as fake_mod
         from . import generator as gen
+        from . import trace
         from . import workloads
-        from .fake import KeyedAtomClient
 
-        core.check_tracing(opts)
         opts = dict(opts)
         if "per_key_limit" in opts:
             opts.setdefault("per-key-limit", opts.pop("per_key_limit"))
@@ -999,6 +1055,20 @@ def default_commands() -> Dict[str, dict]:
         g = wl.get("generator")
         if opts.get("time-limit"):
             g = gen.time_limit(opts["time-limit"], g)
+        # per-workload fake client: the CAS-register fake fits the keyed
+        # register probes, but bank needs transfer/balance semantics, the
+        # txn probes a transactional store, adya-g2 insert-once rows and
+        # the causal/sequential probes reads that return the SET of
+        # observed writes (reference: jepsen_tpu/cli.py:1021-1033)
+        fake_client = {
+            "bank": fake_mod.BankAtomClient,
+            "causal": fake_mod.CausalAtomClient,
+            "causal-reverse": fake_mod.KeyedAtomSetClient,
+            "long-fork": fake_mod.TxnAtomClient,
+            "list-append": fake_mod.TxnAtomClient,
+            "rw-register": fake_mod.TxnAtomClient,
+            "adya-g2": fake_mod.InsertOnceAtomClient,
+        }.get(opts["workload"], fake_mod.KeyedAtomClient)()
         test = {
             # strip stray callables from opts — except the lazy mesh
             # builder, which the checker seam resolves at analyze time
@@ -1010,9 +1080,7 @@ def default_commands() -> Dict[str, dict]:
                if k not in ("generator", "final-generator", "checker",
                             "concurrency") and k not in opts},
             "name": opts["workload"],
-            # the keyed CAS-register fake: the one client the registered
-            # workloads need (the reference picks per workload)
-            "client": KeyedAtomClient(),
+            "client": fake_client,
             "generator": g,
             "checker": wl.get("checker"),
         }
@@ -1021,10 +1089,32 @@ def default_commands() -> Dict[str, dict]:
         # explicit --concurrency still wins
         if "concurrency" in wl and "concurrency" not in opts:
             test["concurrency"] = wl["concurrency"]
-        return test
+        return trace.wire(test, opts.get("tracing"))
+
+    def make_tests(opts: dict) -> List[Callable[[], dict]]:
+        """One test BUILDER per workload: every workload of --suite,
+        or every in-process workload without one.  (reference:
+        cli.clj:491-519 test-all-cmd)"""
+        if opts.get("suite"):
+            from . import suites
+
+            names = sorted(
+                suites.suite(opts["suite"]).workloads(
+                    {k: v for k, v in opts.items() if k != "workload"}
+                )
+            )
+        else:
+            from . import workloads as workloads_mod
+
+            names = workloads_mod.names()
+        return [
+            (lambda w=w: make_test({**opts, "workload": w}))
+            for w in names
+        ]
 
     cmds: Dict[str, dict] = {}
     cmds.update(single_test_cmd(make_test, add_workload_opt))
+    cmds.update(test_all_cmd(make_tests, add_workload_opt))
     cmds.update(serve_cmd())
     cmds.update(tune_cmd())
     return cmds

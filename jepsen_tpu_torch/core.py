@@ -13,9 +13,9 @@ exactly like the reference's ``:ssh {:dummy? true}`` mode
 (control.clj:40, core_test.clj:55-120).
 
 The port's differences: ``obs?`` defaults to on, with no environment
-switch; ``tracing`` (the reference's per-client span exporter,
-``jepsen_tpu/trace.py``) is not ported, and a test map that asks for it
-gets an error naming it.  The analysis runs where the test's checkers
+switch.  ``tracing`` names a JSONL file that the run's per-client spans
+(:mod:`.trace`, wired by :func:`~.trace.wire`) are appended to.  The
+analysis runs where the test's checkers
 say (``device=``); the interpreter's worker threads never touch CUDA.
 """
 
@@ -211,19 +211,6 @@ def log_results(test: dict) -> dict:
     return test
 
 
-def check_tracing(test: dict) -> None:
-    """Raise if the test asks for per-client span tracing (the
-    reference's ``tracing`` key, ``--tracing``): its exporter,
-    ``jepsen_tpu/trace.py``, is not ported yet."""
-    if test.get("tracing"):
-        raise NotImplementedError(
-            "test['tracing'] asks for per-client span tracing, whose "
-            "exporter (the reference's trace.py) is not ported to "
-            "jepsen_tpu_torch yet; the run-wide spans of obs are on by "
-            "default (obs?)"
-        )
-
-
 def run(test: dict) -> dict:
     """Full lifecycle; returns the test with :history and :results.
     Persistence is 3-phase (save_0 at start, save_1 once the history is
@@ -233,7 +220,6 @@ def run(test: dict) -> dict:
 
     from . import store as store_mod
 
-    check_tracing(test)
     test = prepare_test(test)
     storing = test.get("store?", True)
 
@@ -247,6 +233,17 @@ def run(test: dict) -> dict:
     else:
         obs.disable()
 
+    # span tracing turns on for the run — not at test-build time, so
+    # building several test maps can't cross-wire each other's
+    # exporters through the process-global tracer — and off again
+    # after it, so later runs in the same process don't inherit a
+    # stale exporter (trace.wire stores the endpoint; the reference
+    # configures its tracer once per run, dgraph/core.clj:118)
+    tracing_endpoint = test.get("tracing")
+    if tracing_endpoint:
+        from . import trace
+
+        trace.tracing(tracing_endpoint)
 
     if storing:
         store_mod.start_logging(test, test.get("logging-json?", False))
@@ -275,6 +272,8 @@ def run(test: dict) -> dict:
                 test = store_mod.save_2(test)
             return log_results(test)
     finally:
+        if tracing_endpoint:
+            trace.tracing()
         if storing:
             store_mod.stop_logging(test)
 

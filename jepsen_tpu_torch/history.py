@@ -119,15 +119,11 @@ class Op:
         return self.type == INFO
 
     def copy(self, **updates: Any) -> "Op":
-        op = Op(
-            self.type,
-            self.process,
-            self.f,
-            self.value,
-            self.time,
-            self.index,
-            **dict(self.extra),
-        )
+        # the slots set directly: copies are on every encode's path
+        op = Op.__new__(Op)
+        op.type, op.process, op.f, op.value = (self.type, self.process,
+                                               self.f, self.value)
+        op.time, op.index, op.extra = self.time, self.index, dict(self.extra)
         for k, v in updates.items():
             op[k] = v
         return op

@@ -30,6 +30,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from .. import models as m
+from ..models.locks import _client as _lock_client
 
 # Op function codes shared by the register-family kernels.
 F_READ = 0        # a = expected value id (observed at completion)
@@ -245,9 +246,7 @@ def _owner_client(op):
     # the oracle's identity extraction (models.locks._client) is the
     # single source of truth: encoder and oracle MUST agree on WHO
     # acted or device and oracle verdicts diverge
-    from ..models.locks import _client
-
-    client = _client(op)
+    client = _lock_client(op)
     if client is None:
         # an op that never reported WHO acted (e.g. a crashed acquire
         # whose client died before stamping) cannot ride the value

@@ -271,30 +271,42 @@ def _compact(states, words, v2, F: int):
     return st[:, :F], ws[:, :F], valid, count
 
 
-def _closure_pass(st, ws, vl, cs, cf, ca, cb, step, F: int):
-    """One closure iteration over n rows (the reference's while-loop
-    body): expand every config by every open slot it has not linearized,
-    append the F·C candidates after the F old lanes (lane F + f·C + c),
-    dedup exactly and compact back to F.  Returns ``(states, words,
-    valid, grew, overflowed, cands, born)``; ``cands`` [n, F] counts each
-    config's valid candidates, for the operation count, and ``born``
-    [n, F, C] marks the candidate lanes that survived."""
-    n, C = cs.shape
-    W = ws.shape[2]
+def _event_lanes(cs, cf, ca, cb, W: int):
+    """What a closure pass needs of an event's candidate lanes, the same
+    on every pass of the event: ``(active, word index, shift, the slot's
+    bit in its word, and the op codes)``, each shaped ``[n, 1, C]`` (the
+    bit ``[n, 1, C, W]``) to broadcast over the F configs."""
     active = cs >= 0
     slot = torch.where(active, cs, 0)
     wix = slot >> 5
     sh = slot & 31
-    sel = ws.gather(2, wix[:, None, :].expand(n, F, C))
-    already = (sel >> sh[:, None, :]) & 1
-    st2, ok2 = step(st[:, :, None], cf[:, None, :], ca[:, None, :],
-                    cb[:, None, :])
-    st2 = st2.expand(n, F, C)
-    nv = vl[:, :, None] & active[:, None, :] & (already == 0) & ok2
     onehot = wix[:, :, None] == torch.arange(W, device=cs.device)
     setbit = torch.where(onehot, torch.ones_like(sh)[:, :, None]
                          << sh[:, :, None], 0)
-    nws = ws[:, :, None, :] | setbit[:, None, :, :]
+    # the step functions widen their codes to int64: once an event here
+    return (active[:, None, :], wix[:, None, :], sh[:, None, :],
+            setbit[:, None, :, :], cf.long()[:, None, :],
+            ca.long()[:, None, :], cb.long()[:, None, :])
+
+
+def _closure_pass(st, ws, vl, lanes, step, F: int):
+    """One closure iteration over n rows (the reference's while-loop
+    body): expand every config by every open slot it has not linearized,
+    append the F·C candidates after the F old lanes (lane F + f·C + c),
+    dedup exactly and compact back to F.  ``lanes`` is the event's
+    :func:`_event_lanes`.  Returns ``(states, words, valid, grew,
+    overflowed, cands, born)``; ``cands`` [n, F] counts each config's
+    valid candidates, for the operation count, and ``born`` [n, F, C]
+    marks the candidate lanes that survived."""
+    active, wix, sh, setbit, cf, ca, cb = lanes
+    n, _, C = active.shape
+    W = ws.shape[2]
+    sel = ws.gather(2, wix.expand(n, F, C))
+    already = (sel >> sh) & 1
+    st2, ok2 = step(st[:, :, None], cf, ca, cb)
+    st2 = st2.expand(n, F, C)
+    nv = vl[:, :, None] & active & (already == 0) & ok2
+    nws = ws[:, :, None, :] | setbit
     all_st = torch.cat([st, st2.reshape(n, F * C)], 1)
     all_ws = torch.cat([ws, nws.reshape(n, F * C, W)], 1)
     all_vl = torch.cat([vl, nv.reshape(n, F * C)], 1)
@@ -373,6 +385,7 @@ def frontier_check_reference(
     overflow = torch.zeros((B,), dtype=torch.bool, device=dev)
     int_ops = stale = max_frontier = 0
 
+    lane_ids = torch.arange(F, device=dev)[None, :]
     for e in range(E):
         # padding events and finished rows leave the carry alone
         rows = ((ev_slot[:, e] >= 0) & ~done).nonzero().squeeze(1)
@@ -381,33 +394,43 @@ def frontier_check_reference(
             continue
         st, ws, vl = states[rows], words[rows], valid[rows]
         cs = cand_slot[rows, e].long()
-        cf, ca, cb = cand_f[rows, e], cand_a[rows, e], cand_b[rows, e]
+        lanes = _event_lanes(cs, cand_f[rows, e], cand_a[rows, e],
+                             cand_b[rows, e], W)
         changed = torch.ones((n,), dtype=torch.bool, device=dev)
         ovf = torch.zeros((n,), dtype=torch.bool, device=dev)
         it = torch.zeros((n,), dtype=torch.int64, device=dev)
         fresh = vl.clone()  # configs this event has not expanded yet
-        while True:
-            live = (changed & ~ovf & (it < max_closure)).nonzero().squeeze(1)
-            if live.numel() == 0:
-                break
+        live = changed  # every row's first pass
+        while max_closure > 0:
+            # every row takes the pass (rows are independent); a row not
+            # live keeps its carry, so only live rows' results are kept
             s3, w3, v3, grew, o3, cands, born = _closure_pass(
-                st[live], ws[live], vl[live], cs[live], cf[live], ca[live],
-                cb[live], step, F)
+                st, ws, vl, lanes, step, F)
             if work is not None:
-                fr, held = fresh[live], vl[live].sum(1)
-                inserts = ((cands * fr).sum(1)
-                           + torch.where(it[live] == 0, held, 0))
-                pairs = fr.sum(1) * (cs[live] >= 0).sum(1)
-                int_ops += int((4 * pairs + (2 * W + 3) * inserts).sum())
-                stale += int((born & ~fr[:, :, None]).sum())
-                max_frontier = max(max_frontier, int(v3.sum(1).max()))
+                held = vl.sum(1)
+                inserts = ((cands * fresh).sum(1)
+                           + torch.where(it == 0, held, 0))
+                pairs = fresh.sum(1) * (cs >= 0).sum(1)
+                # one sync for the pass's three counts
+                counts = torch.stack([
+                    ((4 * pairs + (2 * W + 3) * inserts) * live).sum(),
+                    (born & ~fresh[:, :, None] & live[:, None, None]).sum(),
+                    torch.where(live, v3.sum(1), 0).max()]).tolist()
+                int_ops += counts[0]
+                stale += counts[1]
+                max_frontier = max(max_frontier, counts[2])
                 # the old configs survive first, in order: the rest are new
-                fresh[live] = v3 & (torch.arange(F, device=dev)[None, :]
-                                    >= held[:, None])
-            st[live], ws[live], vl[live] = s3, w3, v3
-            changed[live] = grew
-            ovf[live] |= o3
-            it[live] += 1
+                fresh = torch.where(live[:, None],
+                                    v3 & (lane_ids >= held[:, None]), fresh)
+            st = torch.where(live[:, None], s3, st)
+            ws = torch.where(live[:, None, None], w3, ws)
+            vl = torch.where(live[:, None], v3, vl)
+            changed = torch.where(live, grew, changed)
+            ovf = ovf | (o3 & live)
+            it = it + live
+            live = changed & ~ovf & (it < max_closure)
+            if not live.any():
+                break
         ovf_c = ovf | (changed & (it >= max_closure))
 
         es = ev_slot[rows, e].long()

@@ -132,15 +132,53 @@ NO_DEVICE_EXIT = 3
 _accelerator_ok: Optional[bool] = None
 _accelerator_error: Optional[str] = None
 _probe_lock = threading.Lock()
+#: a first probe attempt started ahead of time by :func:`start_probe`
+_early: Optional[subprocess.Popen] = None
+
+
+def start_probe() -> None:
+    """Start the first probe attempt now, in the background, so that it
+    runs while the caller imports torch (a daemon's start spends most of
+    its time there); :func:`probe_accelerator` takes its answer.  A no-op
+    once a probe ran or started."""
+    global _early
+    with _probe_lock:
+        if _accelerator_ok is None and _early is None:
+            _early = subprocess.Popen(
+                [sys.executable, "-c", _PROBE_SRC], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+
+
+def _probe_once(timeout_s: float) -> Tuple[int, str]:
+    """One probe attempt: ``(exit code, stderr)``; the early attempt's when
+    :func:`start_probe` began one.  Raises ``subprocess.TimeoutExpired``
+    after ``timeout_s``, the probe killed."""
+    global _early
+    proc, _early = _early, None
+    if proc is None:
+        r = subprocess.run([sys.executable, "-c", _PROBE_SRC],
+                           timeout=timeout_s, capture_output=True, text=True)
+        return r.returncode, r.stderr
+    try:
+        _out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    return proc.returncode, err
 
 
 def forget_probe() -> None:
     """Drop the memoised verdict so the next :func:`probe_accelerator`
     probes afresh (a process that waits for a card to come back asks
     every time)."""
-    global _accelerator_ok, _accelerator_error
+    global _accelerator_ok, _accelerator_error, _early
     with _probe_lock:
         _accelerator_ok, _accelerator_error = None, None
+        if _early is not None:  # an early attempt nobody asked for
+            _early.kill()
+            _early.communicate()
+            _early = None
 
 
 def probe_accelerator(retries: int = 3, timeout_s: float = 90.0,
@@ -165,22 +203,19 @@ def probe_accelerator(retries: int = 3, timeout_s: float = 90.0,
         for attempt in range(max(1, int(retries))):
             t0 = time.time()
             try:
-                r = subprocess.run(
-                    [sys.executable, "-c", _PROBE_SRC],
-                    timeout=timeout_s, capture_output=True, text=True,
-                )
-                if r.returncode == 0:
+                code, stderr = _probe_once(timeout_s)
+                if code == 0:
                     _trail(trail, attempt, "ok", time.time() - t0)
                     _accelerator_ok, _accelerator_error = True, None
                     return True, None
-                if r.returncode == NO_DEVICE_EXIT:
+                if code == NO_DEVICE_EXIT:
                     _trail(trail, attempt, "no-accelerator",
                            time.time() - t0)
                     _accelerator_ok = False
                     _accelerator_error = "no CUDA device present"
                     return False, _accelerator_error
-                tail = (r.stderr or "").strip().splitlines()
-                err = tail[-1][:300] if tail else f"probe exit {r.returncode}"
+                tail = (stderr or "").strip().splitlines()
+                err = tail[-1][:300] if tail else f"probe exit {code}"
             except subprocess.TimeoutExpired:
                 err = f"CUDA init timed out after {timeout_s:g}s"
             except Exception as e:  # noqa: BLE001 — a probe never raises

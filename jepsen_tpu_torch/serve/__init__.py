@@ -29,39 +29,38 @@ algorithm="service", client=ServiceClient(port=...))``, ``elle``'s
 
 The CLI's ``serve --checker``, ``status``, ``shutdown``, ``route``,
 ``top`` and ``profile`` commands (:mod:`jepsen_tpu_torch.cli`) drive
-these parts.  Not ported: the reference's shared AOT executable cache (a
-first dispatch on CUDA compiles nothing) and its web panel (the store's
-web UI, ``web.py``).
+these parts; the store's web UI (:mod:`jepsen_tpu_torch.web`) shows a
+daemon's live panel.  Not ported: the reference's shared AOT executable
+cache (a first dispatch on CUDA compiles nothing).
+
+The names below load their module at first use, so importing the
+package imports no torch: ``python -m jepsen_tpu_torch.serve`` starts its
+CUDA probe before the daemon's imports.
 """
 
-from .client import (  # noqa: F401
-    CircuitBreaker,
-    FeedSession,
-    ServiceChecker,
-    ServiceClient,
-    ServiceError,
-    ServiceUnavailable,
-    analysis,
-    check_batch,
-    format_fleet_status,
-    probe_healthz,
-    resolve_client,
-    screen_graphs,
-    spawn_daemon,
-)
-from .daemon import (  # noqa: F401
-    CheckerDaemon,
-    fleet_member_args,
-    serve,
-    supervise,
-    supervise_fleet,
-)
-from .router import (  # noqa: F401
-    MIN_ROUTE_WEIGHT,
-    Router,
-    check_route_key,
-    elle_route_key,
-    rendezvous_order,
-    weight_from_busy,
-)
-from .protocol import DEFAULT_HOST, DEFAULT_PORT, UnsupportedModel  # noqa: F401
+import importlib
+
+#: each exported name → the submodule that defines it
+_EXPORTS = {
+    "client": ("CircuitBreaker", "FeedSession", "ServiceChecker",
+               "ServiceClient", "ServiceError", "ServiceUnavailable",
+               "analysis", "check_batch", "format_fleet_status",
+               "probe_healthz", "resolve_client", "screen_graphs",
+               "spawn_daemon"),
+    "daemon": ("CheckerDaemon", "fleet_member_args", "serve", "supervise",
+               "supervise_fleet"),
+    "router": ("MIN_ROUTE_WEIGHT", "Router", "check_route_key",
+               "elle_route_key", "rendezvous_order", "weight_from_busy"),
+    "protocol": ("DEFAULT_HOST", "DEFAULT_PORT", "UnsupportedModel"),
+}
+_HOME = {name: mod for mod, names in _EXPORTS.items() for name in names}
+__all__ = sorted(_HOME)
+
+
+def __getattr__(name: str):
+    mod = _HOME.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f".{mod}", __name__), name)
+    globals()[name] = value
+    return value

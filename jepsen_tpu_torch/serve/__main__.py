@@ -27,7 +27,25 @@ def _off(value: str):
         else value
 
 
+def _card_bound(argv) -> bool:
+    """Whether this command line runs a daemon on the card (no
+    ``--supervise``, no ``--device cpu``)."""
+    if "--supervise" in argv:
+        return False
+    for i, a in enumerate(argv):
+        if a == "--device" and i + 1 < len(argv):
+            return argv[i + 1] != "cpu"
+        if a.startswith("--device="):
+            return a.split("=", 1)[1] != "cpu"
+    return True
+
+
 def main(argv=None) -> int:
+    if _card_bound(list(sys.argv[1:] if argv is None else argv)):
+        # the CUDA probe runs while torch imports (it imports nothing)
+        from ..platform import start_probe
+
+        start_probe()
     from . import daemon, protocol
 
     p = argparse.ArgumentParser(

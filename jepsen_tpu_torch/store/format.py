@@ -25,9 +25,10 @@ Block types:
   no re-parse.  This is the device-ready twist on the reference's lazy
   Fressian history block.
 
-The port writes and reads in pure Python only: the reference's C++
-writer (native/blockfile.cc) writes the same bytes, and its pure-Python
-path is this one, so a file either package writes loads in the other.
+Byte-level writes go through the C++ writer (native/blockfile.cc, built
+by :mod:`.native`) when it is available, else through the pure-Python
+path here; both write the same bytes, so a file either package writes
+loads in the other.  Reads verify CRCs in Python.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ import os
 import struct
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
+
+from . import native
 
 MAGIC = b"JTPU"
 VERSION = 1
@@ -81,7 +84,7 @@ def _dumps(obj: Any) -> bytes:
 
 
 class Writer:
-    """Append-only block writer.
+    """Append-only block writer over the native lib (or pure Python).
 
     Logical block ids are assigned sequentially from 1 (0 = nil
     sentinel, reference format.clj:95-97); save_index() appends an
@@ -93,14 +96,28 @@ class Writer:
         self.blocks: Dict[int, int] = {}  # id -> offset
         self.next_id = 1
         self.root: int = 0
-        self._f = open(path, "wb+")
-        self._f.write(MAGIC + struct.pack("<IQ", VERSION, 0))
-        self._f.flush()
+        self._native = None
+        self._f = None
+        lib = native.lib()
+        if lib is not None:
+            h = lib.bf_create(path.encode())
+            if h:
+                self._native = (lib, h)
+        if self._native is None:
+            self._f = open(path, "wb+")
+            self._f.write(MAGIC + struct.pack("<IQ", VERSION, 0))
+            self._f.flush()
 
     # -- low level ---------------------------------------------------------
 
     def _append(self, type_: int, data: bytes) -> int:
         """Append one framed block; returns its offset."""
+        if self._native is not None:
+            lib, h = self._native
+            off = lib.bf_append_block(h, type_, data, len(data))
+            if off == 0:
+                raise IOError(f"native append failed at {self.path}")
+            return off
         f = self._f
         f.seek(0, os.SEEK_END)
         off = f.tell()
@@ -108,6 +125,11 @@ class Writer:
         return off
 
     def _set_index_offset(self, offset: int) -> None:
+        if self._native is not None:
+            lib, h = self._native
+            if lib.bf_set_index_offset(h, offset) != 0:
+                raise IOError(f"native index update failed at {self.path}")
+            return
         f = self._f
         f.seek(8)
         f.write(struct.pack("<Q", offset))
@@ -187,11 +209,16 @@ class Writer:
         self._set_index_offset(off)
 
     def flush(self) -> None:
-        if self._f is not None:
+        if self._native is not None:
+            self._native[0].bf_flush(self._native[1])
+        elif self._f is not None:
             self._f.flush()
 
     def close(self) -> None:
-        if self._f is not None:
+        if self._native is not None:
+            self._native[0].bf_close(self._native[1])
+            self._native = None
+        elif self._f is not None:
             self._f.close()
             self._f = None
 

@@ -9,9 +9,7 @@ per-suite runner every reference suite ends with);
 fault menu.
 
 The reference's ``DaemonDB`` base and its generic set, counter and
-register workloads serve the suites that are not ported yet.  Its
-``--tracing`` wiring (``trace.wire``) is not ported: a test that asks for
-it raises, as :func:`jepsen_tpu_torch.core.check_tracing` says.
+register workloads serve the suites that are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +18,6 @@ from typing import Any, List, Optional
 
 from .. import checker as checker_mod
 from .. import client as client_mod
-from .. import core
 from .. import db as db_mod
 from .. import generator as gen
 from ..nemesis import combined
@@ -180,8 +177,10 @@ def build_test(
         parts.append(workload["final-generator"])
     test["generator"] = gen.phases(*parts) if len(parts) > 1 else body
 
-    # --tracing ENDPOINT: per-client span tracing (the reference's
-    # trace.wire) is not ported; a test that asks for it fails here,
-    # before anything starts
-    core.check_tracing(opts)
-    return test
+    # --tracing ENDPOINT: span every client call, exported to the
+    # endpoint (a JSONL spans file; reference: dgraph/core.clj:118,175
+    # builds its tracer from the --tracing URL and client.clj wraps
+    # each client call in a span)
+    from .. import trace
+
+    return trace.wire(test, opts.get("tracing"))

@@ -23,7 +23,34 @@ from __future__ import annotations
 
 import random
 
-from .history import History, Op, invoke_op, ok_op, fail_op, info_op
+from .history import (FAIL, INFO, INVOKE, OK, History, Op, invoke_op,
+                      ok_op, fail_op, info_op)
+
+_CAS_FS = ("read", "write", "cas")
+
+
+def _below(rng: random.Random):
+    """A draw of an int in ``[0, n)`` from ``rng``'s stream, as
+    ``rng.choice`` and ``rng.randrange(n)`` make it: CPython's
+    ``Random._randbelow`` (``getrandbits`` of ``n``'s bit length until the
+    value is below ``n``) without their two Python calls a draw.  The
+    same bits leave the stream, so a seed gives the same histories.  A
+    generator that is not a plain ``random.Random`` keeps its own
+    ``_randbelow``.  An empty range raises, as ``choice`` does."""
+    if type(rng)._randbelow is not random.Random._randbelow_with_getrandbits:
+        return rng._randbelow
+    getrandbits = rng.getrandbits
+
+    def below(n: int) -> int:
+        if n <= 0:
+            raise IndexError("cannot draw from an empty range")
+        k = n.bit_length()
+        r = getrandbits(k)
+        while r >= n:
+            r = getrandbits(k)
+        return r
+
+    return below
 
 
 def generate_history(
@@ -48,49 +75,54 @@ def generate_history(
     fresh process id, so open (crashed) ops accumulate beyond n_procs.
     op_weights biases the (read, write, cas) mix.
     """
+    below, random_ = _below(rng), rng.random
     state = 0
     hist = []
+    add = hist.append
     pending = {}
     idle = list(range(n_procs))
     next_pid = n_procs
     values = list(range(1, n_values + 1))
+    nv = len(values)
     ops_done = 0
     while ops_done < n_ops or pending:
-        do_invoke = idle and (ops_done < n_ops) and (not pending or rng.random() < 0.6)
+        do_invoke = idle and (ops_done < n_ops) and (not pending or random_() < 0.6)
         if do_invoke:
-            p = rng.choice(idle)
+            p = idle[below(len(idle))]
             idle.remove(p)
             # plain choice when unweighted: rng.choices consumes a
             # different PRNG stream, which would silently regenerate
             # every fixed-seed corpus
             if op_weights is None:
-                f = rng.choice(["read", "write", "cas"])
+                f = _CAS_FS[below(3)]
             else:
                 f = rng.choices(["read", "write", "cas"], weights=op_weights)[0]
             if f == "read":
-                hist.append(invoke_op(p, "read"))
+                add(Op(INVOKE, p, "read"))
                 pending[p] = ("read", None)
             elif f == "write":
-                v = rng.choice(values)
-                hist.append(invoke_op(p, "write", v))
+                v = values[below(nv)]
+                add(Op(INVOKE, p, "write", v))
                 pending[p] = ("write", v)
             else:
-                old = rng.choice(values + [state])
-                new = rng.choice(values)
-                hist.append(invoke_op(p, "cas", (old, new)))
+                i = below(nv + 1)  # a choice of values + [state]
+                old = values[i] if i < nv else state
+                new = values[below(nv)]
+                add(Op(INVOKE, p, "cas", (old, new)))
                 pending[p] = ("cas", (old, new))
             ops_done += 1
         else:
-            p = rng.choice(list(pending.keys()))
+            keys = list(pending)
+            p = keys[below(len(keys))]
             f, v = pending.pop(p)
-            if rng.random() < crash_p:
+            if random_() < crash_p:
                 # crashed: decide secretly whether it took effect; the
                 # crashed process id is never reused
-                if f == "write" and rng.random() < 0.5:
+                if f == "write" and random_() < 0.5:
                     state = v
-                elif f == "cas" and rng.random() < 0.5 and state == v[0]:
+                elif f == "cas" and random_() < 0.5 and state == v[0]:
                     state = v[1]
-                hist.append(info_op(p, f, v))
+                add(Op(INFO, p, f, v))
                 if replace_crashed:
                     idle.append(next_pid)
                     next_pid += 1
@@ -103,10 +135,10 @@ def generate_history(
                     if state == v[0]:
                         state = v[1]
                     else:
-                        hist.append(fail_op(p, f, v))
+                        add(Op(FAIL, p, f, v))
                         idle.append(p)
                         continue
-                hist.append(ok_op(p, f, v))
+                add(Op(OK, p, f, v))
                 idle.append(p)
         if not idle and not pending:
             break
@@ -162,9 +194,16 @@ def generate_lock_history(
     name} the way suites/hazelcast.py stamps identity.  corrupt=True
     fabricates one definite violation: a grant while held with no open
     release that could linearize first."""
+    below = _below(rng)
     cap = 2 if reentrant else 1
     hist = []
-    idle = list(range(n_procs))
+    add = hist.append
+    # the idle processes, split by whether they hold the lock, each in
+    # idle order (a process's holds change only while it is not idle):
+    # the acquirers, the holders (who may release) and, reentrant, the
+    # holders below the bound
+    free = list(range(n_procs))
+    held: list = []
     waiting: list = []      # acquire invoked, not granted
     holds = {p: 0 for p in range(n_procs)}
     releasing: list = []    # release invoked, not ok'd
@@ -172,9 +211,9 @@ def generate_lock_history(
     corrupted = False
     done = 0
     while done < n_ops or waiting or releasing:
-        can_acq = [p for p in idle if holds[p] == 0]
-        can_reacq = [p for p in idle if 0 < holds[p] < cap]
-        can_rel = [p for p in idle if holds[p] > 0]
+        can_acq = free
+        can_reacq = [p for p in held if holds[p] < cap] if reentrant else []
+        can_rel = held
         legit_grant = [
             p for p in waiting
             if eff == 0 or (0 < holds[p] < cap)
@@ -196,36 +235,36 @@ def generate_lock_history(
             moves.append("ok_rel")
         if not moves:
             break  # defensive: the current move set always drains
-        mv = rng.choice(moves)
+        mv = moves[below(len(moves))]
         if mv == "inv_acq":
-            pool = can_acq + (can_reacq if reentrant else [])
-            p = pool[rng.randrange(len(pool))]
-            idle.remove(p)
-            hist.append(invoke_op(p, "acquire", None))
+            pool = can_acq + can_reacq
+            p = pool[below(len(pool))]
+            (held if holds[p] else free).remove(p)
+            add(Op(INVOKE, p, "acquire"))
             waiting.append(p)
             done += 1
         elif mv == "inv_rel":
-            p = can_rel[rng.randrange(len(can_rel))]
-            idle.remove(p)
-            hist.append(invoke_op(p, "release", None))
+            p = can_rel[below(len(can_rel))]
+            held.remove(p)
+            add(Op(INVOKE, p, "release"))
             releasing.append(p)
             eff -= 1  # the release may linearize from here on
             done += 1
         elif mv in ("grant", "bad_grant"):
             pool = legit_grant if mv == "grant" else waiting
-            p = pool[rng.randrange(len(pool))]
+            p = pool[below(len(pool))]
             waiting.remove(p)
             holds[p] += 1
             eff += 1
-            hist.append(ok_op(p, "acquire", {"client": f"c{p}"}))
-            idle.append(p)
+            add(Op(OK, p, "acquire", {"client": f"c{p}"}))
+            held.append(p)
             if mv == "bad_grant":
                 corrupted = True
         else:  # ok_rel
-            p = releasing.pop(rng.randrange(len(releasing)))
+            p = releasing.pop(below(len(releasing)))
             holds[p] -= 1
-            hist.append(ok_op(p, "release", {"client": f"c{p}"}))
-            idle.append(p)
+            add(Op(OK, p, "release", {"client": f"c{p}"}))
+            (held if holds[p] else free).append(p)
     # Defensive tail (currently unreachable: a move always exists while
     # waiters remain, so the loop drains them): if a future move-set
     # change ever strands a waiter, it must leave as an IDENTITY-BEARING
@@ -253,39 +292,43 @@ def generate_mr_history(
     single-mop transactions ``[("r"|"w", key, value)]`` against keys
     0..n_keys-1, each initially 0 (pair with models.multi_register({k: 0
     for k in range(n_keys)})).  Valid by construction unless corrupt."""
+    below, random_ = _below(rng), rng.random
     state = {k: 0 for k in range(n_keys)}
     hist = []
+    add = hist.append
     pending = {}
     idle = list(range(n_procs))
     values = list(range(1, n_values + 1))
+    nv = len(values)
     ops_done = 0
     while ops_done < n_ops or pending:
-        do_invoke = idle and (ops_done < n_ops) and (not pending or rng.random() < 0.6)
+        do_invoke = idle and (ops_done < n_ops) and (not pending or random_() < 0.6)
         if do_invoke:
-            p = rng.choice(idle)
+            p = idle[below(len(idle))]
             idle.remove(p)
-            k = rng.randrange(n_keys)
-            if rng.random() < 0.5:
-                hist.append(invoke_op(p, "txn", [("r", k, None)]))
+            k = below(n_keys)
+            if random_() < 0.5:
+                add(Op(INVOKE, p, "txn", [("r", k, None)]))
                 pending[p] = ("r", k, None)
             else:
-                v = rng.choice(values)
-                hist.append(invoke_op(p, "txn", [("w", k, v)]))
+                v = values[below(nv)]
+                add(Op(INVOKE, p, "txn", [("w", k, v)]))
                 pending[p] = ("w", k, v)
             ops_done += 1
         else:
-            p = rng.choice(list(pending.keys()))
+            keys = list(pending)
+            p = keys[below(len(keys))]
             mf, k, v = pending.pop(p)
-            if rng.random() < crash_p:
-                if mf == "w" and rng.random() < 0.5:
+            if random_() < crash_p:
+                if mf == "w" and random_() < 0.5:
                     state[k] = v
-                hist.append(info_op(p, "txn", [(mf, k, v)]))
+                add(Op(INFO, p, "txn", [(mf, k, v)]))
             else:
                 if mf == "r":
                     v = state[k]
                 else:
                     state[k] = v
-                hist.append(ok_op(p, "txn", [(mf, k, v)]))
+                add(Op(OK, p, "txn", [(mf, k, v)]))
                 idle.append(p)
         if not idle and not pending:
             break  # every process crashed
@@ -320,8 +363,12 @@ def generate_permits_history(
     Completions carry {"client": name}.  corrupt=True fabricates one
     definite over-issue: a grant past n_permits with no open release
     that could linearize first."""
+    below = _below(rng)
     hist = []
-    idle = list(range(n_procs))
+    add = hist.append
+    # the idle processes without and with a permit, each in idle order
+    free = list(range(n_procs))
+    held: list = []
     waiting: list = []
     holds = {p: 0 for p in range(n_procs)}
     releasing: list = []
@@ -329,8 +376,7 @@ def generate_permits_history(
     corrupted = False
     done = 0
     while done < n_ops or waiting or releasing:
-        can_acq = [p for p in idle if holds[p] == 0]
-        can_rel = [p for p in idle if holds[p] > 0]
+        can_acq, can_rel = free, held
         grantable = eff < n_permits
         moves = []
         if done < n_ops and can_acq:
@@ -345,33 +391,33 @@ def generate_permits_history(
             moves.append("ok_rel")
         if not moves:
             break  # stranded waiters become open info ops below
-        mv = rng.choice(moves)
+        mv = moves[below(len(moves))]
         if mv == "inv_acq":
-            p = can_acq[rng.randrange(len(can_acq))]
-            idle.remove(p)
-            hist.append(invoke_op(p, "acquire", None))
+            p = can_acq[below(len(can_acq))]
+            free.remove(p)
+            add(Op(INVOKE, p, "acquire"))
             waiting.append(p)
             done += 1
         elif mv == "inv_rel":
-            p = can_rel[rng.randrange(len(can_rel))]
-            idle.remove(p)
-            hist.append(invoke_op(p, "release", None))
+            p = can_rel[below(len(can_rel))]
+            held.remove(p)
+            add(Op(INVOKE, p, "release"))
             releasing.append(p)
             eff -= 1
             done += 1
         elif mv in ("grant", "bad_grant"):
-            p = waiting.pop(rng.randrange(len(waiting)))
+            p = waiting.pop(below(len(waiting)))
             holds[p] += 1
             eff += 1
-            hist.append(ok_op(p, "acquire", {"client": f"c{p}"}))
-            idle.append(p)
+            add(Op(OK, p, "acquire", {"client": f"c{p}"}))
+            held.append(p)
             if mv == "bad_grant":
                 corrupted = True
         else:  # ok_rel
-            p = releasing.pop(rng.randrange(len(releasing)))
+            p = releasing.pop(below(len(releasing)))
             holds[p] -= 1
-            hist.append(ok_op(p, "release", {"client": f"c{p}"}))
-            idle.append(p)
+            add(Op(OK, p, "release", {"client": f"c{p}"}))
+            (held if holds[p] else free).append(p)
     for p in waiting:
         hist.append(info_op(p, "acquire", {"client": f"c{p}"}))
     h = History(hist)

@@ -3,11 +3,9 @@
 
 Mirrors the reference's jepsen.tests namespace family
 (jepsen/src/jepsen/tests.clj and jepsen/src/jepsen/tests/*.clj):
-``noop_test`` lives here and each workload gets its own module.  The
-registry holds what the port has: ``linearizable-register``.  The cycle
-workloads (:mod:`.cycle`) have their checkers but not yet their
-transaction generators; bank, long-fork, causal, causal-reverse and
-adya-g2 are not ported yet.
+``noop_test`` lives here and each workload gets its own module (bank,
+long_fork, causal, causal_reverse, adya, linearizable_register,
+cycle/append, cycle/wr): the registry holds the reference's eight names.
 """
 
 from __future__ import annotations
@@ -48,8 +46,33 @@ def names() -> list:
 
 
 def _table(opts: dict) -> dict:
-    from . import linearizable_register  # local import keeps startup light
+    from . import (  # local imports keep startup light
+        adya,
+        bank,
+        causal,
+        causal_reverse,
+        linearizable_register,
+        long_fork,
+    )
+    from .cycle import append as cycle_append
+    from .cycle import wr as cycle_wr
 
     return {
+        "bank": lambda: bank.test(opts),
+        "long-fork": lambda: long_fork.workload(opts.get("group-size", 2)),
+        "causal": lambda: causal.test(opts),
+        "causal-reverse": lambda: causal_reverse.workload(opts),
+        # the paired-insert generator runs 2 threads per key, so the
+        # worker count must divide evenly (the reference's
+        # concurrent-generator asserts the same, independent.clj);
+        # default 1n x 5 nodes = 5 workers would crash
+        "adya-g2": lambda: {
+            **adya.workload(opts),
+            "concurrency": 2 * len(
+                opts.get("nodes") or ["n1", "n2", "n3", "n4", "n5"]
+            ),
+        },
         "linearizable-register": lambda: linearizable_register.test(opts),
+        "list-append": lambda: cycle_append.test(opts),
+        "rw-register": lambda: cycle_wr.test(opts),
     }

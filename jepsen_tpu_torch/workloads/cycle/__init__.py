@@ -1,9 +1,9 @@
-"""Transactional-cycle workloads: the checker half of
-:mod:`jepsen_tpu.workloads.cycle` over the port's Elle
+"""Transactional-cycle workloads: the port's copy of
+:mod:`jepsen_tpu.workloads.cycle` — the transaction generator
+(:class:`TxnGenerator`) and the checkers over the port's Elle
 (:mod:`jepsen_tpu_torch.elle`), with the reference's anomaly artifacts
 (one text file per anomaly type and an SVG of its first witness cycle
-under ``<store>/<name>/<start-time>/elle/``).  The transaction generator
-drives the test harness and is not ported.
+under ``<store>/<name>/<start-time>/elle/``).
 
 (reference: jepsen/src/jepsen/tests/cycle.clj — the generic adapter —
 plus cycle/append.clj and cycle/wr.clj)
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Any, List, Optional
 
+from ... import generator as gen
 from ...checker import Checker
 
 
@@ -204,3 +205,64 @@ def checker(workload: str, opts: Optional[dict] = None,
     (a :class:`~jepsen_tpu_torch.serve.client.ServiceClient`).
     (reference: cycle.clj:9-16)"""
     return _ElleChecker(workload, opts, device, client)
+
+
+class TxnGenerator(gen.Generator):
+    """Random micro-op transactions over a rotating pool of keys.
+
+    Mirrors elle's wr-txns/append-txns behavior: ``key-count`` keys are
+    active at once; each key takes at most ``max-writes-per-key`` writes
+    before being retired for a fresh one; txns have min..max mops, each
+    a read or write/append of an active key with globally-unique written
+    values per key.  Every ``gen.rng`` draw comes in the reference's
+    order, so one seed gives the reference's transactions.
+    """
+
+    def __init__(self, mode: str, opts: dict, state: Optional[dict] = None):
+        self.mode = mode  # "append" | "wr"
+        self.opts = opts
+        if state is None:
+            kc = opts.get("key-count", 2)
+            state = {
+                "next_key": kc,
+                "active": list(range(kc)),
+                "writes": {k: 0 for k in range(kc)},
+                "counter": 0,
+            }
+        self.state = state
+
+    def op(self, test, ctx):
+        o = self.opts
+        min_len = o.get("min-txn-length", 1)
+        max_len = o.get("max-txn-length", 4)
+        max_wpk = o.get("max-writes-per-key", 32)
+        st = {
+            "next_key": self.state["next_key"],
+            "active": list(self.state["active"]),
+            "writes": dict(self.state["writes"]),
+            "counter": self.state["counter"],
+        }
+        n = min_len + gen.rng.randrange(max_len - min_len + 1)
+        value: List[list] = []
+        f = "append" if self.mode == "append" else "w"
+        for _ in range(n):
+            k = st["active"][gen.rng.randrange(len(st["active"]))]
+            if gen.rng.random() < 0.5:
+                value.append(["r", k, None])
+                continue
+            st["counter"] += 1
+            value.append([f, k, st["counter"]])
+            st["writes"][k] += 1
+            if st["writes"][k] >= max_wpk:
+                # retire the key for a fresh one in the same slot
+                fresh = st["next_key"]
+                st["next_key"] += 1
+                st["active"][st["active"].index(k)] = fresh
+                st["writes"][fresh] = 0
+        filled = gen.fill_in_op({"f": "txn", "value": value}, ctx)
+        if filled == gen.PENDING:
+            return (gen.PENDING, self)
+        return (filled, TxnGenerator(self.mode, self.opts, st))
+
+    def update(self, test, ctx, event):
+        return self

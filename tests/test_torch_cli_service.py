@@ -9,8 +9,8 @@
 - Each command runs against CPU daemons: in-process ones, one started by
   ``serve --checker`` and a supervised fleet of two started by ``serve
   --checker --supervise --fleet 2``; ``route`` fronts a daemon and stops
-  on ``/shutdown``.  ``serve`` without ``--checker`` exits with the usage
-  error naming the web UI (``web.py``), which is not ported.
+  on ``/shutdown``.  ``serve`` without ``--checker`` is the web UI, and a
+  ``--service`` address that is not ``HOST:PORT`` is a usage error.
 - No command reads an environment variable: the port has none.
 
 Every daemon, router and process is stopped by a fixture or a
@@ -355,8 +355,8 @@ def test_serve_checker_supervises_a_fleet_of_two(tmp_path, capsys):
 
 
 def test_serve_usage_errors(capsys):
-    rc, _, err = _run(["serve"], capsys)
-    assert rc == cli.EXIT_USAGE and "web.py" in err
+    rc, _, err = _run(["serve", "--service", "127.0.0.1:http"], capsys)
+    assert rc == cli.EXIT_USAGE and "--service" in err
     rc, _, err = _run(["serve", "--checker", "--fleet", "2"], capsys)
     assert rc == cli.EXIT_USAGE and "--fleet requires --supervise" in err
 

@@ -239,9 +239,19 @@ def test_core_run_valid_with_the_honest_client(tmp_path):
 
 
 def test_core_run_refuses_tracing(tmp_path):
-    test = _workload_test(tmp_path, 10, fake.KeyedAtomClient())
-    with pytest.raises(NotImplementedError, match="trace.py"):
-        core.run({**test, "tracing": str(tmp_path / "spans.jsonl")})
+    """``tracing`` was refused while ``trace.py`` was not ported; now a
+    traced run appends one span per client call to the endpoint and turns
+    the tracer off again when it ends."""
+    from jepsen_tpu_torch import trace
+
+    spans = tmp_path / "spans.jsonl"
+    test = trace.wire(_workload_test(tmp_path, 10, fake.KeyedAtomClient()),
+                      str(spans))
+    assert isinstance(test["client"], trace.Traced)
+    core.run(test)
+    names = [json.loads(line)["name"] for line in open(spans)]
+    assert names.count("client.invoke") == 10
+    assert not trace._tracer.sample
 
 
 # ---------------------------------------------------------------------------

@@ -182,5 +182,6 @@ def test_the_suite_test_map_needs_no_side_effects(tmp_path):
     assert t["nodes"] == ["n1", "n2", "n3"] and t["name"] == "localkv"
     assert t["device"] == "cpu" and t["net"] is t["db"].net
     assert not t["db"].ports and not os.path.exists(str(tmp_path / "d"))
-    with pytest.raises(NotImplementedError, match="trace.py"):
-        suites.suite("localkv").test({"tracing": "spans.jsonl"})
+    traced = suites.suite("localkv").test({"tracing": "spans.jsonl"})
+    assert traced["tracing"] == "spans.jsonl"
+    assert type(traced["client"]).__name__ == "Traced"

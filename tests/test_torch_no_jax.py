@@ -87,7 +87,18 @@ _IMPORT_ALL = textwrap.dedent("""
                      "jepsen_tpu_torch.checker.perf",
                      "jepsen_tpu_torch.suites",
                      "jepsen_tpu_torch.suites.common",
-                     "jepsen_tpu_torch.suites.localkv"):
+                     "jepsen_tpu_torch.suites.localkv",
+                     "jepsen_tpu_torch.workloads.bank",
+                     "jepsen_tpu_torch.workloads.long_fork",
+                     "jepsen_tpu_torch.workloads.adya",
+                     "jepsen_tpu_torch.workloads.causal",
+                     "jepsen_tpu_torch.workloads.causal_reverse",
+                     "jepsen_tpu_torch.workloads.cycle.append",
+                     "jepsen_tpu_torch.workloads.cycle.wr",
+                     "jepsen_tpu_torch.trace",
+                     "jepsen_tpu_torch.checker.clock",
+                     "jepsen_tpu_torch.web",
+                     "jepsen_tpu_torch.store.native"):
         assert required in names, required
     for name in names:
         importlib.import_module(name)
@@ -113,8 +124,10 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     # the lint passes and the test harness (generators, interpreter, fake
     # clients, control, db, nemesis, store format, core, workloads, CLI)
     # and the real-process path (the local remote and its helpers, net,
-    # the combined nemeses, the perf plots, the localkv suite) included
-    assert int(out.stdout.split()[-1]) >= 90
+    # the combined nemeses, the perf plots, the localkv suite), the other
+    # in-process workloads, span tracing, the clock plot, the web UI and
+    # the native block writer's loader included
+    assert int(out.stdout.split()[-1]) >= 96
 
 
 def test_the_refusal_matches_names_exactly():
@@ -140,3 +153,37 @@ def test_check_batch_without_a_device_raises_where_cuda_is_absent(
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         wgl.check_batch(models.cas_register(0), hs, device="cuda")
     assert wgl.check_batch(models.cas_register(0), hs, device="cpu")
+
+
+def test_the_daemon_entry_probes_before_it_imports_torch():
+    """``python -m jepsen_tpu_torch.serve`` starts its CUDA probe before
+    the daemon's imports: the ``serve`` package, its ``__main__`` and
+    ``platform`` load without torch (the package's names load lazily)."""
+    src = textwrap.dedent("""
+        import importlib.abc, sys
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] == "torch":
+                    raise ImportError(name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        import jepsen_tpu_torch.platform
+        import jepsen_tpu_torch.serve
+        from jepsen_tpu_torch.serve import __main__ as entry
+        assert entry._card_bound([]) and entry._card_bound(["--device=1"])
+        assert not entry._card_bound(["--device", "cpu"])
+        assert not entry._card_bound(["--supervise", "--fleet", "2"])
+        print("ok")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", src], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    import jepsen_tpu_torch.serve as serve
+
+    assert serve.ServiceClient.__module__ == "jepsen_tpu_torch.serve.client"
+    assert set(serve.__all__) >= {"CheckerDaemon", "Router", "spawn_daemon"}
+    with pytest.raises(AttributeError):
+        serve.no_such_name

@@ -231,3 +231,61 @@ def test_the_probe_source_against_a_fake_driver(tmp_path, monkeypatch, mode,
         assert attempts == ["no-accelerator"]
     else:
         assert attempts == [verdict[1]] * 2
+
+
+class _FakePopen:
+    """``subprocess.Popen`` stand-in for :func:`platform.start_probe`: its
+    ``communicate`` answers ``code`` (or raises the exception given)."""
+
+    started = []
+
+    def __init__(self, cmd, **kw):
+        self.cmd, self.killed, self.returncode = cmd, False, None
+        self.answers = list(_FakePopen.script)
+        _FakePopen.started.append(self)
+
+    def communicate(self, timeout=None):
+        out = self.answers.pop(0) if self.answers else 0
+        if isinstance(out, BaseException):
+            raise out
+        self.returncode = out
+        return "", "" if out == 0 else "early failure\n"
+
+    def kill(self):
+        self.killed = True
+
+
+@pytest.mark.parametrize("script, runs, want", [
+    ([0], [], (True, None)),
+    ([platform.NO_DEVICE_EXIT], [], (False, "no CUDA device present")),
+    # the early attempt hangs: it is killed, and the retry runs as usual
+    ([subprocess.TimeoutExpired("probe", 1.0), 0], [0], (True, None)),
+    ([1], [0], (True, None)),
+])
+def test_an_early_probe_is_the_first_attempt(monkeypatch, script, runs,
+                                             want):
+    """``start_probe`` runs the first attempt in the background (a daemon
+    starts it before importing torch); ``probe_accelerator`` takes its
+    answer, and a failed or hung early attempt counts as attempt 0."""
+    _FakePopen.script, _FakePopen.started = script, []
+    monkeypatch.setattr(platform.subprocess, "Popen", _FakePopen)
+    stub = _Stub(runs or [RuntimeError("no second attempt expected")])
+    monkeypatch.setattr(platform.subprocess, "run", stub)
+    platform.start_probe()
+    platform.start_probe()  # once only
+    assert len(_FakePopen.started) == 1
+    assert platform.probe_accelerator(retries=2, timeout_s=1.0,
+                                      backoff_s=0.0) == want
+    assert stub.calls == len(runs)
+    assert _FakePopen.started[0].killed == isinstance(script[0],
+                                                      BaseException)
+    platform.start_probe()  # a verdict exists: no new attempt
+    assert len(_FakePopen.started) == 1
+
+
+def test_forget_probe_reaps_an_unused_early_probe(monkeypatch):
+    _FakePopen.script, _FakePopen.started = [0], []
+    monkeypatch.setattr(platform.subprocess, "Popen", _FakePopen)
+    platform.start_probe()
+    platform.forget_probe()
+    assert _FakePopen.started[0].killed and platform._early is None

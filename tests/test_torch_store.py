@@ -267,3 +267,43 @@ def test_keyed_values_round_trip(tmp_path):
     for pkg in ("ref", "port"):
         loaded = _load(pkg, t)
         assert [op.value for op in loaded["history"]] == [[1, 3], [1, 3]]
+
+
+@pytest.mark.parametrize("keyed", [False, True])
+def test_native_writer_writes_the_python_writers_bytes(tmp_path, monkeypatch,
+                                                       keyed):
+    """With ``native/blockfile.cc`` built (``store/native.py``, into the
+    git-ignored ``build/native/``), the store's writer goes through it and
+    writes the pure-Python writer's bytes; the reference reads that file.
+    The packed history section is memoised so both runs write the same
+    zip (its entry timestamps come from the clock)."""
+    from jepsen_tpu_torch.store import native
+
+    assert native.available(), "g++ could not build native/blockfile.cc"
+    assert native.library_path().parent.parts[-2:] == ("build", "native")
+    packed = {}
+    pack = port_fmt._pack_history
+    monkeypatch.setattr(port_fmt, "_pack_history",
+                        lambda h: packed.setdefault(len(h), pack(h)))
+    used = []
+    create = port_fmt.Writer.__init__
+
+    def spy(self, path):
+        create(self, path)
+        used.append(self._native is not None)
+
+    monkeypatch.setattr(port_fmt.Writer, "__init__", spy)
+    ds = _dicts(600, seed=3, keyed=keyed)
+    results = {"valid?": False, "errors": [{"op": 7}], "n": 600}
+    # one store base for both (the test map, and so its bytes, name it)
+    t = _save("port", tmp_path, ds, results)
+    a = open(port_store.jtpu_file(t), "rb").read()
+    ref = _load("ref", t)
+    assert ref["results"] == results
+    assert len(ref["history"]) == len(ds)
+    shutil.rmtree(tmp_path / t["name"])
+    monkeypatch.setattr(native, "lib", lambda: None)
+    t = _save("port", tmp_path, ds, results)
+    b = open(port_store.jtpu_file(t), "rb").read()
+    assert used == [True, False]
+    assert a == b and len(a) > 1000
