@@ -344,6 +344,23 @@ line.
     anomalies, verdict and transaction count.  list-append's dependency
     graph (its vertex count) is a batch of one and stays on the CPU, as
     the reference routes it (K7's launches are printed).
+32. the wire-protocol suites — seven runs, each ``suites.suite(name)
+    .test(opts)`` against a fake server of ``tests/fake_servers.py``
+    (imported inside the phase; stdlib only) at the reference's
+    ``*_full_test_in_process`` settings (3 nodes, ``db`` noop, ``ssh``
+    dummy, no faults, ``time-limit`` 2, ``rate`` 40–50), its own client
+    speaking the database's protocol, the history checked on the card:
+    etcd's and consul's registers over HTTP, raftis's over RESP,
+    zookeeper's lock over jute, disque's ``linearizable-queue`` over RESP
+    (``tests/fake_disque.py`` acknowledges its jobs), postgres-rds's
+    register and stolon's list-append over pgwire.  The launch counters
+    are reset before each run; one line per run gives its ops, oks,
+    verdict, seconds and K1, K4, K6 and K7 launches.  Every run must be
+    valid.  The register and lock runs must launch K1, and their whole
+    result must equal the plain versions' re-check (``device="cpu"``)
+    and, key by key, the CPU oracle's (as phase 30); disque's must equal
+    the plain versions'; stolon's must equal a ``screen-route cpu``
+    re-check.  The phase must take at most 35 s.
 
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -352,6 +369,7 @@ The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 from __future__ import annotations
 
 import ctypes
+import functools
 import gc
 import json
 import os
@@ -367,10 +385,12 @@ import numpy as np
 import torch
 
 from jepsen_tpu_torch import checker as checker_mod
+from jepsen_tpu_torch import db as db_mod
 from jepsen_tpu_torch import cli, core, fake
 from jepsen_tpu_torch import generator as harness_gen
 from jepsen_tpu_torch import nemesis as nemesis_mod
 from jepsen_tpu_torch import store as store_mod
+from jepsen_tpu_torch import suites as suites_mod
 from jepsen_tpu_torch import workloads
 from jepsen_tpu_torch import elle, independent, models, obs, synth, tune
 from jepsen_tpu_torch import platform as platform_mod
@@ -419,6 +439,27 @@ def emit(**fields) -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def collector_paused(fn):
+    """A corpus builder run with the cyclic collector off, what it built
+    then frozen (``gc.freeze``) before the collector is on again.  A
+    corpus of a million ops holds no cycles: each collection its
+    allocations trigger would walk every live object, and a later full
+    collection would walk the corpus again.  The script's own policy:
+    the library leaves the collector alone."""
+    @functools.wraps(fn)
+    def paused(*args, **kwargs):
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            gc.freeze()
+            if was_enabled:
+                gc.enable()
+
+    return paused
 
 
 def card_line() -> str:
@@ -653,6 +694,7 @@ def graph_ms(run, args, launches=20, reps=7):
     return float(np.median(times))
 
 
+@collector_paused
 def edge_cases():
     """(name, spec, model, histories, slot cap, C, V) at the envelope's
     edges."""
@@ -688,6 +730,19 @@ def edge_cases():
     ]
 
 
+@collector_paused
+def end_to_end_histories():
+    """Phase 4's histories: 1016 synth 1000-op histories and 8 that
+    overflow the slot cap."""
+    hs = synth.generate_batch(seed=45101, n_histories=E2E_HISTORIES - 8,
+                              n_procs=5, n_ops=1000, crash_p=0.002,
+                              corrupt_fraction=0.25)
+    rng = random.Random(45102)
+    return hs + [synth.generate_history(rng, n_procs=12, n_ops=48,
+                                        crash_p=0.0) for _ in range(8)]
+
+
+@collector_paused
 def slice_histories(seed: int, n: int):
     """The frontier slice's histories: ``synth.generate_batch`` with
     writes drawn from 40 values (same generator, same draws per
@@ -699,6 +754,7 @@ def slice_histories(seed: int, n: int):
             for _ in range(n)]
 
 
+@collector_paused
 def crash_heavy_histories(seed: int, n: int):
     """10 processes, crashed processes replaced: C reaches 16."""
     rng = random.Random(seed)
@@ -707,6 +763,7 @@ def crash_heavy_histories(seed: int, n: int):
             for i in range(n)]
 
 
+@collector_paused
 def encoded(hs, slot_cap):
     """One padded batch of the encodable histories, as arrays."""
     b = encode.batch_encode(hs, models.cas_register(0), slot_cap=slot_cap)
@@ -950,6 +1007,7 @@ def rung_subset_compare(name, arrays, overflow, F, mc, device):
 # ---------------------------------------------------------------------------
 
 
+@collector_paused
 def lock_histories(seed: int, n: int, n_procs=10, n_ops=1000,
                    reentrant=False):
     rng = random.Random(seed)
@@ -959,6 +1017,7 @@ def lock_histories(seed: int, n: int, n_procs=10, n_ops=1000,
             for i in range(n)]
 
 
+@collector_paused
 def permit_histories(seed: int, n: int, n_procs=10, n_ops=1000):
     rng = random.Random(seed)
     return [synth.generate_permits_history(rng, n_procs=n_procs,
@@ -967,6 +1026,7 @@ def permit_histories(seed: int, n: int, n_procs=10, n_ops=1000):
             for i in range(n)]
 
 
+@collector_paused
 def mr_histories(seed: int, n: int, n_keys: int, n_values: int,
                  n_procs=8, n_ops=1000, crash_p=0.002, corrupt=True):
     rng = random.Random(seed)
@@ -990,6 +1050,7 @@ def flip_one_read(h):
     return h
 
 
+@collector_paused
 def family_batch(model, hs, device, slot_cap=32):
     """The histories as one encoded batch and the plan the engine gives
     it; the plan must be the dense automaton."""
@@ -1709,6 +1770,7 @@ QUEUE_INITIAL = (1, 2, 3)
 QUEUE_VALUES = step_kernels.UQ_MAX_VALUES
 
 
+@collector_paused
 def queue_histories(seed: int, n: int, n_procs=QUEUE_PROCS,
                     n_ops=QUEUE_OPS):
     """(histories, models): the unique-element queue generator, a quarter
@@ -2193,6 +2255,7 @@ def stats_phase(mesh, device, card, flagship, f_arrays, ptxas=""):
 # ---------------------------------------------------------------------------
 
 
+@collector_paused
 def keyed_history(hs) -> History:
     """Phase 4's histories as one keyed history, built in one pass: an
     un-keyed nemesis op at the head, then history i's ops with values
@@ -2201,16 +2264,11 @@ def keyed_history(hs) -> History:
     (which hold no cycles) are allocated, two thirds of the build
     otherwise."""
     ops = [Op("info", "nemesis", "start", None, 0)]
-    gc.disable()
-    try:
-        for i, h in enumerate(hs):
-            off = i * (1 + max(op.process for op in h))
-            ops.extend(Op(op.type, op.process + off, op.f,
-                          independent.KV(i, op.value), op.time, -1,
-                          **op.extra)
-                       for op in h)
-    finally:
-        gc.enable()
+    for i, h in enumerate(hs):
+        off = i * (1 + max(op.process for op in h))
+        ops.extend(Op(op.type, op.process + off, op.f,
+                      independent.KV(i, op.value), op.time, -1, **op.extra)
+                   for op in h)
     return History(ops).index_ops()
 
 
@@ -3655,6 +3713,31 @@ def as_json(x):
     return json.loads(json.dumps(x, default=repr))
 
 
+def localkv_verdicts(base, code, k1, k4, rungs) -> None:
+    """Before phase 30's gate fails: what each checker of the stored run
+    answered, and the history's route, on a line of their own."""
+    try:
+        start = store_mod.latest_time(base, "localkv")
+        stored = store_mod.load({"name": "localkv", "start-time": start,
+                                 "store-base": base})
+        results = stored.get("results") or {}
+        checkers = {k: {f: v.get(f) for f in ("valid?", "error", "engine",
+                                               "kernel", "op-count")}
+                    for k, v in results.items() if isinstance(v, dict)}
+        client = [op for op in stored["history"]
+                  if isinstance(op.process, int)]
+        enc = encode.encode_history(stored["history"],
+                                    models.cas_register(0))
+        emit(phase="localkv_verdicts", code=code, valid=results.get("valid?"),
+             checkers=as_json(checkers), ops=len(client),
+             E=len(enc.ev_slot) if enc is not None else None,
+             C=enc.max_open if enc is not None else None,
+             k1_launches=k1, k4_launches=k4, escalations=rungs,
+             collector_enabled=gc.isenabled())
+    except Exception as e:  # noqa: BLE001 — the gate below still fails
+        emit(phase="localkv_verdicts", code=code, error=repr(e))
+
+
 def localkv_phase(card):
     """Phase 30: ``cli test --suite localkv`` — five ``repregd`` replicas
     built with g++, partitioned and killed, the history checked on the
@@ -3678,6 +3761,8 @@ def localkv_phase(card):
         k1 = dense.DENSE_AUTOMATON.launches
         k4 = wgl.FRONTIER_SEARCH.launches
         rungs = {str(k): v for k, v in wgl.ESCALATIONS.items()}
+        if code != cli.EXIT_VALID:
+            localkv_verdicts(base, code, k1, k4, rungs)
         require(code == cli.EXIT_VALID, f"localkv: cli test exited {code}")
         require(k1 + k4 > 0, "localkv: the check launched no kernel")
         start = store_mod.latest_time(base, "localkv")
@@ -3881,6 +3966,172 @@ def test_all_phase(card):
     return k6
 
 
+# ---------------------------------------------------------------------------
+# the wire-protocol suites (phase 32)
+# ---------------------------------------------------------------------------
+
+#: phase 32's runs: suite, workload, fake server, extra options, rate (the
+#: reference's ``*_full_test_in_process`` settings: tests/test_suites.py,
+#: tests/test_suite_workloads.py)
+SUITE_RUNS = (
+    ("etcd", "register", "FakeHttpKv", {}, 50),
+    ("consul", "register", "FakeHttpKv", {}, 50),
+    ("raftis", "register", "FakeRedis", {}, 50),
+    ("zookeeper", "lock", "FakeZk", {}, 40),
+    ("disque", "linearizable-queue", "FakeDisque", {}, 40),
+    ("postgres_rds", "register", "FakePg", {"user": "postgres"}, 50),
+    ("stolon", "list-append", "FakePg", {"user": "postgres"}, 40),
+)
+SUITE_NODES = ["n1", "n2", "n3"]
+SUITES_PHASE_S = 35.0
+
+
+def suite_fakes() -> dict:
+    """The fake servers of ``tests/fake_servers.py`` and
+    ``tests/fake_disque.py`` by name (stdlib only, imported here and not
+    with the script)."""
+    tests_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests")
+    if tests_dir not in sys.path:
+        sys.path.insert(0, tests_dir)
+    import fake_disque
+    import fake_servers
+
+    return {"FakeHttpKv": fake_servers.FakeHttpKv,
+            "FakeZk": fake_servers.FakeZk, "FakePg": fake_servers.FakePg,
+            "FakeRedis": fake_servers.FakeRedis,
+            "FakeDisque": fake_disque.FakeDisque}
+
+
+def suite_opts(wname, extra, rate, port, device=None) -> dict:
+    opts = {"nodes": list(SUITE_NODES), "host": "127.0.0.1", "port": port,
+            "time-limit": 2, "rate": rate, "workload": wname, "faults": [],
+            **extra}
+    if device is not None:
+        opts["device"] = device
+    return opts
+
+
+def suite_run(name, wname, fake, extra, rate, device=None):
+    """``core.run`` of the suite's test against a fresh fake server, as
+    the reference's in-process tests build it: ``(test, history,
+    results, seconds)``.  The server stops before this returns."""
+    srv = suite_fakes()[fake]().start()
+    try:
+        t = suites_mod.suite(name).test(
+            suite_opts(wname, extra, rate, srv.port, device))
+        t["db"] = db_mod.noop()
+        t["ssh"] = {"dummy?": True}
+        t0 = time.perf_counter()
+        result = core.run(t)
+        seconds = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    return t, result["history"], result["results"], seconds
+
+
+def suite_recheck(name, wname, extra, rate, h, **over):
+    """The run's workload checker rebuilt with ``over`` merged into the
+    suite's options, on the stored history (as JSON gives it back)."""
+    opts = {**suite_opts(wname, extra, rate, 0), **over}
+    chk = suites_mod.suite(name).workloads(opts)[wname]["checker"]
+    return as_json(chk.check({"name": f"{name}-{wname}", "store?": False},
+                             h, {}))
+
+
+def suites_phase(card, device=None):
+    """Phase 32: the seven suite runs on the card (``device`` None: the
+    current CUDA device, as a user's run), each against its fake server,
+    held against the plain versions, the oracle and the CPU screen
+    route."""
+    t_phase = time.perf_counter()
+    for name, wname, fake, extra, rate in SUITE_RUNS:
+        reset_dense_launches()
+        wgl.FRONTIER_SEARCH.launches = 0
+        cycles.HAS_CYCLE.launches = 0
+        cycles.SCREEN.launches = 0
+        t, h, results, run_s = suite_run(name, wname, fake, extra, rate,
+                                         device)
+        k1 = dense.DENSE_AUTOMATON.launches
+        k4 = wgl.FRONTIER_SEARCH.launches
+        k6 = cycles.HAS_CYCLE.launches
+        k7 = cycles.SCREEN.launches
+        client = [op for op in h if isinstance(op.process, int)]
+        types = {k: sum(1 for op in client if op.type == k)
+                 for k in ("invoke", "ok", "fail", "info")}
+        card_result = as_json(results["workload"])
+        emit(phase="suite_run", suite=name, workload=wname,
+             client=type(t["client"]).__name__, seconds=run_s,
+             ops=types["invoke"], oks=types["ok"], fails=types["fail"],
+             infos=types["info"], valid=results["valid?"],
+             workload_valid=card_result["valid?"], k1_launches=k1,
+             k4_launches=k4, k6_launches=k6, k7_launches=k7, card=card)
+        require(results["valid?"] is True,
+                f"{name} {wname}: the run is {results['valid?']}: "
+                f"{ {k: v.get('valid?') for k, v in results.items() if isinstance(v, dict)} }")
+        require(types["ok"] > 0, f"{name} {wname}: no ok op")
+        t0 = time.perf_counter()
+        if wname in ("register", "lock"):
+            require(k1 > 0, f"{name} {wname}: the check never launched K1")
+            plain = suite_recheck(name, wname, extra, rate, h, device="cpu")
+            require(card_result == plain, f"{name} {wname}: the card's "
+                    f"result {card_result} differs from the plain "
+                    f"versions' {plain}")
+            if wname == "register":
+                oracle_chk = independent.checker(checker_mod.linearizable(
+                    models.cas_register(), algorithm="oracle"))
+                card_keys = card_result["linearizable"]["results"]
+            else:
+                oracle_chk = checker_mod.linearizable(
+                    models.owner_mutex(), pure_fs=(), algorithm="oracle")
+                card_keys = {"lock": card_result}
+            oracle = as_json(oracle_chk.check({}, h, {}))
+            oracle_keys = oracle["results"] if wname == "register" else {
+                "lock": oracle}
+            require(sorted(card_keys) == sorted(oracle_keys),
+                    f"{name} {wname}: keys {sorted(card_keys)} on the card, "
+                    f"{sorted(oracle_keys)} by the oracle")
+            for k, r in card_keys.items():
+                o = oracle_keys[k]
+                shared = sorted(set(r) & set(o))
+                require("valid?" in shared and all(
+                    r[f] == o[f] for f in shared),
+                    f"{name} {wname} key {k}: the card's {r} differs from "
+                    f"the oracle's {o}")
+            emit(phase="suite_check", suite=name, workload=wname,
+                 keys=len(card_keys), equal_plain=True, equal_oracle=True,
+                 recheck_s=time.perf_counter() - t0, card=card)
+        elif wname == "linearizable-queue":
+            plain = suite_recheck(name, wname, extra, rate, h, device="cpu")
+            require(card_result == plain, f"{name} {wname}: the card's "
+                    f"result {card_result} differs from the plain "
+                    f"versions' {plain}")
+            emit(phase="suite_check", suite=name, workload=wname,
+                 engine=card_result.get("engine"),
+                 algorithm=card_result.get("algorithm"), equal_plain=True,
+                 recheck_s=time.perf_counter() - t0, card=card)
+        else:
+            launches = (cycles.HAS_CYCLE.launches, cycles.SCREEN.launches)
+            cpu = suite_recheck(name, wname, extra, rate, h,
+                                **{"screen-route": "cpu"})
+            require((cycles.HAS_CYCLE.launches,
+                     cycles.SCREEN.launches) == launches,
+                    f"{name} {wname}: the cpu route launched a screen")
+            require(card_result == cpu, f"{name} {wname}: the card's "
+                    f"result {card_result} differs from the cpu route's "
+                    f"{cpu}")
+            emit(phase="suite_check", suite=name, workload=wname,
+                 txns=card_result.get("txn-count"),
+                 route="cpu" if k6 + k7 == 0 else "device",
+                 equal_cpu_route=True, recheck_s=time.perf_counter() - t0,
+                 card=card)
+    phase_s = time.perf_counter() - t_phase
+    emit(phase="suites", runs=len(SUITE_RUNS), seconds=phase_s,
+         limit_s=SUITES_PHASE_S, card=card)
+    require(phase_s <= SUITES_PHASE_S, f"suites: the phase took {phase_s:.1f}"
+            f" s, past its {SUITES_PHASE_S} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -3950,12 +4201,7 @@ def main() -> int:
              design=dense.design("register", S, eb[2].shape[2]))
 
     # -- 4. end to end through check_batch ----------------------------------
-    hs = synth.generate_batch(seed=45101, n_histories=E2E_HISTORIES - 8,
-                              n_procs=5, n_ops=1000, crash_p=0.002,
-                              corrupt_fraction=0.25)
-    rng = random.Random(45102)
-    hs += [synth.generate_history(rng, n_procs=12, n_ops=48, crash_p=0.0)
-           for _ in range(8)]
+    hs = end_to_end_histories()
     model = models.cas_register(0)
     dense.DENSE_AUTOMATON.launches = 0
     torch.cuda.synchronize()
@@ -4142,6 +4388,9 @@ def main() -> int:
 
     # -- 31. every in-process workload: cli test-all on the card -----------
     test_all_phase(card)
+
+    # -- 32. the wire-protocol suites against their fake servers -----------
+    suites_phase(card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

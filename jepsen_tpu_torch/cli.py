@@ -983,7 +983,9 @@ def default_commands() -> Dict[str, dict]:
         p.add_argument(
             "--suite",
             help="DB suite to run against real nodes (see "
-            "jepsen_tpu_torch.suites.SUITES: localkv).  Without --suite, "
+            "jepsen_tpu_torch.suites.SUITES: localkv, etcd, consul, "
+            "zookeeper, raftis, disque, postgres-rds, stolon).  Without "
+            "--suite, "
             "the workload runs in-process against the in-memory fake "
             "client.",
         )

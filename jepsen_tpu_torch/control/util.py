@@ -1,14 +1,14 @@
-"""Node-side helpers: daemons, files, ports — the port's copy of
-:mod:`jepsen_tpu.control.util`.
+"""Node-side helpers: daemons, downloads, archives, files, ports — the
+port's copy of :mod:`jepsen_tpu.control.util`.
 
 (reference: jepsen/src/jepsen/control/util.clj — exists?/file ops :14-110,
-grepkill! :286-309, start-daemon! :310-368, stop-daemon! :369-385,
-daemon-running? :386-398, signal! :399-403, await-tcp-port :14-30.)
+cached-wget! :167-198, install-archive! :199-260, grepkill! :286-309,
+start-daemon! :310-368, stop-daemon! :369-385, daemon-running? :386-398,
+signal! :399-403, await-tcp-port :14-30.)
 
-Not ported: ``cached_wget`` and ``install_archive`` (cached-wget!
-:167-198, install-archive! :199-260), which fetch over the network, and
-the file helpers only they and the unported suites call (``ls``,
-``ls_full``, ``file_contents``, ``tmp_file``, ``tmp_dir``).
+``cached_wget`` and ``install_archive`` run ``wget``, ``tar`` and
+``unzip`` on the node through the session's remote; nothing is fetched
+on the control host.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, List, Optional
 
-from . import execute
+from . import execute, su
 from .core import RemoteError, escape, lit
 
 
@@ -38,10 +38,33 @@ def exists(path: str) -> bool:
         return False
 
 
+def file_contents(path: str) -> str:
+    return execute("cat", path)
+
+
 def write_file(content: str, path: str) -> None:
     """Write a string to a remote file via stdin redirect.
     (reference: control/util.clj:88-110 write-file!)"""
     execute(lit(f"cat > {escape(path)}"), stdin=content)
+
+
+def ls(path: str = ".") -> List[str]:
+    out = execute("ls", "-1", path)
+    return [l for l in out.splitlines() if l]
+
+
+def ls_full(path: str) -> List[str]:
+    """Fully-qualified paths of directory entries."""
+    base = path if path.endswith("/") else path + "/"
+    return [base + f for f in ls(path)]
+
+
+def tmp_file(ext: str = "") -> str:
+    return execute("mktemp", f"--suffix={ext}")
+
+
+def tmp_dir() -> str:
+    return execute("mktemp", "-d")
 
 
 def await_tcp_port(port: int, host: str = "localhost", timeout_s: float = 60, interval_s: float = 0.5) -> None:
@@ -61,6 +84,40 @@ def await_tcp_port(port: int, host: str = "localhost", timeout_s: float = 60, in
             if time.monotonic() > deadline:
                 raise
             time.sleep(interval_s)
+
+
+def cached_wget(url: str, dest_dir: str = "/tmp/jepsen/wget", force: bool = False) -> str:
+    """Download a URL once on the node; reuse the cached copy on later
+    calls.  (reference: control/util.clj:167-198)"""
+    name = url.rstrip("/").rsplit("/", 1)[-1]
+    path = f"{dest_dir}/{name}"
+    execute("mkdir", "-p", dest_dir)
+    if force or not exists(path):
+        execute("wget", "-O", path, url, check=True)
+    return path
+
+
+def install_archive(url: str, dest: str, force: bool = False) -> str:
+    """Download (or copy file://) an archive on the node and expand it
+    into dest, stripping the wrapper directory if there is exactly one.
+    (reference: control/util.clj:199-260)"""
+    local = cached_wget(url, force=force) if "://" in url and not url.startswith("file://") else url.replace("file://", "")
+    with su():
+        execute("rm", "-rf", dest)
+        execute("mkdir", "-p", dest)
+        if local.endswith(".zip"):
+            execute("unzip", "-d", dest, local)
+        else:
+            execute("tar", "-xf", local, "-C", dest)
+        entries = ls_full(dest)
+        if len(entries) == 1:
+            inner = entries[0]
+            execute(
+                lit(
+                    f"mv {escape(inner)}/* {escape(dest)}/ && rmdir {escape(inner)}"
+                )
+            )
+    return dest
 
 
 def grepkill(pattern: str, signal: Any = 9) -> None:

@@ -259,17 +259,16 @@ def partition_package(opts: dict) -> dict:
 
 
 class _UnportedClockNemesis(Nemesis):
-    """The idle clock package's nemesis: the reference's clock nemesis
-    (``nemesis/time.py``) takes the same fs, and this one raises naming
-    it when set up or invoked."""
+    """The idle clock package's nemesis, disarmed: it takes the fs of the
+    reference's clock nemesis (``nemesis/time.py``), sets up and tears
+    down as a no-op (the reference's installs ``bump-time`` and stops ntp
+    on every node, though no clock op comes), and raises naming the
+    module when invoked."""
 
     def _unported(self):
         raise NotImplementedError(
             "the clock nemesis (the reference's nemesis/time.py, with "
             "native/bump-time.c) is not ported to jepsen_tpu_torch yet")
-
-    def setup(self, test):
-        self._unported()
 
     def invoke(self, test, op):
         self._unported()

@@ -2,14 +2,24 @@
 
 Each suite is a module under ``jepsen_tpu_torch.suites`` that exposes
 ``db(opts)``, ``client(opts)``, ``workloads(opts)`` and ``test(opts)``
-(a full runnable test map); :mod:`.common` holds the assembly every
-suite ends with (:func:`~.common.build_test`).
+(a full runnable test map); :mod:`.common` holds the DB base
+(:class:`~.common.DaemonDB`), the generic workloads and the assembly
+every suite ends with (:func:`~.common.build_test`).
 
-The port has one suite so far, ``localkv``: a native replicated register
-(``native/repregd.cc``) built on each node with the host's g++, run as
-real processes, partitioned and killed.  The reference's other suites
-drive servers over their wire protocols (``jepsen_tpu/suites/proto``);
-asking for one raises ``NotImplementedError`` naming its module.
+The port's suites:
+
+- ``localkv``: a native replicated register (``native/repregd.cc``)
+  built on each node with the host's g++, run as real processes,
+  partitioned and killed;
+- ``etcd`` and ``consul`` over HTTP (:mod:`.proto.http`), ``raftis`` and
+  ``disque`` over RESP (:mod:`.proto.resp`), ``zookeeper`` over its jute
+  protocol (:mod:`.proto.zk`), ``postgres_rds`` and ``stolon`` over
+  pgwire (:mod:`.proto.pgwire`, through :mod:`.sql`, whose ``mysql``
+  dialect speaks :mod:`.proto.mysql`).
+
+The reference's other suites drive servers over protocols the port does
+not have yet; asking for one raises ``NotImplementedError`` naming its
+module.
 """
 
 from __future__ import annotations
@@ -17,7 +27,16 @@ from __future__ import annotations
 import importlib
 
 #: the suites the port runs
-SUITES = ("localkv",)
+SUITES = (
+    "consul",
+    "disque",
+    "etcd",
+    "localkv",
+    "postgres_rds",
+    "raftis",
+    "stolon",
+    "zookeeper",
+)
 
 #: every suite of the reference (``jepsen_tpu.suites.SUITES``), ported or not
 REFERENCE_SUITES = (

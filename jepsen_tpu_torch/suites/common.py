@@ -1,27 +1,318 @@
-"""Shared scaffolding for the per-database test suites — the part of
-:mod:`jepsen_tpu.suites.common` the port's suites use.
+"""Shared scaffolding for the per-database test suites — the port's copy
+of :mod:`jepsen_tpu.suites.common`.
 
-:func:`build_test` merges a suite's db, client and workload, with the
-standard nemesis packages of ``opts["faults"]`` (or the suite's own) and
-the perf checker's latency and rate plots, into a runnable test map (the
-per-suite runner every reference suite ends with);
-:func:`suite_nemesis_package` adds the generic packages to a suite's own
-fault menu.
+Every reference suite repeats the same skeleton: a ``db/DB`` reification
+that installs a tarball/deb, writes a config, and runs the server under
+``start-daemon!``; a client over the DB's wire protocol; a workload
+table; and a runner merging CLI opts into a test map (e.g.
+consul/src/jepsen/consul/db.clj:23-95, tidb/src/tidb/db.clj,
+doc/tutorial/02-db.md).  This module factors that skeleton once.
 
-The reference's ``DaemonDB`` base and its generic set, counter and
-register workloads serve the suites that are not ported yet.
+Suites provide:
+
+- a :class:`DaemonDB` subclass (install/config/start hooks), and
+- workload builders composed from :mod:`jepsen_tpu_torch.workloads` plus
+  the generic set/counter/queue/register builders below, and
+- :func:`build_test` merges it all into a runnable test map with the
+  standard nemesis packages of ``opts["faults"]`` (or the suite's own,
+  through :func:`suite_nemesis_package`) and the perf checker's latency
+  and rate plots.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional
+import os
+from typing import Any, Dict, Iterable, List, Optional
 
 from .. import checker as checker_mod
 from .. import client as client_mod
 from .. import db as db_mod
 from .. import generator as gen
+from ..control import util as cu
 from ..nemesis import combined
 from ..workloads import noop_test
+
+
+class DaemonDB(db_mod.DB, db_mod.Process, db_mod.Pause, db_mod.LogFiles):
+    """A DB whose server runs as a single daemon per node.
+
+    Subclasses set ``dir``, ``binary``, ``logfile``, ``pidfile`` and
+    implement :meth:`install` and :meth:`start_args`; the base class
+    wires setup/teardown/start/kill/pause/resume through the control
+    DSL's daemon helpers, exactly as reference suites do with
+    ``cu/start-daemon!``/``stop-daemon!``/``grepkill!``
+    (jepsen/src/jepsen/control/util.clj:286-399).
+    """
+
+    dir: str = "/opt/db"
+    binary: str = "db"
+    logfile: str = "/opt/db/db.log"
+    pidfile: str = "/opt/db/db.pid"
+
+    def __init__(self, opts: Optional[dict] = None):
+        self.opts = dict(opts or {})
+
+    # -- hooks ---------------------------------------------------------
+    def install(self, test: dict, node: Any) -> None:
+        """Fetch + unpack the server onto the node."""
+        raise NotImplementedError
+
+    def configure(self, test: dict, node: Any) -> None:
+        """Write config files (optional hook)."""
+
+    def start_args(self, test: dict, node: Any) -> List[Any]:
+        """argv tail after the binary."""
+        return []
+
+    def start_env(self, test: dict, node: Any) -> Dict[str, str]:
+        return {}
+
+    def await_ready(self, test: dict, node: Any) -> None:
+        """Block until the server answers (optional hook)."""
+
+    def wipe(self, test: dict, node: Any) -> None:
+        """Remove data directories on teardown (optional hook)."""
+
+    # -- DB ------------------------------------------------------------
+    def setup(self, test: dict, node: Any) -> None:
+        self.install(test, node)
+        self.configure(test, node)
+        self.start(test, node)
+        self.await_ready(test, node)
+
+    def teardown(self, test: dict, node: Any) -> None:
+        cu.meh(lambda: self.kill(test, node))
+        self.wipe(test, node)
+
+    @property
+    def proc_name(self) -> str:
+        """Process comm name for killall/pkill — the binary's basename
+        (``binary`` may be a path like ``bin/crate``)."""
+        return os.path.basename(self.binary)
+
+    # -- Process -------------------------------------------------------
+    def start(self, test: dict, node: Any) -> None:
+        cu.start_daemon(
+            {
+                "logfile": self.logfile,
+                "pidfile": self.pidfile,
+                "chdir": self.dir,
+                "env": self.start_env(test, node),
+            },
+            f"{self.dir}/{self.binary}",
+            *self.start_args(test, node),
+        )
+
+    def kill(self, test: dict, node: Any) -> None:
+        cu.stop_daemon(pidfile=self.pidfile, cmd=self.proc_name)
+
+    # -- Pause ---------------------------------------------------------
+    def pause(self, test: dict, node: Any) -> None:
+        cu.signal(self.proc_name, "STOP")
+
+    def resume(self, test: dict, node: Any) -> None:
+        cu.signal(self.proc_name, "CONT")
+
+    # -- LogFiles ------------------------------------------------------
+    def log_files(self, test: dict, node: Any) -> Iterable[str]:
+        return [self.logfile]
+
+
+# ---------------------------------------------------------------------
+# Generic workloads shared by many suites
+# ---------------------------------------------------------------------
+
+
+def set_workload(opts: Optional[dict] = None) -> dict:
+    """Unique-element set: clients add distinct integers, then a final
+    read checks for lost/duplicated elements.  The shape every suite's
+    "set"/"sets" workload follows (e.g. elasticsearch/src/jepsen/
+    elasticsearch/sets.clj, yugabyte set.clj, tidb sets.clj).
+    """
+    opts = opts or {}
+    counter = {"n": 0}
+
+    def add(test, ctx):
+        v = counter["n"]
+        counter["n"] += 1
+        return {"type": "invoke", "f": "add", "value": v}
+
+    final = gen.clients(
+        gen.each_thread(gen.once({"type": "invoke", "f": "read", "value": None}))
+    )
+    return {
+        "generator": add,
+        "final-generator": final,
+        "checker": checker_mod.set_full(
+            linearizable=bool(opts.get("linearizable?", False))
+        ),
+    }
+
+
+def counter_workload(opts: Optional[dict] = None) -> dict:
+    """Eventually-consistent counter: increments (and optionally
+    decrements) mixed with reads, verified by the bounds-interval
+    counter checker (reference: checker.clj:737-795; e.g.
+    aerospike/src/aerospike/counter.clj, yugabyte counter.clj)."""
+    opts = opts or {}
+
+    def inc(test, ctx):
+        return {"type": "invoke", "f": "add", "value": 1}
+
+    def dec(test, ctx):
+        return {"type": "invoke", "f": "add", "value": -1}
+
+    def read(test, ctx):
+        return {"type": "invoke", "f": "read", "value": None}
+
+    mixed = [inc, read] if not opts.get("decrements?") else [inc, dec, read]
+    return {
+        "generator": gen.mix(mixed),
+        "checker": checker_mod.counter(),
+    }
+
+
+def _queue_ops():
+    """Unique-value enqueue + unknown-value dequeue op fns — the op
+    shape both queue workloads share."""
+    counter = {"n": 0}
+
+    def enq(test, ctx):
+        counter["n"] += 1
+        return {"type": "invoke", "f": "enqueue", "value": counter["n"]}
+
+    def deq(test, ctx):
+        return {"type": "invoke", "f": "dequeue", "value": None}
+
+    return enq, deq
+
+
+def queue_workload(opts: Optional[dict] = None) -> dict:
+    """Total-queue: enqueues/dequeues raced with faults, then every
+    thread drains (reference: e.g. rabbitmq.clj queue workload +
+    checker.clj:628 total-queue).  Shared by the rabbitmq, disque, and
+    hazelcast suites."""
+    enq, deq = _queue_ops()
+    final = gen.clients(
+        gen.each_thread(gen.once({"type": "invoke", "f": "drain",
+                                  "value": None}))
+    )
+    return {
+        "generator": gen.mix([enq, deq]),
+        "final-generator": final,
+        "checker": checker_mod.total_queue(),
+    }
+
+
+def linearizable_queue_workload(opts: Optional[dict] = None) -> dict:
+    """Queue ops checked for full linearizability against the
+    unordered-queue model (the knossos model the reference's checker
+    consumes, jepsen/src/jepsen/checker.clj:19-26,218-239).  Unique
+    elements keep the history inside the queue's direct checker
+    (``check_batch`` routes the model there, as the reference does);
+    total-queue (queue_workload) remains the O(n) default for unbounded
+    runs.  The check runs where ``opts["device"]`` says."""
+    from .. import models
+
+    opts = opts or {}
+    enq, deq = _queue_ops()
+    g = gen.mix([enq, deq])
+    limit = opts.get("op-limit", opts.get("per-key-limit", 40))
+    if limit:
+        g = gen.limit(int(limit), g)
+    return {
+        "generator": g,
+        "checker": checker_mod.linearizable(
+            models.unordered_queue(), pure_fs=(), device=opts.get("device")
+        ),
+    }
+
+
+class UnreadOkSetChecker(checker_mod.Checker):
+    """The per-key set checker, except a key whose final read was never
+    even *invoked* (the time limit cut the key's schedule before its
+    read phase) is vacuously valid with a marker instead of poisoning
+    the whole run with "unknown".  A key whose reads were invoked but
+    all FAILED keeps its unknown verdict — that's real evidence of an
+    unreachable key, not a scheduling artifact."""
+
+    def __init__(self):
+        self.inner = checker_mod.set_checker()
+
+    def check(self, test, history, opts=None):
+        out = self.inner.check(test, history, opts)
+        if out.get("valid?") == "unknown":
+            read_invoked = any(op.f == "read" for op in history)
+            if not read_invoked:
+                return {"valid?": True, "unread?": True}
+        return out
+
+
+def unread_ok_set_checker() -> checker_mod.Checker:
+    return UnreadOkSetChecker()
+
+
+def independent_set_workload(opts: Optional[dict] = None) -> dict:
+    """Per-key unique adds then a final read per thread, lifted over
+    independent keys with the unread-tolerant set checker — the shape
+    crate's lost-updates and aerospike's set share (reference:
+    crate/lost_updates.clj:106-160, aerospike/set.clj:43-66)."""
+    opts = dict(opts or {})
+    n = max(1, len(opts.get("nodes", ["n1"])))
+    counter = {"n": 0}
+
+    def fgen(k):
+        def add(test, ctx):
+            counter["n"] += 1
+            return {"type": "invoke", "f": "add", "value": counter["n"]}
+
+        return gen.phases(
+            gen.limit(
+                int(opts.get("per-key-limit", 20)),
+                gen.stagger(1 / 50, add),
+            ),
+            gen.each_thread(
+                gen.once({"type": "invoke", "f": "read", "value": None})
+            ),
+        )
+
+    from .. import independent
+
+    return {
+        "generator": independent.concurrent_generator(
+            2 * n, range(100_000), fgen
+        ),
+        "checker": independent.checker(unread_ok_set_checker()),
+        "concurrency": 2 * n,
+    }
+
+
+def register_workload(opts: Optional[dict] = None) -> dict:
+    """Per-key linearizable CAS registers (the flagship workload);
+    delegates to workloads.linearizable_register, which checks on
+    ``opts["device"]``.  Declares the 2n concurrency its per-key thread
+    groups need (reference: linearizable_register.clj:40-43)."""
+    from ..workloads import linearizable_register
+
+    return linearizable_register.test(opts or {})
+
+
+def generic_workload(name: str, opts: Optional[dict] = None) -> dict:
+    """Look up a workload by name across the generic + core tables."""
+    from .. import workloads as w
+
+    opts = opts or {}
+    table = {
+        "set": set_workload,
+        "counter": counter_workload,
+        "register": register_workload,
+        "linearizable-register": register_workload,
+    }
+    if name in table:
+        return table[name](opts)
+    return w.workload(name, opts)
+
+
 
 
 def suite_nemesis_package(

@@ -9,9 +9,10 @@ against the JAX package's (which does not import JAX).
 - ``db_nodes``, ``grudge``, ``node_specs`` and ``partition_specs`` equal
   the reference's from one seed; the packages' nemeses answer and emit
   commands as the reference's do on a recording remote.
-- The idle clock and disk sub-packages are the reference's; asking for
-  the ``clock`` or ``disk`` fault raises ``NotImplementedError`` naming
-  the module that is not ported.
+- The idle clock and disk sub-packages are the reference's (the idle
+  clock's nemesis disarmed: its setup is a no-op); asking for the
+  ``clock`` or ``disk`` fault raises ``NotImplementedError`` naming the
+  module that is not ported.
 """
 
 import random
@@ -198,8 +199,16 @@ def test_idle_clock_and_disk_packages_are_the_references():
     assert clock["generator"] is None and clock["final_generator"] is None
     assert clock["perf"] == ref_combined.clock_package(
         {"db": ref_db.noop(), "faults": set()})["perf"]
-    with pytest.raises(NotImplementedError, match="nemesis/time.py"):
-        clock["nemesis"].setup({"nodes": NODES})
+    # disarmed: sets up and tears down running nothing on the nodes, and
+    # raises naming the module if invoked
+    remote = control.DummyRemote()
+    with control.with_session({"nodes": NODES}, remote):
+        nem = clock["nemesis"].setup({"nodes": NODES})
+        with pytest.raises(NotImplementedError, match="nemesis/time.py"):
+            nem.invoke({"nodes": NODES},
+                       {"type": "info", "f": "bump-clock", "value": {}})
+        nem.teardown({"nodes": NODES})
+    assert remote.log == []
     assert combined.disk_package({"faults": ["kill"]}) == \
         dict(combined.NOOP_PACKAGE)
     assert combined.compose_packages([])["perf"] == set()

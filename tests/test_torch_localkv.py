@@ -162,18 +162,19 @@ def test_the_cli_runs_localkv_and_analyze_agrees(tmp_path, own_threads,
 
 
 def test_unported_and_unknown_suites():
-    with pytest.raises(NotImplementedError, match="suites/etcd.py"):
-        suites.suite("etcd")
+    with pytest.raises(NotImplementedError, match="suites/galera.py"):
+        suites.suite("galera")
     with pytest.raises(NotImplementedError, match="mongodb_rocks"):
         suites.suite("mongodb-rocks")
     with pytest.raises(KeyError):
         suites.suite("no-such-db")
-    assert suites.SUITES == ("localkv",)
+    assert suites.SUITES == ("consul", "disque", "etcd", "localkv",
+                             "postgres_rds", "raftis", "stolon", "zookeeper")
     from jepsen_tpu import suites as ref_suites
 
     assert suites.REFERENCE_SUITES == ref_suites.SUITES
     assert cli.run_cli(cli.default_commands(), [
-        "test", "--suite", "etcd", "--device", "cpu"]) == cli.EXIT_CRASH
+        "test", "--suite", "galera", "--device", "cpu"]) == cli.EXIT_CRASH
 
 
 def test_the_suite_test_map_needs_no_side_effects(tmp_path):

@@ -98,7 +98,22 @@ _IMPORT_ALL = textwrap.dedent("""
                      "jepsen_tpu_torch.trace",
                      "jepsen_tpu_torch.checker.clock",
                      "jepsen_tpu_torch.web",
-                     "jepsen_tpu_torch.store.native"):
+                     "jepsen_tpu_torch.store.native",
+                     "jepsen_tpu_torch.os_setup",
+                     "jepsen_tpu_torch.suites.proto",
+                     "jepsen_tpu_torch.suites.proto.http",
+                     "jepsen_tpu_torch.suites.proto.resp",
+                     "jepsen_tpu_torch.suites.proto.zk",
+                     "jepsen_tpu_torch.suites.proto.pgwire",
+                     "jepsen_tpu_torch.suites.proto.mysql",
+                     "jepsen_tpu_torch.suites.etcd",
+                     "jepsen_tpu_torch.suites.consul",
+                     "jepsen_tpu_torch.suites.zookeeper",
+                     "jepsen_tpu_torch.suites.raftis",
+                     "jepsen_tpu_torch.suites.disque",
+                     "jepsen_tpu_torch.suites.sql",
+                     "jepsen_tpu_torch.suites.postgres_rds",
+                     "jepsen_tpu_torch.suites.stolon"):
         assert required in names, required
     for name in names:
         importlib.import_module(name)
@@ -126,8 +141,33 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     # and the real-process path (the local remote and its helpers, net,
     # the combined nemeses, the perf plots, the localkv suite), the other
     # in-process workloads, span tracing, the clock plot, the web UI and
-    # the native block writer's loader included
-    assert int(out.stdout.split()[-1]) >= 96
+    # the native block writer's loader included, and the wire-protocol
+    # suites with their clients and os_setup
+    assert int(out.stdout.split()[-1]) >= 111
+
+
+def test_chip_smokes_suite_phase_imports_no_jax():
+    """Phase 32's fake servers (``tests/fake_servers.py``,
+    ``tests/fake_disque.py``, imported inside the phase) and one of its
+    runs, on the plain versions, load nothing the finder refuses."""
+    script = _IMPORT_ALL.replace("print(len(names))\n", textwrap.dedent("""
+        fakes = chip_smoke.suite_fakes()
+        assert sorted(fakes) == ["FakeDisque", "FakeHttpKv", "FakePg",
+                                 "FakeRedis", "FakeZk"], sorted(fakes)
+        t, h, results, _ = chip_smoke.suite_run(
+            "etcd", "register", "FakeHttpKv", {}, 50, device="cpu")
+        assert results["valid?"] is True, results
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in REFUSED)
+        assert not loaded, loaded
+        print(len(h))
+    """))
+    assert "suite_run" in script
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) > 20
 
 
 def test_the_refusal_matches_names_exactly():
