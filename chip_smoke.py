@@ -27,7 +27,10 @@ line.
    multiple of the histories per warp, rows that fail at event 0,
    all-padding rows, rows of read-any codes, and the register family at
    C = 12 on both sides of the warp/block switch (S·W = WARP_MAX_SW and
-   one state more, through the wrapper directly).
+   one state more, through the wrapper directly).  The 131-row batch is
+   the flagship's first rows: the plain version treats each row on its
+   own, so its kernel outputs are held against the flagship run's plain
+   outputs for those rows, not a second plain run on the same input.
 4. end to end — ``check_batch(models.cas_register(0), histories)`` on
    1024 synth 1000-op histories plus a few that overflow the slot cap
    (so the oracle pool runs), window 4, launch counter reset just before
@@ -61,8 +64,10 @@ line.
    then carry on over later events (on both designs), rows of one block
    that finish at different events beside all-padding rows and a row
    failing at event 0, 131 rows (no multiple of the histories a block
-   holds), valid rows of 2200 events (past the dedup table's cycle of
-   1023 epochs), and C = 32 and 33 (one linset word and two).
+   holds: the slice's first rows, held against phase 6's plain outputs
+   for them at F = 128), valid rows of 2200 events (past the dedup
+   table's cycle of 1023 epochs), and C = 32 and 33 (one linset word and
+   two).
 8. frontier end to end — ``check_batch`` on the slice's 1024 histories
    plus 8 crash-heavy 10-process ones, frontier launch counter and
    escalation counter reset just before and read just after: the kernel
@@ -344,7 +349,7 @@ line.
     anomalies, verdict and transaction count.  list-append's dependency
     graph (its vertex count) is a batch of one and stays on the CPU, as
     the reference routes it (K7's launches are printed).
-32. the wire-protocol suites — seven runs, each ``suites.suite(name)
+32. the wire-protocol suites — eleven runs, each ``suites.suite(name)
     .test(opts)`` against a fake server of ``tests/fake_servers.py``
     (imported inside the phase; stdlib only) at the reference's
     ``*_full_test_in_process`` settings (3 nodes, ``db`` noop, ``ssh``
@@ -353,14 +358,20 @@ line.
     etcd's and consul's registers over HTTP, raftis's over RESP,
     zookeeper's lock over jute, disque's ``linearizable-queue`` over RESP
     (``tests/fake_disque.py`` acknowledges its jobs), postgres-rds's
-    register and stolon's list-append over pgwire.  The launch counters
-    are reset before each run; one line per run gives its ops, oks,
-    verdict, seconds and K1, K4, K6 and K7 launches.  Every run must be
-    valid.  The register and lock runs must launch K1, and their whole
-    result must equal the plain versions' re-check (``device="cpu"``)
-    and, key by key, the CPU oracle's (as phase 30); disque's must equal
-    the plain versions'; stolon's must equal a ``screen-route cpu``
-    re-check.  The phase must take at most 35 s.
+    register and stolon's list-append over pgwire; cockroachdb's register
+    over pgwire (the ``cockroach`` dialect) and galera's over MySQL, both
+    checked on the card, then galera's ``dirty-reads`` over MySQL
+    (concurrency 4) and cockroachdb's ``monotonic`` over pgwire, whose
+    checkers (``DirtyReadsChecker``, ``MonotonicChecker``) run on the CPU.
+    The launch counters are reset before each run; one line per run
+    gives its ops, oks, verdict, seconds and K1, K4, K6 and K7 launches.
+    Every run must be valid.  The register and lock runs must launch K1,
+    and their whole result must equal the plain versions' re-check
+    (``device="cpu"``) and, key by key, the CPU oracle's (as phase 30);
+    disque's must equal the plain versions'; stolon's must equal a
+    ``screen-route cpu`` re-check; dirty-reads and monotonic launch no
+    kernel and must equal their checker's re-check of the stored history.
+    The phase must take at most 35 s.
 
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -481,18 +492,28 @@ def batch_arrays(b: encode.EncodedBatch):
             b.cand_b)
 
 
-def compare(checker, arrays, work=None):
+def compare(checker, arrays, work=None, plain=None, keep=None):
     """Kernel vs plain version on the same device tensors; returns
-    (kernel outputs as numpy, plain seconds, max |kernel - plain|)."""
+    (kernel outputs as numpy, plain seconds, max |kernel - plain|).
+
+    ``plain``: the plain version's outputs on these very rows, sliced
+    from an earlier compare of a batch that holds them (the plain
+    versions treat every row on its own), in place of a second plain run
+    on the same input; the plain seconds are then None.  ``keep``: a
+    dict that receives this compare's plain outputs under ``"plain"``."""
     kern = checker(*arrays)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain = (checker.reference(*arrays) if work is None
-             else checker.reference(*arrays, work=work))
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
+    plain_s = None
+    if plain is None:
+        t0 = time.perf_counter()
+        plain = (checker.reference(*arrays) if work is None
+                 else checker.reference(*arrays, work=work))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        plain = [x.cpu().numpy() for x in plain]
+    if keep is not None:
+        keep["plain"] = plain
     kern = [x.cpu().numpy() for x in kern]
-    plain = [x.cpu().numpy() for x in plain]
     for name, k, p in zip(("ok", "failed_at", "overflow"), kern, plain):
         require(k.dtype == p.dtype and k.tobytes() == p.tobytes(),
                 f"kernel and plain version differ in {name} "
@@ -931,18 +952,21 @@ def frontier_design_edges(slice_arrays, crash_heavy):
     ]
 
 
-def frontier_compare(name, spec, arrays, F, mc, device, work=None):
-    """The frontier kernel against its plain version on ``arrays``; emits
-    one line and returns (kernel outputs, plain seconds, max error)."""
+def frontier_compare(name, spec, arrays, F, mc, device, work=None,
+                     plain=None, keep=None):
+    """The frontier kernel against its plain version on ``arrays``
+    (``plain`` and ``keep`` as :func:`compare` takes them); emits one line
+    and returns (kernel outputs, plain seconds, max error)."""
     B, E, C = arrays[2].shape
     checker = wgl.make_check_fn(spec, E, C, F, mc, device)
     (ok, failed_at, ovf), plain_s, err = compare(
-        checker, to_device(arrays, device), work)
+        checker, to_device(arrays, device), work, plain, keep)
     emit(phase="frontier_edge" if name else "frontier", case=name, spec=spec,
          rows=int(B), E=int(E), C=int(C), F=F, max_closure=mc,
          design=wgl.frontier_design(F, int(C)),
          invalid=int((~ok).sum()), overflowed=int(ovf.sum()),
-         max_abs_err=err, plain_s=plain_s, tolerance="exact (byte-equal)")
+         max_abs_err=err, plain_s=plain_s, plain_reused=plain is not None,
+         tolerance="exact (byte-equal)")
     return (ok, failed_at, ovf), plain_s, err
 
 
@@ -3981,6 +4005,12 @@ SUITE_RUNS = (
     ("disque", "linearizable-queue", "FakeDisque", {}, 40),
     ("postgres_rds", "register", "FakePg", {"user": "postgres"}, 50),
     ("stolon", "list-append", "FakePg", {"user": "postgres"}, 40),
+    ("cockroachdb", "register", "FakePg", {"user": "postgres"}, 50),
+    ("galera", "register", "FakeMysql", {"user": "root", "password": "pw"},
+     40),
+    ("galera", "dirty-reads", "FakeMysql",
+     {"user": "root", "password": "pw", "concurrency": 4}, 40),
+    ("cockroachdb", "monotonic", "FakePg", {"user": "postgres"}, 50),
 )
 SUITE_NODES = ["n1", "n2", "n3"]
 SUITES_PHASE_S = 35.0
@@ -3999,6 +4029,7 @@ def suite_fakes() -> dict:
 
     return {"FakeHttpKv": fake_servers.FakeHttpKv,
             "FakeZk": fake_servers.FakeZk, "FakePg": fake_servers.FakePg,
+            "FakeMysql": fake_servers.FakeMysql,
             "FakeRedis": fake_servers.FakeRedis,
             "FakeDisque": fake_disque.FakeDisque}
 
@@ -4040,7 +4071,7 @@ def suite_recheck(name, wname, extra, rate, h, **over):
 
 
 def suites_phase(card, device=None):
-    """Phase 32: the seven suite runs on the card (``device`` None: the
+    """Phase 32: the eleven suite runs on the card (``device`` None: the
     current CUDA device, as a user's run), each against its fake server,
     held against the plain versions, the oracle and the CPU screen
     route."""
@@ -4100,6 +4131,19 @@ def suites_phase(card, device=None):
                     f"the oracle's {o}")
             emit(phase="suite_check", suite=name, workload=wname,
                  keys=len(card_keys), equal_plain=True, equal_oracle=True,
+                 recheck_s=time.perf_counter() - t0, card=card)
+        elif wname in ("dirty-reads", "monotonic"):
+            # the suites' own checkers, on the CPU: no kernel, and the
+            # stored history re-checked gives the run's result
+            require(k1 + k4 + k6 + k7 == 0,
+                    f"{name} {wname}: a CPU checker's run launched a kernel")
+            again = suite_recheck(name, wname, extra, rate, h)
+            require(card_result == again, f"{name} {wname}: the run's "
+                    f"result {card_result} differs from its re-check "
+                    f"{again}")
+            emit(phase="suite_check", suite=name, workload=wname,
+                 checker=type(t["checker"].checker_map["workload"]).__name__,
+                 route="cpu", equal_recheck=True,
                  recheck_s=time.perf_counter() - t0, card=card)
         elif wname == "linearizable-queue":
             plain = suite_recheck(name, wname, extra, rate, h, device="cpu")
@@ -4162,7 +4206,9 @@ def main() -> int:
     # the compared plain run also counts the integer operations (as the
     # family phases' do: the count stays on the device)
     work: dict = {}
-    (ok, failed_at, _), plain_s, err = compare(checker, arrays, work)
+    flagship_plain: dict = {}
+    (ok, failed_at, _), plain_s, err = compare(checker, arrays, work,
+                                               keep=flagship_plain)
     for t in np.unique(reps):
         rows = reps == t
         require(len(set(ok[rows])) == 1 and len(set(failed_at[rows])) == 1,
@@ -4188,9 +4234,12 @@ def main() -> int:
         emit(phase="edge", case=name, spec=spec, rows=len(encs), E=E_edge,
              C=c_edge, V=v, invalid=int((~e_ok).sum()), max_abs_err=e_err,
              design=dense.design("register", v, c_edge))
+    # B131-H4 is the flagship's first rows: their plain outputs are the
+    # flagship run's
+    reused = {"B131-H4": [p[:131] for p in flagship_plain["plain"]]}
     for name, eb, S in register_edges(arrays_np, V):
-        (e_ok, e_failed, _), _, e_err = compare(RawRegister(S),
-                                                to_device(eb, device))
+        (e_ok, e_failed, _), _, e_err = compare(
+            RawRegister(S), to_device(eb, device), plain=reused.get(name))
         err = max(err, e_err)
         if name.startswith("fail-at-0"):
             require((e_failed[:9] == 0).all(), "fail-at-0 rows did not fail "
@@ -4198,6 +4247,7 @@ def main() -> int:
         emit(phase="edge", case=name, spec="register", rows=int(len(eb[0])),
              E=int(eb[1].shape[1]), C=int(eb[2].shape[2]), V=S,
              invalid=int((~e_ok).sum()), max_abs_err=e_err,
+             plain_reused=name in reused,
              design=dense.design("register", S, eb[2].shape[2]))
 
     # -- 4. end to end through check_batch ----------------------------------
@@ -4249,9 +4299,10 @@ def main() -> int:
     require(wgl.kernel_choice("cas-register", fC, dom) == "frontier",
             f"the slice's shape (C={fC}, V={dom}) is not a frontier shape")
     f_work: dict = {}
+    f_plain: dict = {}
     (f_ok, f_failed, _), f_plain_s, f_err = frontier_compare(
         "", "cas-register", f_arrays, wgl.DEFAULT_FRONTIER, fC + 1, device,
-        work=f_work)
+        work=f_work, keep=f_plain)
     _, _, e512 = frontier_compare("", "cas-register", f_arrays, 512, fC + 1,
                                   device)
     f_err = max(f_err, e512)
@@ -4284,8 +4335,12 @@ def main() -> int:
     ] + [(f"random-{spec}", spec, random_batch(spec, 45230 + i), 16, 9)
          for i, spec in enumerate(RANDOM_OPS)
          ] + frontier_design_edges(f_arrays, hc)
+    # B131 is the slice's first rows at the slice's F and max_closure:
+    # their plain outputs are phase 6's
+    reused = {"B131": [p[:131] for p in f_plain["plain"]]}
     for name, spec, arrays, F, mc in edges:
-        _, _, e_err = frontier_compare(name, spec, arrays, F, mc, device)
+        _, _, e_err = frontier_compare(name, spec, arrays, F, mc, device,
+                                       plain=reused.get(name))
         f_err = max(f_err, e_err)
 
     # -- 8. frontier end to end through check_batch ---------------------------

@@ -984,8 +984,8 @@ def default_commands() -> Dict[str, dict]:
             "--suite",
             help="DB suite to run against real nodes (see "
             "jepsen_tpu_torch.suites.SUITES: localkv, etcd, consul, "
-            "zookeeper, raftis, disque, postgres-rds, stolon).  Without "
-            "--suite, "
+            "zookeeper, raftis, disque, postgres-rds, stolon, cockroachdb, "
+            "galera, percona, mysql-cluster).  Without --suite, "
             "the workload runs in-process against the in-memory fake "
             "client.",
         )
@@ -999,7 +999,7 @@ def default_commands() -> Dict[str, dict]:
         p.add_argument(
             "--faults",
             help="comma-separated nemesis faults for --suite runs "
-            "(partition,kill,pause)",
+            "(partition,kill,pause,clock)",
         )
         p.add_argument(
             "--rate",

@@ -8,12 +8,9 @@ port's copy of :mod:`jepsen_tpu.nemesis.combined`.
 partition-package :226-246, clock-package :248-280, f-map :294-303,
 compose-packages :305-316, nemesis-package :328-374.)
 
-Not ported yet: the clock nemesis (``nemesis/time.py``, which builds
-``native/bump-time.c`` on each node) and the disk faults (``faultfs.py``).
-A package that asks for the ``clock`` or ``disk`` fault raises
-``NotImplementedError`` naming them; idle, both sub-packages are what the
-reference's are (the idle clock package routes the clock fs to a nemesis
-that raises the same error when set up or invoked).
+Not ported yet: the disk faults (``faultfs.py``).  A package that asks
+for the ``disk`` fault raises ``NotImplementedError`` naming it; idle, the
+disk sub-package is the reference's no-op.
 """
 
 from __future__ import annotations
@@ -35,6 +32,7 @@ from . import (
     split_one,
 )
 from . import f_map as nemesis_f_map
+from . import time as nt
 
 #: Seconds between nemesis operations (reference: combined.clj:27-29)
 DEFAULT_INTERVAL = 10
@@ -258,32 +256,9 @@ def partition_package(opts: dict) -> dict:
     }
 
 
-class _UnportedClockNemesis(Nemesis):
-    """The idle clock package's nemesis, disarmed: it takes the fs of the
-    reference's clock nemesis (``nemesis/time.py``), sets up and tears
-    down as a no-op (the reference's installs ``bump-time`` and stops ntp
-    on every node, though no clock op comes), and raises naming the
-    module when invoked."""
-
-    def _unported(self):
-        raise NotImplementedError(
-            "the clock nemesis (the reference's nemesis/time.py, with "
-            "native/bump-time.c) is not ported to jepsen_tpu_torch yet")
-
-    def invoke(self, test, op):
-        self._unported()
-
-    def fs(self):
-        return {"reset", "bump", "strobe", "check-offsets"}
-
-
 def clock_package(opts: dict) -> dict:
-    """(reference: combined.clj:248-280)  Raises ``NotImplementedError``
-    when the ``clock`` fault is asked for: its nemesis
-    (``nemesis/time.py``) is not ported."""
+    """(reference: combined.clj:248-280)"""
     needed = "clock" in set(opts.get("faults", ()))
-    if needed:
-        _UnportedClockNemesis()._unported()
     nemesis = compose(
         [
             (
@@ -292,13 +267,18 @@ def clock_package(opts: dict) -> dict:
                     "strobe-clock": "strobe",
                     "bump-clock": "bump",
                 },
-                _UnportedClockNemesis(),
+                nt.clock_nemesis(),
             )
         ]
     )
+    clock_gen = gen.f_map(
+        {"reset": "reset-clock", "strobe": "strobe-clock", "bump": "bump-clock"},
+        gen.mix([nt.reset_gen, nt.bump_gen, nt.strobe_gen]),
+    )
+    g = gen.stagger(opts.get("interval", DEFAULT_INTERVAL), clock_gen)
     return {
-        "generator": None,
-        "final_generator": None,
+        "generator": g if needed else None,
+        "final_generator": {"type": "info", "f": "reset-clock"} if needed else None,
         "nemesis": nemesis,
         "perf": {
             (

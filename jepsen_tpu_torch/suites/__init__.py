@@ -15,7 +15,12 @@ The port's suites:
   ``disque`` over RESP (:mod:`.proto.resp`), ``zookeeper`` over its jute
   protocol (:mod:`.proto.zk`), ``postgres_rds`` and ``stolon`` over
   pgwire (:mod:`.proto.pgwire`, through :mod:`.sql`, whose ``mysql``
-  dialect speaks :mod:`.proto.mysql`).
+  dialect speaks :mod:`.proto.mysql`);
+- ``cockroachdb`` over pgwire (the ``cockroach`` dialect) with its own
+  workloads (:mod:`.monotonic`, :mod:`.sequential`, :mod:`.comments`,
+  :mod:`.crdb_sets`, :mod:`.g2_sql`) and fault menu (:mod:`.crdb_nemesis`),
+  and ``galera``, ``percona`` and ``mysql_cluster`` over MySQL, with the
+  dirty-read probe of :mod:`.dirty_reads_sql`.
 
 The reference's other suites drive servers over protocols the port does
 not have yet; asking for one raises ``NotImplementedError`` naming its
@@ -28,10 +33,14 @@ import importlib
 
 #: the suites the port runs
 SUITES = (
+    "cockroachdb",
     "consul",
     "disque",
     "etcd",
+    "galera",
     "localkv",
+    "mysql_cluster",
+    "percona",
     "postgres_rds",
     "raftis",
     "stolon",

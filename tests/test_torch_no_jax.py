@@ -113,7 +113,20 @@ _IMPORT_ALL = textwrap.dedent("""
                      "jepsen_tpu_torch.suites.disque",
                      "jepsen_tpu_torch.suites.sql",
                      "jepsen_tpu_torch.suites.postgres_rds",
-                     "jepsen_tpu_torch.suites.stolon"):
+                     "jepsen_tpu_torch.suites.stolon",
+                     "jepsen_tpu_torch.nemesis.time",
+                     "jepsen_tpu_torch.faketime",
+                     "jepsen_tpu_torch.suites.dirty_reads_sql",
+                     "jepsen_tpu_torch.suites.galera",
+                     "jepsen_tpu_torch.suites.percona",
+                     "jepsen_tpu_torch.suites.mysql_cluster",
+                     "jepsen_tpu_torch.suites.monotonic",
+                     "jepsen_tpu_torch.suites.sequential",
+                     "jepsen_tpu_torch.suites.comments",
+                     "jepsen_tpu_torch.suites.crdb_sets",
+                     "jepsen_tpu_torch.suites.g2_sql",
+                     "jepsen_tpu_torch.suites.cockroachdb",
+                     "jepsen_tpu_torch.suites.crdb_nemesis"):
         assert required in names, required
     for name in names:
         importlib.import_module(name)
@@ -142,8 +155,10 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     # the combined nemeses, the perf plots, the localkv suite), the other
     # in-process workloads, span tracing, the clock plot, the web UI and
     # the native block writer's loader included, and the wire-protocol
-    # suites with their clients and os_setup
-    assert int(out.stdout.split()[-1]) >= 111
+    # suites with their clients and os_setup, the clock nemesis, faketime
+    # and the MySQL/SQL suites (galera, percona, mysql_cluster, cockroachdb
+    # with its workloads and fault menu)
+    assert int(out.stdout.split()[-1]) >= 124
 
 
 def test_chip_smokes_suite_phase_imports_no_jax():
@@ -152,8 +167,9 @@ def test_chip_smokes_suite_phase_imports_no_jax():
     runs, on the plain versions, load nothing the finder refuses."""
     script = _IMPORT_ALL.replace("print(len(names))\n", textwrap.dedent("""
         fakes = chip_smoke.suite_fakes()
-        assert sorted(fakes) == ["FakeDisque", "FakeHttpKv", "FakePg",
-                                 "FakeRedis", "FakeZk"], sorted(fakes)
+        assert sorted(fakes) == ["FakeDisque", "FakeHttpKv", "FakeMysql",
+                                 "FakePg", "FakeRedis", "FakeZk"], \
+            sorted(fakes)
         t, h, results, _ = chip_smoke.suite_run(
             "etcd", "register", "FakeHttpKv", {}, 50, device="cpu")
         assert results["valid?"] is True, results

@@ -47,7 +47,13 @@ JOIN_S = 10
 class Relay:
     """A loopback TCP relay to ``127.0.0.1:upstream``.  ``sent`` holds,
     per accepted connection, the bytes its client sent; when either side
-    closes, the relay closes the other."""
+    closes, the relay closes the other.
+
+    :meth:`close` first waits for each client-to-server pump to read its
+    client's end of stream, and only then closes the sockets: a client's
+    last frame (ZooKeeper's CLOSE, pgwire's Terminate, MySQL's COM_QUIT),
+    sent just before it closed, is then in ``sent`` however late its pump
+    was scheduled."""
 
     def __init__(self, upstream: int):
         self.upstream = upstream
@@ -56,14 +62,16 @@ class Relay:
         self.sent = []
         self.socks = []
         self.threads = []
+        self.uplinks = []
         self._lock = threading.Lock()
-        self._spawn(self._accept)
+        self._acceptor = self._spawn(self._accept)
 
     def _spawn(self, fn, *args):
         t = threading.Thread(target=fn, args=args, daemon=True)
         with self._lock:
             self.threads.append(t)
         t.start()
+        return t
 
     def _accept(self):
         while True:
@@ -80,7 +88,9 @@ class Relay:
             with self._lock:
                 self.sent.append(rec)
                 self.socks += [c, u]
-            self._spawn(self._pump, c, u, rec)
+            uplink = self._spawn(self._pump, c, u, rec)
+            with self._lock:
+                self.uplinks.append(uplink)
             self._spawn(self._pump, u, c, None)
 
     @staticmethod
@@ -107,6 +117,13 @@ class Relay:
         except OSError:
             pass
         self.lsock.close()
+        self._acceptor.join(JOIN_S)
+        # every client has closed by now: its pump ends at the end of
+        # stream, after recording the last bytes the client sent
+        with self._lock:
+            uplinks = list(self.uplinks)
+        for t in uplinks:
+            t.join(JOIN_S)
         with self._lock:
             socks = list(self.socks)
         for s in socks:

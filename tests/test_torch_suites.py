@@ -1,13 +1,16 @@
 """The wire-protocol suites on the port — etcd, consul, zookeeper, raftis,
 disque, postgres-rds and stolon (``jepsen_tpu_torch.suites``) — against
-the JAX package's.
+the JAX package's; the MySQL/SQL family's (cockroachdb, galera, percona,
+mysql_cluster) assembly, DB automation and workload clients too, the rest
+of it in ``tests/test_torch_sql_suites.py``.
 
 - **Clients.**  Each suite's client runs a scripted sequence of ops
   against a fresh fake server (``tests/fake_servers.py``; disque's
   ``tests/fake_disque.py`` adds ``ACKJOB``), once through the reference's
   client and once through the port's, each behind
   ``test_torch_proto.Relay``: the same completions and the same request
-  bytes.  The SQL clients run in each dialect.
+  bytes.  The SQL clients run in each dialect, the SQL suites' own
+  workload clients in their suites' dialects.
 - **DB automation.**  Each suite's ``db.setup``/``teardown`` on each
   package's recording ``DummyRemote`` emits the same commands, node by
   node (``install_archive``, ``Debian.install``, config files, daemons);
@@ -27,8 +30,10 @@ the JAX package's.
 """
 
 import contextlib
+import importlib
 import itertools
 import json
+import random
 import threading
 import time
 
@@ -58,7 +63,8 @@ from jepsen_tpu_torch.generator import sim as port_sim
 from jepsen_tpu_torch.suites import common
 
 NODES = ["n1", "n2", "n3"]
-PORTED = ("consul", "disque", "etcd", "postgres_rds", "raftis", "stolon",
+PORTED = ("cockroachdb", "consul", "disque", "etcd", "galera",
+          "mysql_cluster", "percona", "postgres_rds", "raftis", "stolon",
           "zookeeper")
 JOIN_S = 30
 
@@ -156,13 +162,14 @@ def test_each_suite_assembles_as_the_reference(name):
 
 
 def test_the_idle_clock_package_is_disarmed_in_a_suite_run():
-    """A difference by design: the idle clock package's nemesis
-    (``nemesis/time.py``, not ported) is disarmed in ``combined``.  A
-    suite's nemesis answers the reference's fs and plots its fault
-    windows; set up and torn down on a recording remote it runs the
-    reference's commands but the clock's (``bump-time``, ``strobe-time``,
-    ntp), and it sets up in every ported suite.  Asking for the clock
-    fault still raises."""
+    """The idle clock package in a suite run is the reference's (it was
+    disarmed while ``nemesis/time.py`` was not ported).  A suite's
+    nemesis answers the reference's fs and plots its fault windows; set
+    up and torn down on a recording remote it runs the reference's
+    commands, the clock's included (``bump-time`` and ``strobe-time``
+    built with gcc, ntp stopped, ``ntpdate`` at teardown), and it sets up
+    in every ported suite.  Asked for, the clock fault gives the
+    reference's op lists from one seed."""
     opts = {"nodes": NODES, "faults": ["partition"]}
     t = suites.suite("etcd").test({**opts, "device": "cpu"})
     r = ref_suites.suite("etcd").test(dict(opts))
@@ -174,20 +181,31 @@ def test_the_idle_clock_package_is_disarmed_in_a_suite_run():
         remote = m.DummyRemote()
         with m.with_session({"nodes": NODES}, remote):
             tt["nemesis"].setup(tt).teardown(tt)
-        cmds[name] = [(node, c if isinstance(c, tuple) else c.cmd)
-                      for node, c in remote.log]
+        cmds[name] = _recorded(remote.log)
+    assert cmds["port"] == cmds["ref"]
     clock = ("mkdir -p /opt/jepsen", "cat > /opt/jepsen/", "gcc ",
              "service ntp", "systemctl stop systemd-timesyncd", "ntpdate ")
-    assert any(c.startswith(clock) for _, c in cmds["ref"])
-    assert cmds["port"] == [(n, c) for n, c in cmds["ref"]
-                            if not c.startswith(clock)]
+    for node in NODES:
+        ran = [c[0] for c in cmds["port"][node]]
+        assert any("gcc -O2 -o /opt/jepsen/bump-time" in c for c in ran)
+        assert any("ntpdate" in c for c in ran)
+        assert any(c.startswith(clock) for c in ran)
     for name in PORTED:
         t = suites.suite(name).test({"nodes": NODES, "faults": [],
                                      "device": "cpu"})
         with control.with_session(t, control.DummyRemote()):
             t["nemesis"].setup(t).teardown(t)
-    with pytest.raises(NotImplementedError, match="nemesis/time.py"):
-        suites.suite("etcd").test({"nodes": NODES, "faults": ["clock"]})
+
+    def build(m):
+        return m["gen"].limit(300, m["suite"]("etcd").test({
+            "nodes": NODES, "faults": ["clock"], "interval": 1,
+            "time-limit": 10, "rate": 10})["generator"])
+
+    for seed in (45100, 7):
+        port = _sim("port", build, 6, seed, test={"nodes": NODES})
+        assert port == _sim("ref", build, 6, seed, test={"nodes": NODES})
+        fs = {o["f"] for o in port if o["process"] == "nemesis"}
+        assert fs >= {"bump-clock", "strobe-clock", "reset-clock"}, fs
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +243,10 @@ DB_OPTS = {
     "disque": [{}, {"version": "1.0-rc1"}],
     "postgres_rds": [{}],
     "stolon": [{}, {"tarball": "file:///tmp/stolon.tar.gz"}],
+    "cockroachdb": [{}, {"tarball": "file:///tmp/cockroach.tgz"}],
+    "galera": [{}],
+    "percona": [{}],
+    "mysql_cluster": [{}],
 }
 
 
@@ -477,11 +499,39 @@ CLIENT_CASES["stolon-ledger"] = ("stolon", "LedgerClient", FakePg,
                                       ("transfer", [1, -1])))
 
 
+#: the SQL suites' own workload clients, each in the dialects its suites
+#: speak (dirty-reads: galera and percona over MySQL; the others:
+#: cockroachdb, whose pgwire dialect is ``cockroach``)
+SQL_WORKLOAD_CASES = {
+    "dirty_reads_sql": ("DirtyReadsClient", _ops(
+        ("read", None), ("write", 1), ("read", None), ("write", 2),
+        ("read", None), ("nope", None)), ("mysql", "pg"), {"rows": 4}),
+    "monotonic": ("MonotonicClient", _ops(
+        ("add", 0), ("add", 1), ("add", 2), ("add", 3), ("read", None),
+        ("add", 4), ("read", None)), ("cockroach", "pg", "mysql"), {}),
+    "sequential": ("SequentialClient", _ops(
+        ("read", 7), ("write", 7), ("read", 7), ("write", 8), ("read", 9),
+        ("read", 8)), ("cockroach", "mysql"), {"key-count": 3}),
+    "comments": ("CommentsClient", _ops(
+        ("write", [0, 1]), ("write", [0, 2]), ("write", [1, 3]),
+        ("read", [0, None]), ("read", [1, None]), ("read", [9, None])),
+        ("cockroach",), {"table-count": 4}),
+    "g2_sql": ("G2Client", _ops(
+        ("insert", [1, [10, None]]), ("insert", [1, [None, 11]]),
+        ("insert", [2, [None, 12]]), ("insert", [2, [13, None]])),
+        ("cockroach",), {}),
+}
+for _mod, (_cls, _ops_list, _dialects, _extra) in SQL_WORKLOAD_CASES.items():
+    for _d in _dialects:
+        CLIENT_CASES[f"{_mod}-{_d}"] = (
+            _mod, _cls, DIALECTS[_d][0],
+            {"dialect": _d, **DIALECTS[_d][1], **_extra}, _ops_list)
+
+
 def _client_module(pkg, name):
-    if name == "sql":
-        return (__import__("jepsen_tpu.suites.sql", fromlist=["sql"])
-                if pkg == "ref" else
-                __import__("jepsen_tpu_torch.suites.sql", fromlist=["sql"]))
+    if name not in PORTED:
+        root = "jepsen_tpu" if pkg == "ref" else "jepsen_tpu_torch"
+        return importlib.import_module(f"{root}.suites.{name}")
     return PACKAGES[pkg]["suite"](name)
 
 
@@ -498,6 +548,9 @@ def _client_run(pkg, case):
     try:
         c = getattr(mod, cls)({"host": "127.0.0.1", "port": relay.port,
                                **extra}).open(test, "n1")
+        if hasattr(c, "rng"):
+            # the dirty-read writers' private row order, seeded alike
+            c.rng = random.Random(45100)
         if hasattr(c, "setup"):
             c.setup(test)
         out = []
