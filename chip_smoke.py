@@ -119,6 +119,10 @@ line.
     exactly 512 vertices, has-cycle rings at 32 and 64 (both sides of the
     warp/shared switch), 512 and 1024, and 1023 version graphs (the last
     warp holds one plane).  Each line names the design the shape runs.
+    The plain version runs once an input, in ``"earlyexit"`` mode: its
+    closure loop is the same in both modes, so the ``"fixed"`` kernel is
+    held against the same outputs with each closure's full round count
+    (``fixed_rounds``; ``tests/test_torch_cycles.py`` pins that).
 16. Elle end to end — ``elle.check_batch`` at bench.py:1282's shape (64
     histories × 400 transactions × 32 keys from ``synth``, the injected
     G1c in every 4th): list-append strict-serializable and rw-register
@@ -329,8 +333,17 @@ line.
     of the store must give it again.  The line gives the ops, oks, fails,
     infos, the nemesis fs, the history's E, C and V, its engine, kernel
     and escalation rungs, the K1 and K4 launches, and the card's, plain
-    and oracle seconds.  Any ``repregd`` left under its directory is
-    killed.
+    and oracle seconds.  Then the same suite over the SSH transport:
+    ``test --suite localkv --ssh-transport ssh --faults partition,kill
+    --time-limit 5 --concurrency 6 --rate 40 -o interval=2``, its nodes'
+    commands through the ``ssh`` and ``scp`` shims of
+    ``tests/fake_transports.py`` (put ahead of ``PATH`` for that run
+    only; each logs its argv and runs the command here), held by the
+    same gates; the shims' log must show every node's commands, each
+    call with the ControlMaster options, one ``-O exit`` a connection
+    and ``native/repregd.cc`` copied to every node by ``scp``.  Its line
+    gives the same figures and the ssh and scp calls and connections.
+    Any ``repregd`` left under either run's directory is killed.
 31. every in-process workload — the CLI's ``test-all --dummy
     --time-limit 5`` (the reference's documented command,
     ``README.md:595``) in-process at the CLI's defaults: bank, long-fork,
@@ -349,12 +362,13 @@ line.
     anomalies, verdict and transaction count.  list-append's dependency
     graph (its vertex count) is a batch of one and stays on the CPU, as
     the reference routes it (K7's launches are printed).
-32. the wire-protocol suites — eleven runs, each ``suites.suite(name)
+32. the wire-protocol suites — thirteen runs, each ``suites.suite(name)
     .test(opts)`` against a fake server of ``tests/fake_servers.py``
     (imported inside the phase; stdlib only) at the reference's
-    ``*_full_test_in_process`` settings (3 nodes, ``db`` noop, ``ssh``
-    dummy, no faults, ``time-limit`` 2, ``rate`` 40–50), its own client
-    speaking the database's protocol, the history checked on the card:
+    ``*_full_test_in_process`` settings (3 nodes, tidb's 2, ``db`` noop,
+    ``ssh`` dummy, no faults, ``time-limit`` 2, ``rate`` 30–100), its own
+    client speaking the database's protocol, the history checked on the
+    card:
     etcd's and consul's registers over HTTP, raftis's over RESP,
     zookeeper's lock over jute, disque's ``linearizable-queue`` over RESP
     (``tests/fake_disque.py`` acknowledges its jobs), postgres-rds's
@@ -362,15 +376,18 @@ line.
     over pgwire (the ``cockroach`` dialect) and galera's over MySQL, both
     checked on the card, then galera's ``dirty-reads`` over MySQL
     (concurrency 4) and cockroachdb's ``monotonic`` over pgwire, whose
-    checkers (``DirtyReadsChecker``, ``MonotonicChecker``) run on the CPU.
+    checkers (``DirtyReadsChecker``, ``MonotonicChecker``) run on the CPU;
+    tidb's register over MySQL, checked on the card, and its ``table``
+    workload, checked by ``TableChecker`` on the CPU.
     The launch counters are reset before each run; one line per run
     gives its ops, oks, verdict, seconds and K1, K4, K6 and K7 launches.
     Every run must be valid.  The register and lock runs must launch K1,
     and their whole result must equal the plain versions' re-check
     (``device="cpu"``) and, key by key, the CPU oracle's (as phase 30);
     disque's must equal the plain versions'; stolon's must equal a
-    ``screen-route cpu`` re-check; dirty-reads and monotonic launch no
-    kernel and must equal their checker's re-check of the stored history.
+    ``screen-route cpu`` re-check; dirty-reads, monotonic and table
+    launch no kernel and must equal their checker's re-check of the
+    stored history.
     The phase must take at most 35 s.
 
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
@@ -379,6 +396,7 @@ The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import gc
@@ -1394,17 +1412,35 @@ def list_append_stack(hs):
             max(e.n for e in encs))
 
 
-def cycles_compare(case, kernel, plain, x, **fields):
-    """A cycles kernel against its plain version on the same device
-    tensor; every output byte-equal.  Emits one line and returns (plain
-    seconds, max error, the plain version's operation count)."""
-    kern = kernel(x)
+def cycles_plain(plain, x):
+    """The plain version on the device tensor ``x``, timed: (outputs,
+    seconds, its operation count)."""
     torch.cuda.synchronize()
     work: dict = {}
     t0 = time.perf_counter()
     ref = plain(x, work)
     torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
+    return ref, time.perf_counter() - t0, work.get("int_ops", 0)
+
+
+def fixed_rounds(kind, n, masks=ELLE_MASKS, nonadj=ELLE_NONADJ) -> int:
+    """The rounds a plain version reports in ``"fixed"`` mode on
+    ``n``-vertex graphs: each closure it runs counts its full squaring
+    ladder (has-cycle one closure; the screen one over the filter planes
+    and one over the lifted 2n-vertex planes)."""
+    if kind == "has_cycle":
+        return cycles.closure_rounds(n)
+    return ((cycles.closure_rounds(n) if masks else 0)
+            + (cycles.closure_rounds(2 * n) if nonadj else 0))
+
+
+def cycles_compare(case, kernel, plain, x, **fields):
+    """A cycles kernel against its plain version's outputs on the same
+    device tensor (``plain``: what :func:`cycles_plain` gives); every
+    output byte-equal.  Emits one line and returns (plain seconds, max
+    error, the plain version's operation count)."""
+    kern = kernel(x)
+    ref, plain_s, ops = plain
     err = 0
     for i, (k, p) in enumerate(zip(kern, ref)):
         k, p = k.cpu().numpy(), p.cpu().numpy()
@@ -1417,7 +1453,26 @@ def cycles_compare(case, kernel, plain, x, **fields):
          n=int(x.shape[-1]), max_abs_err=err, plain_s=plain_s,
          rounds=int(kern[-1][0]) if len(kern[-1]) else None,
          tolerance="exact (byte-equal)", **fields)
-    return plain_s, err, work.get("int_ops", 0)
+    return plain_s, err, ops
+
+
+def both_modes(case, kind, x, **fields):
+    """``kind``'s kernel in both closure modes against one run of its
+    plain version: the plain versions run the same closure loop in both
+    modes (a plane that stopped changing is squared no more in either)
+    and differ only in the rounds they report, so the ``"fixed"``
+    outputs are the ``"earlyexit"`` run's with :func:`fixed_rounds`
+    (``tests/test_torch_cycles.py`` pins it on the CPU).  Returns
+    {mode: (plain seconds, max error, operation count)}."""
+    n = int(x.shape[-1])
+    pair = has_cycle_pair if kind == "has_cycle" else screen_pair
+    outs, plain_s, ops = cycles_plain(pair("earlyexit")[1], x)
+    fixed = outs[:-1] + (torch.full_like(outs[-1], fixed_rounds(kind, n)),)
+    return {mode: cycles_compare(
+        case, pair(mode)[0], (fixed if mode == "fixed" else outs, plain_s,
+                              ops), x, entry=kind, mode=mode,
+        plain_mode="earlyexit", design=cycles_design(kind, mode, n),
+        **fields) for mode in ("fixed", "earlyexit")}
 
 
 def has_cycle_pair(mode):
@@ -1588,35 +1643,24 @@ def elle_kernel_phase(device, la_hs, rw_hs):
     max error, the screen's plain seconds and squaring count by mode)."""
     vg = version_graph_stack(rw_hs)
     vg_dev = torch.from_numpy(vg).to(device)
-    hc_err = 0
-    for mode in ("fixed", "earlyexit"):
-        _, err, _ = cycles_compare("version-graphs", *has_cycle_pair(mode),
-                                   vg_dev, entry="has_cycle", mode=mode,
-                                   design=cycles_design("has_cycle", mode, 16))
-        hc_err = max(hc_err, err)
+    hc_err = max(err for _, err, _ in both_modes(
+        "version-graphs", "has_cycle", vg_dev).values())
     rng = np.random.default_rng(47300)
     for n in HAS_CYCLE_SIZES:
         rows = 256 if n <= 256 else 64
         dens = rng.choice([0.5, 1.0, 1.5, 4.0], size=rows) / n
         adj = (rng.random((rows, n, n)) < dens[:, None, None]).astype(
             np.uint8)
-        for mode in ("fixed", "earlyexit"):
-            _, err, _ = cycles_compare(f"random-n{n}", *has_cycle_pair(mode),
-                                       torch.from_numpy(adj).to(device),
-                                       entry="has_cycle", mode=mode,
-                                       design=cycles_design("has_cycle", mode,
-                                                            n))
-            hc_err = max(hc_err, err)
+        hc_err = max([hc_err] + [err for _, err, _ in both_modes(
+            f"random-n{n}", "has_cycle",
+            torch.from_numpy(adj).to(device)).values()])
     rel_np, n_max = list_append_stack(la_hs)
     rel = torch.from_numpy(rel_np).to(device)
-    sc_err, sc_plain = 0, {}
-    for mode in ("fixed", "earlyexit"):
-        plain_s, err, ops = cycles_compare(
-            "list-append-1024", *screen_pair(mode), rel, entry="screen",
-            mode=mode, largest_graph=n_max,
-            design=cycles_design("screen", mode, ELLE_N))
-        sc_plain[mode] = (plain_s, ops)
-        sc_err = max(sc_err, err)
+    runs = both_modes("list-append-1024", "screen", rel,
+                      largest_graph=n_max)
+    sc_plain = {mode: (plain_s, ops) for mode, (plain_s, _, ops)
+                in runs.items()}
+    sc_err = max(err for _, err, _ in runs.values())
     small = np.random.default_rng(47410)
     edge_cases = [
         ("screen", "ring-512", torch.from_numpy(ring_relation(512, 8))),
@@ -1649,16 +1693,12 @@ def elle_kernel_phase(device, la_hs, rw_hs):
             (ring_relation(64, 8) > 0).astype(np.uint8))),
     ]
     for kind, case, x in edge_cases:
-        for mode in ("fixed", "earlyexit"):
-            pair = screen_pair(mode) if kind == "screen" else \
-                has_cycle_pair(mode)
-            _, err, _ = cycles_compare(
-                case, *pair, x.to(device), entry=kind, mode=mode,
-                design=cycles_design(kind, mode, int(x.shape[-1])))
-            if kind == "screen":
-                sc_err = max(sc_err, err)
-            else:
-                hc_err = max(hc_err, err)
+        err = max(err for _, err, _ in both_modes(
+            case, kind, x.to(device)).values())
+        if kind == "screen":
+            sc_err = max(sc_err, err)
+        else:
+            hc_err = max(hc_err, err)
     return vg, rel, hc_err, sc_err, sc_plain
 
 
@@ -3762,88 +3802,149 @@ def localkv_verdicts(base, code, k1, k4, rungs) -> None:
         emit(phase="localkv_verdicts", code=code, error=repr(e))
 
 
+def localkv_checked(base, code, k1, k4, rungs, what, model):
+    """Phase 30's gates on a ``cli test --suite localkv`` run stored
+    under ``base``: exit 0, more than 20 ok ops, a partition and a kill in
+    the history, a K1 or K4 launch, each node's ``server.log`` snarfed
+    naming ``repregd``; the stored history re-checked on the card, by the
+    plain versions and by the CPU oracle gives the stored result.
+    Returns (stored history, stored results, the line's figures)."""
+    if code != cli.EXIT_VALID:
+        localkv_verdicts(base, code, k1, k4, rungs)
+    require(code == cli.EXIT_VALID, f"{what}: cli test exited {code}")
+    require(k1 + k4 > 0, f"{what}: the check launched no kernel")
+    start = store_mod.latest_time(base, "localkv")
+    stored = store_mod.load({"name": "localkv", "start-time": start,
+                             "store-base": base})
+    require(not stored.get("recovered"), f"{what}: the store was torn")
+    h, results = stored["history"], stored["results"]
+    card_result = results["workload"]
+    client = [op for op in h if isinstance(op.process, int)]
+    types = {t: sum(1 for op in client if op.type == t)
+             for t in ("invoke", "ok", "fail", "info")}
+    nemesis_fs = sorted({op.f for op in h if op.process == "nemesis"})
+    require(types["ok"] > 20, f"{what}: only {types['ok']} ok ops")
+    require({"start-partition", "kill"} <= set(nemesis_fs),
+            f"{what}: the faults seen were {nemesis_fs}")
+    enc = encode.encode_history(h, model)
+    run_dir = os.path.join(base, "localkv", start)
+    for n in cli.DEFAULT_NODES:
+        log = os.path.join(run_dir, n, "server.log")
+        require(os.path.exists(log), f"{what}: {log} was not snarfed")
+        with open(log) as f:
+            require("repregd" in f.read(),
+                    f"{what}: {log} does not name repregd")
+
+    # the card again, the plain versions and the oracle on the history
+    # the store holds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again_card = as_json(checker_mod.check_safe(
+        checker_mod.linearizable(model), {}, h))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = as_json(checker_mod.check_safe(
+        checker_mod.linearizable(model, device="cpu"), {}, h))
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = as_json(checker_mod.check_safe(
+        checker_mod.linearizable(model, algorithm="oracle"), {}, h))
+    oracle_s = time.perf_counter() - t0
+    require(again_card == card_result,
+            f"{what}: the stored result {card_result} differs from a "
+            f"re-check on the card {again_card}")
+    require(card_result == plain, f"{what}: the card's result "
+            f"{card_result} differs from the plain versions' {plain}")
+    # the oracle's map has no engine and the device's no op count: every
+    # key the two share, the verdict first, must agree
+    shared = sorted(set(card_result) & set(oracle))
+    require("valid?" in shared and all(
+        card_result[k] == oracle[k] for k in shared),
+        f"{what}: the card's result {card_result} differs from the "
+        f"oracle's {oracle}")
+    phases = {r["name"]: r["wall_s"]
+              for r in (results.get("obs") or {}).get("phases", [])}
+    return h, card_result, dict(
+        ops=types["invoke"], oks=types["ok"], fails=types["fail"],
+        infos=types["info"], nemesis_fs=nemesis_fs,
+        E=len(enc.ev_slot) if enc is not None else None,
+        C=enc.max_open if enc is not None else None,
+        V=(wgl.value_domain("cas-register", enc.init_state, enc.cand_a,
+                            enc.cand_b) if enc is not None else None),
+        engine=card_result.get("engine"), kernel=card_result.get("kernel"),
+        escalations=rungs, k1_launches=k1, k4_launches=k4,
+        valid=card_result["valid?"], card_check_s=card_s, plain_s=plain_s,
+        oracle_s=oracle_s, analysis_s=phases.get("analyze"),
+        db_start_s=phases.get("db-start"),
+        generator_s=phases.get("generator"), equal_plain=True,
+        equal_oracle_keys=shared)
+
+
+def localkv_run(argv, root):
+    """``cli test`` with ``argv`` into ``root``'s store, the nodes'
+    directories under ``root``, the launch counters reset first: (exit
+    code, seconds, K1 and K4 launches, the escalation rungs, the store)."""
+    base = os.path.join(root, "store")
+    reset_dense_launches()
+    wgl.FRONTIER_SEARCH.launches = 0
+    wgl.ESCALATIONS.clear()
+    t0 = time.perf_counter()
+    code, _ = run_cli_captured(["test", *argv, "--store-base", base, "-o",
+                                f"dir={os.path.join(root, 'nodes')}"])
+    run_s = time.perf_counter() - t0
+    return (code, run_s, dense.DENSE_AUTOMATON.launches,
+            wgl.FRONTIER_SEARCH.launches,
+            {str(k): v for k, v in wgl.ESCALATIONS.items()}, base)
+
+
+def tests_module(name: str):
+    """A stdlib-only helper module of the repository's ``tests/``
+    directory (fake servers, PATH shims), imported here and not with the
+    script."""
+    import importlib
+
+    tests_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests")
+    if tests_dir not in sys.path:
+        sys.path.insert(0, tests_dir)
+    return importlib.import_module(name)
+
+
+@contextlib.contextmanager
+def shimmed(bin_dir: str):
+    """``bin_dir`` ahead of ``PATH``, and ``/dev/null`` as standard input
+    (what the shims read when a command gives them none), for the body
+    only."""
+    path = os.environ["PATH"]
+    saved = os.dup(0)
+    null = os.open(os.devnull, os.O_RDONLY)
+    os.dup2(null, 0)
+    os.close(null)
+    os.environ["PATH"] = f"{bin_dir}{os.pathsep}{path}"
+    try:
+        yield
+    finally:
+        os.environ["PATH"] = path
+        os.dup2(saved, 0)
+        os.close(saved)
+
+
 def localkv_phase(card):
     """Phase 30: ``cli test --suite localkv`` — five ``repregd`` replicas
     built with g++, partitioned and killed, the history checked on the
     card — held against the plain versions and the CPU oracle, then
-    ``cli analyze`` of the stored run on the card."""
+    ``cli analyze`` of the stored run on the card; then the same suite
+    over the SSH transport, through the PATH shims."""
     import shutil
 
     root = os.path.abspath(os.path.join("build", "chip_smoke_localkv"))
     shutil.rmtree(root, ignore_errors=True)
-    base = os.path.join(root, "store")
-    nodes_dir = os.path.join(root, "nodes")
     model = models.cas_register(0)
     try:
-        reset_dense_launches()
-        wgl.FRONTIER_SEARCH.launches = 0
-        wgl.ESCALATIONS.clear()
-        t0 = time.perf_counter()
-        code, _ = run_cli_captured(["test", *LOCALKV_ARGS, "--store-base",
-                                    base, "-o", f"dir={nodes_dir}"])
-        run_s = time.perf_counter() - t0
-        k1 = dense.DENSE_AUTOMATON.launches
-        k4 = wgl.FRONTIER_SEARCH.launches
-        rungs = {str(k): v for k, v in wgl.ESCALATIONS.items()}
-        if code != cli.EXIT_VALID:
-            localkv_verdicts(base, code, k1, k4, rungs)
-        require(code == cli.EXIT_VALID, f"localkv: cli test exited {code}")
-        require(k1 + k4 > 0, "localkv: the check launched no kernel")
-        start = store_mod.latest_time(base, "localkv")
-        stored = store_mod.load({"name": "localkv", "start-time": start,
-                                 "store-base": base})
-        require(not stored.get("recovered"), "localkv: the store was torn")
-        h, results = stored["history"], stored["results"]
-        card_result = results["workload"]
-        client = [op for op in h if isinstance(op.process, int)]
-        types = {t: sum(1 for op in client if op.type == t)
-                 for t in ("invoke", "ok", "fail", "info")}
-        nemesis_fs = sorted({op.f for op in h if op.process == "nemesis"})
-        require(types["ok"] > 20, f"localkv: only {types['ok']} ok ops")
-        require({"start-partition", "kill"} <= set(nemesis_fs),
-                f"localkv: the faults seen were {nemesis_fs}")
-        enc = encode.encode_history(h, model)
-        E = len(enc.ev_slot) if enc is not None else None
-        C = enc.max_open if enc is not None else None
-        V = (wgl.value_domain("cas-register", enc.init_state, enc.cand_a,
-                              enc.cand_b) if enc is not None else None)
-        run_dir = os.path.join(base, "localkv", start)
-        for n in cli.DEFAULT_NODES:
-            log = os.path.join(run_dir, n, "server.log")
-            require(os.path.exists(log), f"localkv: {log} was not snarfed")
-            with open(log) as f:
-                require("repregd" in f.read(),
-                        f"localkv: {log} does not name repregd")
-
-        # the card again, the plain versions and the oracle on the history
-        # the store holds
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        again_card = as_json(checker_mod.check_safe(
-            checker_mod.linearizable(model), {}, h))
-        torch.cuda.synchronize()
-        card_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        plain = as_json(checker_mod.check_safe(
-            checker_mod.linearizable(model, device="cpu"), {}, h))
-        plain_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        oracle = as_json(checker_mod.check_safe(
-            checker_mod.linearizable(model, algorithm="oracle"), {}, h))
-        oracle_s = time.perf_counter() - t0
-        require(again_card == card_result,
-                f"localkv: the stored result {card_result} differs from a "
-                f"re-check on the card {again_card}")
-        require(card_result == plain, f"localkv: the card's result "
-                f"{card_result} differs from the plain versions' {plain}")
-        # the oracle's map has no engine and the device's no op count:
-        # every key the two share, the verdict first, must agree
-        shared = sorted(set(card_result) & set(oracle))
-        require("valid?" in shared and all(
-            card_result[k] == oracle[k] for k in shared),
-            f"localkv: the card's result {card_result} differs from the "
-            f"oracle's {oracle}")
-
+        code, run_s, k1, k4, rungs, base = localkv_run(LOCALKV_ARGS, root)
+        _, card_result, figures = localkv_checked(base, code, k1, k4, rungs,
+                                                  "localkv", model)
         # -- cli analyze of the stored run, on the card --------------------
         k4_before = wgl.FRONTIER_SEARCH.launches
         t0 = time.perf_counter()
@@ -3855,22 +3956,64 @@ def localkv_phase(card):
         require(again["workload"] == card_result,
                 f"localkv: analyze says {again['workload']}, the run said "
                 f"{card_result}")
-        phases = {r["name"]: r["wall_s"]
-                  for r in (results.get("obs") or {}).get("phases", [])}
         emit(phase="localkv", args=LOCALKV_ARGS, code=code, seconds=run_s,
-             ops=types["invoke"], oks=types["ok"], fails=types["fail"],
-             infos=types["info"], nemesis_fs=nemesis_fs, E=E, C=C, V=V,
-             engine=card_result.get("engine"),
-             kernel=card_result.get("kernel"), escalations=rungs,
-             k1_launches=k1, k4_launches=k4, valid=card_result["valid?"],
-             card_check_s=card_s, plain_s=plain_s, oracle_s=oracle_s,
-             analysis_s=phases.get("analyze"),
-             db_start_s=phases.get("db-start"),
-             generator_s=phases.get("generator"), analyze_cli_s=analyze_s,
+             **figures, analyze_cli_s=analyze_s,
              analyze_k4_launches=wgl.FRONTIER_SEARCH.launches - k4_before,
-             equal_plain=True, equal_oracle_keys=shared, card=card)
+             card=card)
     finally:
-        subprocess.run(["pkill", "-9", "-f", nodes_dir], capture_output=True)
+        subprocess.run(["pkill", "-9", "-f", root], capture_output=True)
+    shutil.rmtree(root, ignore_errors=True)
+    localkv_ssh_run(card, model)
+
+
+#: phase 30's second run: the same suite over the SSH transport
+LOCALKV_SSH_ARGS = ["--suite", "localkv", "--ssh-transport", "ssh",
+                    "--faults", "partition,kill", "--time-limit", "5",
+                    "--concurrency", "6", "--rate", "40", "-o",
+                    "interval=2"]
+
+
+def localkv_ssh_run(card, model):
+    """Phase 30's second run: ``cli test --suite localkv --ssh-transport
+    ssh`` with the ``ssh`` and ``scp`` shims of ``tests/fake_transports.py``
+    ahead of ``PATH``, held as the first run is; the shims' log must show
+    every node's commands, each over its connection's ControlMaster, one
+    ``-O exit`` a connection and the source's ``scp`` to each node."""
+    import shutil
+
+    root = os.path.abspath(os.path.join("build", "chip_smoke_localkv_ssh"))
+    shutil.rmtree(root, ignore_errors=True)
+    shims = tests_module("fake_transports")
+    log = os.path.join(root, "transports.jsonl")
+    bin_dir = shims.write_shims(os.path.join(root, "bin"), log,
+                                ("ssh", "scp"))
+    try:
+        with shimmed(bin_dir):
+            code, run_s, k1, k4, rungs, base = localkv_run(LOCALKV_SSH_ARGS,
+                                                           root)
+        _, _, figures = localkv_checked(base, code, k1, k4, rungs,
+                                        "localkv over ssh", model)
+        entries = shims.read_log(log)
+        ssh = [e["argv"] for e in entries if e["prog"] == "ssh"]
+        scp = [e["argv"] for e in entries if e["prog"] == "scp"]
+        for n in cli.DEFAULT_NODES:
+            require(any(a[-2] == f"root@{n}" for a in ssh),
+                    f"localkv over ssh: no command ran on {n}")
+            require(any(a[-1].startswith(f"root@{n}:") for a in scp),
+                    f"localkv over ssh: nothing was copied to {n}")
+        require(all("ControlMaster=auto" in a for a in ssh + scp),
+                "localkv over ssh: a call without the ControlMaster")
+        paths = sorted({o for a in ssh for o in a
+                        if o.startswith("ControlPath=")})
+        exits = sorted(o for a in ssh if a[-3:-1] == ["-O", "exit"]
+                       for o in a if o.startswith("ControlPath="))
+        require(exits == paths, f"localkv over ssh: {len(paths)} "
+                f"connections, {len(exits)} -O exit")
+        emit(phase="localkv_ssh", args=LOCALKV_SSH_ARGS, code=code,
+             seconds=run_s, **figures, ssh_calls=len(ssh),
+             scp_calls=len(scp), connections=len(paths), card=card)
+    finally:
+        subprocess.run(["pkill", "-9", "-f", root], capture_output=True)
     shutil.rmtree(root, ignore_errors=True)
 
 
@@ -4011,6 +4154,14 @@ SUITE_RUNS = (
     ("galera", "dirty-reads", "FakeMysql",
      {"user": "root", "password": "pw", "concurrency": 4}, 40),
     ("cockroachdb", "monotonic", "FakePg", {"user": "postgres"}, 50),
+    # tidb over MySQL at its in-process tests' settings (two nodes); the
+    # register at rate 100: at 50, about one 2 s run in twenty-five
+    # completes no cas, which the stats checker (the reference's too)
+    # calls invalid
+    ("tidb", "register", "FakeMysql",
+     {"user": "root", "password": "pw", "nodes": ["n1", "n2"]}, 100),
+    ("tidb", "table", "FakeMysql",
+     {"user": "root", "password": "pw", "nodes": ["n1", "n2"]}, 30),
 )
 SUITE_NODES = ["n1", "n2", "n3"]
 SUITES_PHASE_S = 35.0
@@ -4020,13 +4171,8 @@ def suite_fakes() -> dict:
     """The fake servers of ``tests/fake_servers.py`` and
     ``tests/fake_disque.py`` by name (stdlib only, imported here and not
     with the script)."""
-    tests_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             "tests")
-    if tests_dir not in sys.path:
-        sys.path.insert(0, tests_dir)
-    import fake_disque
-    import fake_servers
-
+    fake_servers = tests_module("fake_servers")
+    fake_disque = tests_module("fake_disque")
     return {"FakeHttpKv": fake_servers.FakeHttpKv,
             "FakeZk": fake_servers.FakeZk, "FakePg": fake_servers.FakePg,
             "FakeMysql": fake_servers.FakeMysql,
@@ -4071,7 +4217,7 @@ def suite_recheck(name, wname, extra, rate, h, **over):
 
 
 def suites_phase(card, device=None):
-    """Phase 32: the eleven suite runs on the card (``device`` None: the
+    """Phase 32: the thirteen suite runs on the card (``device`` None: the
     current CUDA device, as a user's run), each against its fake server,
     held against the plain versions, the oracle and the CPU screen
     route."""
@@ -4132,7 +4278,7 @@ def suites_phase(card, device=None):
             emit(phase="suite_check", suite=name, workload=wname,
                  keys=len(card_keys), equal_plain=True, equal_oracle=True,
                  recheck_s=time.perf_counter() - t0, card=card)
-        elif wname in ("dirty-reads", "monotonic"):
+        elif wname in ("dirty-reads", "monotonic", "table"):
             # the suites' own checkers, on the CPU: no kernel, and the
             # stored history re-checked gives the run's result
             require(k1 + k4 + k6 + k7 == 0,

@@ -73,17 +73,15 @@ def prepare(history: History, pure_fs: Iterable[Any] = ()) -> Tuple[list, list]:
     pure = set(pure_fs)
     events: list = []
     ops: list = []
+    add_event, add_op = events.append, ops.append
     open_by_process: Dict[Any, int] = {}
+    pop_open = open_by_process.pop
     dropped: set = set()
-    def propagate(op_id, value):
-        """Copy-on-write value propagation: the ops list holds the
-        caller's Op objects until a completion actually changes one —
-        unconditional copies dominated the host encode path (~30% of
-        batch_encode, SURVEY §7 host↔device feed rate)."""
-        if value is not None and ops[op_id].value != value:
-            ops[op_id] = ops[op_id].copy()
-            ops[op_id].value = value
-
+    # Completion values propagate copy-on-write (inline: this loop runs
+    # once an op on every encode): the ops list holds the caller's Op
+    # objects until a completion actually changes one — unconditional
+    # copies dominated the host encode path (~30% of batch_encode, SURVEY
+    # §7 host↔device feed rate).
     for op in history:
         p = op.process
         if not isinstance(p, int):
@@ -91,20 +89,25 @@ def prepare(history: History, pure_fs: Iterable[Any] = ()) -> Tuple[list, list]:
         t = op.type
         if t == INVOKE:
             op_id = len(ops)
-            ops.append(op)
+            add_op(op)
             open_by_process[p] = op_id
-            events.append((INVOKE, op_id))
+            add_event((INVOKE, op_id))
         elif t == OK:
-            op_id = open_by_process.pop(p, None)
+            op_id = pop_open(p, None)
             if op_id is not None:
-                propagate(op_id, op.value)
-                events.append((OK, op_id))
+                value = op.value
+                if value is not None:
+                    inv = ops[op_id]
+                    if inv.value != value:
+                        inv = ops[op_id] = inv.copy()
+                        inv.value = value
+                add_event((OK, op_id))
         elif t == FAIL:
-            op_id = open_by_process.pop(p, None)
+            op_id = pop_open(p, None)
             if op_id is not None:
                 dropped.add(op_id)  # a failed op never took effect
         elif t == INFO:
-            op_id = open_by_process.pop(p, None)
+            op_id = pop_open(p, None)
             if op_id is not None:
                 if op.f in pure:
                     # a crashed pure read always linearizes and never
@@ -116,8 +119,13 @@ def prepare(history: History, pure_fs: Iterable[Any] = ()) -> Tuple[list, list]:
                     # acted on the way out); without it an owner-aware
                     # model could never linearize the op and would
                     # wrongly poison every later legitimate step
-                    propagate(op_id, op.value)
-                    events.append((INFO, op_id))
+                    value = op.value
+                    if value is not None:
+                        inv = ops[op_id]
+                        if inv.value != value:
+                            inv = ops[op_id] = inv.copy()
+                            inv.value = value
+                    add_event((INFO, op_id))
     # processes whose invoke never completed at all: same as info (open
     # forever)
     for op_id in open_by_process.values():

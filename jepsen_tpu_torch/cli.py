@@ -20,6 +20,8 @@ Exit codes: 0 valid, 1 invalid, 2 unknown/errors, 254 usage error,
         --faults partition,kill --time-limit 10 --concurrency 6 --rate 40 \
         -o interval=2
     python -m jepsen_tpu_torch.cli analyze --test-name localkv
+    python -m jepsen_tpu_torch.cli test --suite tidb \
+        --nodes n1,n2,n3,n4,n5 --ssh-transport ssh --faults kill,partition
     python -m jepsen_tpu_torch.cli test-all --dummy --time-limit 5
     python -m jepsen_tpu_torch.cli serve --store-base store --port 8080
     python -m jepsen_tpu_torch.cli serve --checker --supervise --fleet 2 \
@@ -119,6 +121,13 @@ def add_test_opts(p: argparse.ArgumentParser) -> None:
     p.add_argument("--username", default="root", help="ssh username")
     p.add_argument("--password", help="ssh password")
     p.add_argument("--ssh-private-key", help="path to an ssh identity file")
+    p.add_argument(
+        "--ssh-transport",
+        choices=("ssh", "agent-ssh"),
+        help="use a real SSH transport: 'ssh' (key-only, ControlMaster"
+        " multiplexed) or 'agent-ssh' (sshj-style auth ladder: key,"
+        " agent, default identities, password)",
+    )
     p.add_argument(
         "--dummy",
         action="store_true",
@@ -229,6 +238,14 @@ def test_opts_to_map(args: argparse.Namespace) -> dict:
         from .control.core import DummyRemote
 
         test["remote"] = DummyRemote()
+    elif getattr(args, "ssh_transport", None) == "agent-ssh":
+        from .control.agent_ssh import AgentSSHRemote
+
+        test["remote"] = AgentSSHRemote.from_test(test)
+    elif getattr(args, "ssh_transport", None) == "ssh":
+        from .control.ssh import SSHRemote
+
+        test["remote"] = SSHRemote.from_test(test)
     return test
 
 
@@ -985,7 +1002,7 @@ def default_commands() -> Dict[str, dict]:
             help="DB suite to run against real nodes (see "
             "jepsen_tpu_torch.suites.SUITES: localkv, etcd, consul, "
             "zookeeper, raftis, disque, postgres-rds, stolon, cockroachdb, "
-            "galera, percona, mysql-cluster).  Without --suite, "
+            "galera, percona, mysql-cluster, tidb).  Without --suite, "
             "the workload runs in-process against the in-memory fake "
             "client.",
         )

@@ -10,8 +10,10 @@ the Remote protocol, escaping and the dummy remote mirroring the
 reference's ``:dummy?`` mode (control.clj:40), which in-process tests
 run under; ``local`` runs commands on this host (the localkv suite's
 remote); ``util`` holds the node-side helpers (daemons, files, ports).
-The port has no network transport yet (the reference's ``ssh``,
-``agent_ssh``, ``docker``, ``k8s``, ``retry`` and ``scp`` submodules).
+The network transports: ``ssh`` (key-only, ControlMaster multiplexed,
+transfers over scp), ``agent_ssh`` (the key, agent, default-identity and
+password ladder), ``docker`` (``docker exec``/``cp``), ``k8s``
+(``kubectl exec``/``cp``); ``retry`` and ``scp`` wrap any of them.
 """
 
 from __future__ import annotations

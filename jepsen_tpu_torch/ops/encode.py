@@ -124,31 +124,38 @@ def encode_history(
     n = len(ops)
     T = len(events)
     # event-position bookkeeping: t_inv[o], t_done[o] (inf if never ok),
-    # and the stream positions of ok events (the kernel's rows)
-    t_inv = np.zeros((n,), np.int64)
-    t_done = np.full((n,), T + 1, np.int64)
+    # and the stream positions of ok events (the kernel's rows); kept in
+    # Python lists while the pass runs (a numpy element access costs
+    # more than an event's work) and made arrays after it
+    t_inv_l = [0] * n
+    t_done_l = [T + 1] * n
     ok_pos = []
     ok_op_ids = []
-    slot = np.full((n,), -1, np.int16)
+    slot_l = [-1] * n
     free: list = list(range(slot_cap))
     heapq.heapify(free)
+    heappop, heappush = heapq.heappop, heapq.heappush
     open_count = 0
     max_open = 0
     for t, (kind, op_id) in enumerate(events):
         if kind == "invoke":
             if not free:
                 return None  # too many concurrently-open ops
-            slot[op_id] = heapq.heappop(free)
-            t_inv[op_id] = t
+            slot_l[op_id] = heappop(free)
+            t_inv_l[op_id] = t
             open_count += 1
-            max_open = max(max_open, open_count)
+            if open_count > max_open:
+                max_open = open_count
         elif kind == "ok":
-            t_done[op_id] = t
+            t_done_l[op_id] = t
             ok_pos.append(t)
             ok_op_ids.append(op_id)
-            heapq.heappush(free, int(slot[op_id]))
+            heappush(free, slot_l[op_id])
             open_count -= 1
         # info: op keeps its slot forever
+    t_inv = np.asarray(t_inv_l, np.int64)
+    t_done = np.asarray(t_done_l, np.int64)
+    slot = np.asarray(slot_l, np.int16)
 
     E = len(ok_pos)
     C = slot_cap

@@ -20,7 +20,10 @@ The port's suites:
   workloads (:mod:`.monotonic`, :mod:`.sequential`, :mod:`.comments`,
   :mod:`.crdb_sets`, :mod:`.g2_sql`) and fault menu (:mod:`.crdb_nemesis`),
   and ``galera``, ``percona`` and ``mysql_cluster`` over MySQL, with the
-  dirty-read probe of :mod:`.dirty_reads_sql`.
+  dirty-read probe of :mod:`.dirty_reads_sql`;
+- ``tidb`` over MySQL (pd, tikv and tidb on every node) with its
+  transactional and table clients and its fault menu
+  (:mod:`.tidb_nemesis`).
 
 The reference's other suites drive servers over protocols the port does
 not have yet; asking for one raises ``NotImplementedError`` naming its
@@ -44,6 +47,7 @@ SUITES = (
     "postgres_rds",
     "raftis",
     "stolon",
+    "tidb",
     "zookeeper",
 )
 

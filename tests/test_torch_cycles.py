@@ -398,6 +398,36 @@ def test_packed_closure_counts_only_changing_rounds():
     assert work.get("int_ops", 0) == 0
 
 
+@pytest.mark.parametrize("n", [16, 33, 64])
+def test_the_plain_modes_differ_only_in_their_rounds(n):
+    """The plain versions run one closure loop in both modes: their
+    ``"fixed"`` outputs and operation counts are the ``"earlyexit"``
+    run's, the rounds aside, which are the full squaring ladder of each
+    closure — what ``chip_smoke.py`` derives the fixed outputs from when
+    it runs the plain version once for both modes of a kernel."""
+    rng = np.random.default_rng(4700 + n)
+    dens = rng.choice([0.5, 1.0, 1.5, 4.0], size=24) / n
+    adj = (rng.random((24, n, n)) < dens[:, None, None]).astype(np.uint8)
+    rel = (rng.integers(0, 32, size=(6, n, n))
+           * (rng.random((6, n, n)) < 2.0 / n)).astype(np.uint8)
+    runs = {}
+    for mode in MODES:
+        hw, sw = {}, {}
+        runs[mode] = (cycles.has_cycle_reference(torch.from_numpy(adj), mode,
+                                                 hw),
+                      cycles.screen_reference(torch.from_numpy(rel),
+                                              FULL_MASKS, FULL_NONADJ, mode,
+                                              sw), hw, sw)
+    (hf, sf, hwf, swf), (he, se, hwe, swe) = runs["fixed"], runs["earlyexit"]
+    _assert_same(hf[:-1], he[:-1], "has-cycle")
+    _assert_same(sf[:-1], se[:-1], "screen")
+    assert (hwf, swf) == (hwe, swe)
+    assert (hf[-1] == cycles.closure_rounds(n)).all()
+    assert (sf[-1] == cycles.closure_rounds(n)
+            + cycles.closure_rounds(2 * n)).all()
+    assert (he[-1] <= hf[-1]).all() and (se[-1] <= sf[-1]).all()
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """A wrapper launches its kernel on CUDA tensors only; the dispatchers
     take the plain version for a CPU tensor."""

@@ -165,20 +165,21 @@ def test_the_cli_runs_localkv_and_analyze_agrees(tmp_path, own_threads,
 
 
 def test_unported_and_unknown_suites():
-    with pytest.raises(NotImplementedError, match="suites/tidb.py"):
-        suites.suite("tidb")
+    with pytest.raises(NotImplementedError, match="suites/yugabyte.py"):
+        suites.suite("yugabyte")
     with pytest.raises(NotImplementedError, match="mongodb_rocks"):
         suites.suite("mongodb-rocks")
     with pytest.raises(KeyError):
         suites.suite("no-such-db")
     assert suites.SUITES == ("cockroachdb", "consul", "disque", "etcd",
                              "galera", "localkv", "mysql_cluster", "percona",
-                             "postgres_rds", "raftis", "stolon", "zookeeper")
+                             "postgres_rds", "raftis", "stolon", "tidb",
+                             "zookeeper")
     from jepsen_tpu import suites as ref_suites
 
     assert suites.REFERENCE_SUITES == ref_suites.SUITES
     assert cli.run_cli(cli.default_commands(), [
-        "test", "--suite", "tidb", "--device", "cpu"]) == cli.EXIT_CRASH
+        "test", "--suite", "yugabyte", "--device", "cpu"]) == cli.EXIT_CRASH
 
 
 def test_the_suite_test_map_needs_no_side_effects(tmp_path):

@@ -126,7 +126,16 @@ _IMPORT_ALL = textwrap.dedent("""
                      "jepsen_tpu_torch.suites.crdb_sets",
                      "jepsen_tpu_torch.suites.g2_sql",
                      "jepsen_tpu_torch.suites.cockroachdb",
-                     "jepsen_tpu_torch.suites.crdb_nemesis"):
+                     "jepsen_tpu_torch.suites.crdb_nemesis",
+                     "jepsen_tpu_torch.reconnect",
+                     "jepsen_tpu_torch.control.retry",
+                     "jepsen_tpu_torch.control.ssh",
+                     "jepsen_tpu_torch.control.scp",
+                     "jepsen_tpu_torch.control.agent_ssh",
+                     "jepsen_tpu_torch.control.docker",
+                     "jepsen_tpu_torch.control.k8s",
+                     "jepsen_tpu_torch.suites.tidb",
+                     "jepsen_tpu_torch.suites.tidb_nemesis"):
         assert required in names, required
     for name in names:
         importlib.import_module(name)
@@ -157,8 +166,10 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     # the native block writer's loader included, and the wire-protocol
     # suites with their clients and os_setup, the clock nemesis, faketime
     # and the MySQL/SQL suites (galera, percona, mysql_cluster, cockroachdb
-    # with its workloads and fault menu)
-    assert int(out.stdout.split()[-1]) >= 124
+    # with its workloads and fault menu), the control transports (ssh, scp,
+    # agent-ssh, docker, k8s, retry), reconnect, and tidb with its fault
+    # menu
+    assert int(out.stdout.split()[-1]) >= 133
 
 
 def test_chip_smokes_suite_phase_imports_no_jax():

@@ -231,6 +231,18 @@ GENERATOR_CASES = {
     "percona-dirty-reads": ("percona", "dirty-reads", 4, {}),
     "percona-set": ("percona", "set", 3, {}),
     "mysql_cluster-register": ("mysql_cluster", "register", 6, {}),
+    "tidb-register": ("tidb", "register", 6, {}),
+    "tidb-bank": ("tidb", "bank", 3, {}),
+    "tidb-set": ("tidb", "set", 3, {}),
+    "tidb-list-append": ("tidb", "list-append", 3, {}),
+    "tidb-long-fork": ("tidb", "long-fork", 3, {}),
+    "tidb-txn": ("tidb", "txn", 3, {}),
+    "tidb-table": ("tidb", "table", 3, {}),
+    "tidb-monotonic": ("tidb", "monotonic", 3, {}),
+    "tidb-sequential": ("tidb", "sequential", 8, {}),
+    "tidb-register-kill-partition": ("tidb", "register", 6,
+                                     {"faults": ["kill", "partition"],
+                                      "interval": 2}),
 }
 
 

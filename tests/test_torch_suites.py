@@ -65,7 +65,7 @@ from jepsen_tpu_torch.suites import common
 NODES = ["n1", "n2", "n3"]
 PORTED = ("cockroachdb", "consul", "disque", "etcd", "galera",
           "mysql_cluster", "percona", "postgres_rds", "raftis", "stolon",
-          "zookeeper")
+          "tidb", "zookeeper")
 JOIN_S = 30
 
 PACKAGES = {
@@ -247,6 +247,7 @@ DB_OPTS = {
     "galera": [{}],
     "percona": [{}],
     "mysql_cluster": [{}],
+    "tidb": [{}, {"tarball": "file:///tmp/tidb.tgz"}],
 }
 
 
@@ -491,6 +492,30 @@ for _cls, _ops_list in SQL_OPS.items():
     for _d, (_fake, _extra) in DIALECTS.items():
         CLIENT_CASES[f"sql-{_cls}-{_d}"] = (
             "sql", _cls, _fake, {"dialect": _d, **_extra}, _ops_list)
+#: tidb's own clients over MySQL: the striped transactional client's
+#: rw-register and append micro-ops (the reference's
+#: tests/test_suite_workloads.py:967-1015) and the table client
+#: (:1017-1037)
+_MYSQL = {"dialect": "mysql", "user": "root", "password": "pw"}
+CLIENT_CASES["tidb-txn"] = ("tidb", "TidbTxnClient", DIALECTS["mysql"][0],
+                            _MYSQL, _ops(
+                                ("txn", [["w", 5, 3], ["r", 5, None]]),
+                                ("txn", [["r", 5, None]]),
+                                ("txn", [["w", 12, 9], ["r", 12, None]]),
+                                ("txn", [["r", 7, None], ["w", 7, 1]]),
+                                ("txn", [["x", 1, None]])))
+CLIENT_CASES["tidb-txn-append"] = (
+    "tidb", "TidbTxnClient", DIALECTS["mysql"][0],
+    {**_MYSQL, "val-type": "text"}, _ops(
+        ("txn", [["append", 3, 1]]), ("txn", [["append", 3, 2]]),
+        ("txn", [["r", 3, None]]),
+        ("txn", [["append", 4, 1], ["r", 4, None], ["r", 9, None]])))
+CLIENT_CASES["tidb-table"] = ("tidb", "TableClient", DIALECTS["mysql"][0],
+                              _MYSQL, _ops(
+                                  ("insert", [1, 0]), ("create-table", 1),
+                                  ("insert", [1, 0]), ("insert", [1, 0]),
+                                  ("create-table", 1), ("create-table", 2),
+                                  ("insert", [2, 5]), ("nope", None)))
 CLIENT_CASES["stolon-ledger"] = ("stolon", "LedgerClient", FakePg,
                                  {"user": "postgres", "dialect": "pg"},
                                  _ops(("transfer", [0, 10]),
