@@ -389,6 +389,24 @@ line.
     launch no kernel and must equal their checker's re-check of the
     stored history.
     The phase must take at most 35 s.
+33. yugabyte and dgraph — five runs as phase 32's, with a cap of their
+    own: yugabyte's ``ycql.register`` and ``ycql.multi-key-acid`` over
+    CQL against ``FakeCql``, dgraph's register over its HTTP API against
+    ``tests/fake_dgraph.py``'s ``TypedDgraph`` (``FakeDgraph`` answering
+    the schema's ``int`` predicates as numbers, as Dgraph does), its
+    ``wr`` (rw-register through Elle) and ``upsert`` against
+    ``FakeDgraph``.  The registers must launch K1 and equal the plain
+    versions and the oracle key by key; ``ycql.multi-key-acid`` must equal
+    the plain versions and, key by key, the oracle on
+    ``models.multi_register({})``; its per-key histories then go through
+    ``check_batch(decomposed=False)`` on the card and on the plain
+    versions, whose outputs must be equal: a history with a transaction
+    over several registers rides the oracle (the multi-register encoder
+    takes single-mop transactions only), any other must launch K1m or K4,
+    and the line names the route.  ``wr`` must equal a ``screen-route
+    cpu`` re-check; ``upsert``'s ``UpsertChecker`` runs on the CPU,
+    launches nothing and must equal its re-check.  The phase must take at
+    most 25 s.
 
 The last lines are the nvidia-smi line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -4166,18 +4184,45 @@ SUITE_RUNS = (
 SUITE_NODES = ["n1", "n2", "n3"]
 SUITES_PHASE_S = 35.0
 
+#: phase 33's runs, as phase 32's: the registers at rate 100, as tidb's
+#: (at 50 a 2 s run can complete no cas, which the stats checker calls
+#: invalid); the others at their in-process tests' rates.  dgraph's
+#: register runs against ``TypedDgraph``: ``FakeDgraph`` answers an int
+#: predicate with the string it stored, and the cas-register model then
+#: refuses every read
+MORE_SUITE_RUNS = (
+    ("yugabyte", "ycql.register", "FakeCql", {}, 100),
+    ("yugabyte", "ycql.multi-key-acid", "FakeCql", {}, 50),
+    ("dgraph", "register", "TypedDgraph", {}, 100),
+    ("dgraph", "wr", "FakeDgraph", {}, 20),
+    ("dgraph", "upsert", "FakeDgraph", {}, 30),
+)
+MORE_SUITES_PHASE_S = 25.0
+
+#: how phases 32 and 33 check a workload's run (every other workload is
+#: an Elle one, held against its ``screen-route cpu`` re-check)
+SUITE_CHECKS = {"register": "register", "ycql.register": "register",
+                "lock": "lock", "linearizable-queue": "queue",
+                "ycql.multi-key-acid": "multi-register",
+                "dirty-reads": "cpu", "monotonic": "cpu", "table": "cpu",
+                "upsert": "cpu"}
+
 
 def suite_fakes() -> dict:
-    """The fake servers of ``tests/fake_servers.py`` and
-    ``tests/fake_disque.py`` by name (stdlib only, imported here and not
-    with the script)."""
+    """The fake servers of ``tests/fake_servers.py``,
+    ``tests/fake_disque.py`` and ``tests/fake_dgraph.py`` by name (stdlib
+    only, imported here and not with the script)."""
     fake_servers = tests_module("fake_servers")
     fake_disque = tests_module("fake_disque")
+    fake_dgraph = tests_module("fake_dgraph")
     return {"FakeHttpKv": fake_servers.FakeHttpKv,
             "FakeZk": fake_servers.FakeZk, "FakePg": fake_servers.FakePg,
             "FakeMysql": fake_servers.FakeMysql,
             "FakeRedis": fake_servers.FakeRedis,
-            "FakeDisque": fake_disque.FakeDisque}
+            "FakeDisque": fake_disque.FakeDisque,
+            "FakeCql": fake_servers.FakeCql,
+            "FakeDgraph": fake_servers.FakeDgraph,
+            "TypedDgraph": fake_dgraph.TypedDgraph}
 
 
 def suite_opts(wname, extra, rate, port, device=None) -> dict:
@@ -4216,110 +4261,173 @@ def suite_recheck(name, wname, extra, rate, h, **over):
                              h, {}))
 
 
-def suites_phase(card, device=None):
-    """Phase 32: the thirteen suite runs on the card (``device`` None: the
-    current CUDA device, as a user's run), each against its fake server,
-    held against the plain versions, the oracle and the CPU screen
-    route."""
-    t_phase = time.perf_counter()
-    for name, wname, fake, extra, rate in SUITE_RUNS:
-        reset_dense_launches()
-        wgl.FRONTIER_SEARCH.launches = 0
-        cycles.HAS_CYCLE.launches = 0
-        cycles.SCREEN.launches = 0
-        t, h, results, run_s = suite_run(name, wname, fake, extra, rate,
-                                         device)
-        k1 = dense.DENSE_AUTOMATON.launches
-        k4 = wgl.FRONTIER_SEARCH.launches
-        k6 = cycles.HAS_CYCLE.launches
-        k7 = cycles.SCREEN.launches
-        client = [op for op in h if isinstance(op.process, int)]
-        types = {k: sum(1 for op in client if op.type == k)
-                 for k in ("invoke", "ok", "fail", "info")}
-        card_result = as_json(results["workload"])
-        emit(phase="suite_run", suite=name, workload=wname,
-             client=type(t["client"]).__name__, seconds=run_s,
-             ops=types["invoke"], oks=types["ok"], fails=types["fail"],
-             infos=types["info"], valid=results["valid?"],
-             workload_valid=card_result["valid?"], k1_launches=k1,
-             k4_launches=k4, k6_launches=k6, k7_launches=k7, card=card)
-        require(results["valid?"] is True,
-                f"{name} {wname}: the run is {results['valid?']}: "
-                f"{ {k: v.get('valid?') for k, v in results.items() if isinstance(v, dict)} }")
-        require(types["ok"] > 0, f"{name} {wname}: no ok op")
-        t0 = time.perf_counter()
-        if wname in ("register", "lock"):
-            require(k1 > 0, f"{name} {wname}: the check never launched K1")
-            plain = suite_recheck(name, wname, extra, rate, h, device="cpu")
-            require(card_result == plain, f"{name} {wname}: the card's "
-                    f"result {card_result} differs from the plain "
-                    f"versions' {plain}")
-            if wname == "register":
-                oracle_chk = independent.checker(checker_mod.linearizable(
-                    models.cas_register(), algorithm="oracle"))
-                card_keys = card_result["linearizable"]["results"]
-            else:
-                oracle_chk = checker_mod.linearizable(
-                    models.owner_mutex(), pure_fs=(), algorithm="oracle")
-                card_keys = {"lock": card_result}
-            oracle = as_json(oracle_chk.check({}, h, {}))
-            oracle_keys = oracle["results"] if wname == "register" else {
-                "lock": oracle}
-            require(sorted(card_keys) == sorted(oracle_keys),
-                    f"{name} {wname}: keys {sorted(card_keys)} on the card, "
-                    f"{sorted(oracle_keys)} by the oracle")
-            for k, r in card_keys.items():
-                o = oracle_keys[k]
-                shared = sorted(set(r) & set(o))
-                require("valid?" in shared and all(
-                    r[f] == o[f] for f in shared),
-                    f"{name} {wname} key {k}: the card's {r} differs from "
-                    f"the oracle's {o}")
-            emit(phase="suite_check", suite=name, workload=wname,
-                 keys=len(card_keys), equal_plain=True, equal_oracle=True,
-                 recheck_s=time.perf_counter() - t0, card=card)
-        elif wname in ("dirty-reads", "monotonic", "table"):
-            # the suites' own checkers, on the CPU: no kernel, and the
-            # stored history re-checked gives the run's result
-            require(k1 + k4 + k6 + k7 == 0,
-                    f"{name} {wname}: a CPU checker's run launched a kernel")
-            again = suite_recheck(name, wname, extra, rate, h)
-            require(card_result == again, f"{name} {wname}: the run's "
-                    f"result {card_result} differs from its re-check "
-                    f"{again}")
-            emit(phase="suite_check", suite=name, workload=wname,
-                 checker=type(t["checker"].checker_map["workload"]).__name__,
-                 route="cpu", equal_recheck=True,
-                 recheck_s=time.perf_counter() - t0, card=card)
-        elif wname == "linearizable-queue":
-            plain = suite_recheck(name, wname, extra, rate, h, device="cpu")
-            require(card_result == plain, f"{name} {wname}: the card's "
-                    f"result {card_result} differs from the plain "
-                    f"versions' {plain}")
-            emit(phase="suite_check", suite=name, workload=wname,
-                 engine=card_result.get("engine"),
-                 algorithm=card_result.get("algorithm"), equal_plain=True,
-                 recheck_s=time.perf_counter() - t0, card=card)
+def oracle_keys_equal(name, wname, card_keys, oracle_keys) -> None:
+    """Each key's card result against the CPU oracle's, on the fields
+    both give."""
+    require(sorted(card_keys) == sorted(oracle_keys),
+            f"{name} {wname}: keys {sorted(card_keys)} on the card, "
+            f"{sorted(oracle_keys)} by the oracle")
+    for k, r in card_keys.items():
+        o = oracle_keys[k]
+        shared = sorted(set(r) & set(o))
+        require("valid?" in shared and all(r[f] == o[f] for f in shared),
+                f"{name} {wname} key {k}: the card's {r} differs from "
+                f"the oracle's {o}")
+
+
+def undecomposed_multi_register(name, wname, h) -> dict:
+    """The run's per-key histories through ``check_batch(decomposed=
+    False)`` on the card and on the plain versions: equal outputs, and
+    the route the multi-register encoder gives (a transaction over
+    several registers rides the oracle; a history of single-mop
+    transactions must launch K1m or K4)."""
+    subs = list(independent.split_by_key(h).values())
+    model = models.multi_register({})
+    k1m = dense.DENSE_KERNELS["multi-register"]
+    k1m.launches = 0
+    wgl.FRONTIER_SEARCH.launches = 0
+    card_out = as_json(wgl.check_batch(model, subs, decomposed=False))
+    k1m_n, k4_n = k1m.launches, wgl.FRONTIER_SEARCH.launches
+    cpu_out = as_json(wgl.check_batch(model, subs, decomposed=False,
+                                      device="cpu"))
+    require(card_out == cpu_out, f"{name} {wname}: undecomposed, the "
+            f"card's {card_out} differs from the plain versions' {cpu_out}")
+    multi = [any(len(op.value or []) > 1 for op in sub
+                 if op.type == "invoke") for sub in subs]
+    for i, (r, m) in enumerate(zip(card_out, multi)):
+        require((r["engine"] == "oracle-fallback") == m,
+                f"{name} {wname}: history {i} (multi-mop {m}) went to "
+                f"{r['engine']}")
+    if not all(multi):
+        require(k1m_n + k4_n > 0, f"{name} {wname}: single-mop histories "
+                "launched neither K1m nor K4")
+    return {"histories": len(subs), "multi_mop_histories": sum(multi),
+            "undecomposed_route": ("K1m" if k1m_n else "K4" if k4_n
+                                   else "oracle-fallback"),
+            "k1m_launches": k1m_n, "k4_launches": k4_n,
+            "engines": wgl.batch_stats(card_out)["engines"],
+            "equal_undecomposed_plain": True}
+
+
+def suite_case(name, wname, fake, extra, rate, card, device=None) -> None:
+    """One run of phases 32 and 33: the suite's test against a fresh fake
+    server, launch counters reset around it, one ``suite_run`` line, the
+    checks its workload calls for (``SUITE_CHECKS``) and one
+    ``suite_check`` line."""
+    reset_dense_launches()
+    wgl.FRONTIER_SEARCH.launches = 0
+    cycles.HAS_CYCLE.launches = 0
+    cycles.SCREEN.launches = 0
+    t, h, results, run_s = suite_run(name, wname, fake, extra, rate,
+                                     device)
+    k1 = dense.DENSE_AUTOMATON.launches
+    k4 = wgl.FRONTIER_SEARCH.launches
+    k6 = cycles.HAS_CYCLE.launches
+    k7 = cycles.SCREEN.launches
+    client = [op for op in h if isinstance(op.process, int)]
+    types = {k: sum(1 for op in client if op.type == k)
+             for k in ("invoke", "ok", "fail", "info")}
+    card_result = as_json(results["workload"])
+    emit(phase="suite_run", suite=name, workload=wname,
+         client=type(t["client"]).__name__, seconds=run_s,
+         ops=types["invoke"], oks=types["ok"], fails=types["fail"],
+         infos=types["info"], valid=results["valid?"],
+         workload_valid=card_result["valid?"], k1_launches=k1,
+         k4_launches=k4, k6_launches=k6, k7_launches=k7, card=card)
+    require(results["valid?"] is True,
+            f"{name} {wname}: the run is {results['valid?']}: "
+            f"{ {k: v.get('valid?') for k, v in results.items() if isinstance(v, dict)} }")
+    require(types["ok"] > 0, f"{name} {wname}: no ok op")
+    t0 = time.perf_counter()
+    kind = SUITE_CHECKS.get(wname, "elle")
+    if kind in ("register", "lock"):
+        require(k1 > 0, f"{name} {wname}: the check never launched K1")
+        plain = suite_recheck(name, wname, extra, rate, h, device="cpu")
+        require(card_result == plain, f"{name} {wname}: the card's "
+                f"result {card_result} differs from the plain "
+                f"versions' {plain}")
+        if kind == "register":
+            oracle_chk = independent.checker(checker_mod.linearizable(
+                models.cas_register(), algorithm="oracle"))
+            card_keys = card_result["linearizable"]["results"]
         else:
-            launches = (cycles.HAS_CYCLE.launches, cycles.SCREEN.launches)
-            cpu = suite_recheck(name, wname, extra, rate, h,
-                                **{"screen-route": "cpu"})
-            require((cycles.HAS_CYCLE.launches,
-                     cycles.SCREEN.launches) == launches,
-                    f"{name} {wname}: the cpu route launched a screen")
-            require(card_result == cpu, f"{name} {wname}: the card's "
-                    f"result {card_result} differs from the cpu route's "
-                    f"{cpu}")
-            emit(phase="suite_check", suite=name, workload=wname,
-                 txns=card_result.get("txn-count"),
-                 route="cpu" if k6 + k7 == 0 else "device",
-                 equal_cpu_route=True, recheck_s=time.perf_counter() - t0,
-                 card=card)
+            oracle_chk = checker_mod.linearizable(
+                models.owner_mutex(), pure_fs=(), algorithm="oracle")
+            card_keys = {"lock": card_result}
+        oracle = as_json(oracle_chk.check({}, h, {}))
+        oracle_keys = oracle["results"] if kind == "register" else {
+            "lock": oracle}
+        oracle_keys_equal(name, wname, card_keys, oracle_keys)
+        emit(phase="suite_check", suite=name, workload=wname,
+             keys=len(card_keys), equal_plain=True, equal_oracle=True,
+             recheck_s=time.perf_counter() - t0, card=card)
+    elif kind == "multi-register":
+        plain = suite_recheck(name, wname, extra, rate, h, device="cpu")
+        require(card_result == plain, f"{name} {wname}: the card's "
+                f"result {card_result} differs from the plain "
+                f"versions' {plain}")
+        oracle = as_json(independent.checker(checker_mod.linearizable(
+            models.multi_register({}), pure_fs=(),
+            algorithm="oracle")).check({}, h, {}))
+        card_keys = card_result["results"]
+        oracle_keys_equal(name, wname, card_keys, oracle["results"])
+        routes = undecomposed_multi_register(name, wname, h)
+        emit(phase="suite_check", suite=name, workload=wname,
+             keys=len(card_keys), equal_plain=True, equal_oracle=True,
+             **routes, recheck_s=time.perf_counter() - t0, card=card)
+    elif kind == "cpu":
+        # the suites' own checkers, on the CPU: no kernel, and the
+        # stored history re-checked gives the run's result
+        require(k1 + k4 + k6 + k7 == 0,
+                f"{name} {wname}: a CPU checker's run launched a kernel")
+        again = suite_recheck(name, wname, extra, rate, h)
+        require(card_result == again, f"{name} {wname}: the run's "
+                f"result {card_result} differs from its re-check "
+                f"{again}")
+        emit(phase="suite_check", suite=name, workload=wname,
+             checker=type(t["checker"].checker_map["workload"]).__name__,
+             route="cpu", equal_recheck=True,
+             recheck_s=time.perf_counter() - t0, card=card)
+    elif kind == "queue":
+        plain = suite_recheck(name, wname, extra, rate, h, device="cpu")
+        require(card_result == plain, f"{name} {wname}: the card's "
+                f"result {card_result} differs from the plain "
+                f"versions' {plain}")
+        emit(phase="suite_check", suite=name, workload=wname,
+             engine=card_result.get("engine"),
+             algorithm=card_result.get("algorithm"), equal_plain=True,
+             recheck_s=time.perf_counter() - t0, card=card)
+    else:
+        launches = (cycles.HAS_CYCLE.launches, cycles.SCREEN.launches)
+        cpu = suite_recheck(name, wname, extra, rate, h,
+                            **{"screen-route": "cpu"})
+        require((cycles.HAS_CYCLE.launches,
+                 cycles.SCREEN.launches) == launches,
+                f"{name} {wname}: the cpu route launched a screen")
+        require(card_result == cpu, f"{name} {wname}: the card's "
+                f"result {card_result} differs from the cpu route's "
+                f"{cpu}")
+        emit(phase="suite_check", suite=name, workload=wname,
+             txns=card_result.get("txn-count"),
+             route="cpu" if k6 + k7 == 0 else "device",
+             equal_cpu_route=True, recheck_s=time.perf_counter() - t0,
+             card=card)
+
+
+def suites_phase(card, device=None, runs=SUITE_RUNS, phase="suites",
+                 limit_s=SUITES_PHASE_S):
+    """Phase 32 (and, with ``MORE_SUITE_RUNS``, phase 33): the suite runs
+    on the card (``device`` None: the current CUDA device, as a user's
+    run), each against its fake server, held against the plain versions,
+    the oracle and the CPU screen route."""
+    t_phase = time.perf_counter()
+    for name, wname, fake, extra, rate in runs:
+        suite_case(name, wname, fake, extra, rate, card, device)
     phase_s = time.perf_counter() - t_phase
-    emit(phase="suites", runs=len(SUITE_RUNS), seconds=phase_s,
-         limit_s=SUITES_PHASE_S, card=card)
-    require(phase_s <= SUITES_PHASE_S, f"suites: the phase took {phase_s:.1f}"
-            f" s, past its {SUITES_PHASE_S} s")
+    emit(phase=phase, runs=len(runs), seconds=phase_s, limit_s=limit_s,
+         card=card)
+    require(phase_s <= limit_s, f"{phase}: the phase took {phase_s:.1f}"
+            f" s, past its {limit_s} s")
 
 
 def main() -> int:
@@ -4592,6 +4700,10 @@ def main() -> int:
 
     # -- 32. the wire-protocol suites against their fake servers -----------
     suites_phase(card)
+
+    # -- 33. yugabyte and dgraph against their fake servers -----------------
+    suites_phase(card, runs=MORE_SUITE_RUNS, phase="more_suites",
+                 limit_s=MORE_SUITES_PHASE_S)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

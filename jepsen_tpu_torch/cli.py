@@ -1002,7 +1002,8 @@ def default_commands() -> Dict[str, dict]:
             help="DB suite to run against real nodes (see "
             "jepsen_tpu_torch.suites.SUITES: localkv, etcd, consul, "
             "zookeeper, raftis, disque, postgres-rds, stolon, cockroachdb, "
-            "galera, percona, mysql-cluster, tidb).  Without --suite, "
+            "galera, percona, mysql-cluster, tidb, yugabyte, dgraph).  "
+            "Without --suite, "
             "the workload runs in-process against the in-memory fake "
             "client.",
         )

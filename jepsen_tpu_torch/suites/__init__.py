@@ -23,7 +23,14 @@ The port's suites:
   dirty-read probe of :mod:`.dirty_reads_sql`;
 - ``tidb`` over MySQL (pd, tikv and tidb on every node) with its
   transactional and table clients and its fault menu
-  (:mod:`.tidb_nemesis`).
+  (:mod:`.tidb_nemesis`);
+- ``yugabyte`` over CQL (:mod:`.proto.cql`, the YCQL clients) and pgwire
+  (the YSQL clients, through :mod:`.sql`), masters on the first RF nodes
+  and tservers everywhere, with its fault menu (:mod:`.yb_nemesis`);
+- ``dgraph`` over its HTTP API (:mod:`.proto.http`; upsert blocks and
+  startTs transactions), zero on the first node and alphas everywhere,
+  with its fault menu (:mod:`.dgraph_nemesis`: alpha and zero kills,
+  tablet moves under :mod:`..trace` spans, clock skew).
 
 The reference's other suites drive servers over protocols the port does
 not have yet; asking for one raises ``NotImplementedError`` naming its
@@ -38,6 +45,7 @@ import importlib
 SUITES = (
     "cockroachdb",
     "consul",
+    "dgraph",
     "disque",
     "etcd",
     "galera",
@@ -48,6 +56,7 @@ SUITES = (
     "raftis",
     "stolon",
     "tidb",
+    "yugabyte",
     "zookeeper",
 )
 

@@ -282,9 +282,9 @@ def test(opts: Optional[dict] = None) -> dict:
     opts.setdefault("nodes", ["n1", "n2", "n3"])
     d = db(opts)
     wname = opts.get("workload", "register")
-    # only_active: an idle clock sub-nemesis would gcc clock helpers
-    # onto every node at setup (and it is not ported) — pointless for a
-    # loopback cluster that never requests clock faults
+    # only_active: an idle clock sub-nemesis would build the clock
+    # helpers with gcc on every node at setup — pointless for a loopback
+    # cluster that never requests clock faults
     from ..nemesis import combined
 
     pkg = combined.nemesis_package(

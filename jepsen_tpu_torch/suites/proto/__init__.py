@@ -12,9 +12,10 @@ protocol the suites need is implemented here directly:
 - :mod:`mysql`   — MySQL client/server protocol (:mod:`..sql`'s ``mysql``
                    dialect)
 - :mod:`zk`      — ZooKeeper jute protocol (zookeeper)
+- :mod:`cql`     — Cassandra CQL binary protocol v4 (yugabyte's YCQL)
 
-The reference's other protocols (aerospike, amqp, cql, hazelcast, irc,
-mongo, reql) serve suites the port does not have yet.
+The reference's other protocols (aerospike, amqp, hazelcast, irc, mongo,
+reql) serve suites the port does not have yet.
 
 Each client is deliberately small: connect, authenticate, issue the
 handful of statements the workloads need, and surface errors as

@@ -165,21 +165,21 @@ def test_the_cli_runs_localkv_and_analyze_agrees(tmp_path, own_threads,
 
 
 def test_unported_and_unknown_suites():
-    with pytest.raises(NotImplementedError, match="suites/yugabyte.py"):
-        suites.suite("yugabyte")
+    with pytest.raises(NotImplementedError, match="suites/faunadb.py"):
+        suites.suite("faunadb")
     with pytest.raises(NotImplementedError, match="mongodb_rocks"):
         suites.suite("mongodb-rocks")
     with pytest.raises(KeyError):
         suites.suite("no-such-db")
-    assert suites.SUITES == ("cockroachdb", "consul", "disque", "etcd",
-                             "galera", "localkv", "mysql_cluster", "percona",
-                             "postgres_rds", "raftis", "stolon", "tidb",
-                             "zookeeper")
+    assert suites.SUITES == ("cockroachdb", "consul", "dgraph", "disque",
+                             "etcd", "galera", "localkv", "mysql_cluster",
+                             "percona", "postgres_rds", "raftis", "stolon",
+                             "tidb", "yugabyte", "zookeeper")
     from jepsen_tpu import suites as ref_suites
 
     assert suites.REFERENCE_SUITES == ref_suites.SUITES
     assert cli.run_cli(cli.default_commands(), [
-        "test", "--suite", "yugabyte", "--device", "cpu"]) == cli.EXIT_CRASH
+        "test", "--suite", "faunadb", "--device", "cpu"]) == cli.EXIT_CRASH
 
 
 def test_the_suite_test_map_needs_no_side_effects(tmp_path):

@@ -135,7 +135,12 @@ _IMPORT_ALL = textwrap.dedent("""
                      "jepsen_tpu_torch.control.docker",
                      "jepsen_tpu_torch.control.k8s",
                      "jepsen_tpu_torch.suites.tidb",
-                     "jepsen_tpu_torch.suites.tidb_nemesis"):
+                     "jepsen_tpu_torch.suites.tidb_nemesis",
+                     "jepsen_tpu_torch.suites.proto.cql",
+                     "jepsen_tpu_torch.suites.yb_nemesis",
+                     "jepsen_tpu_torch.suites.yugabyte",
+                     "jepsen_tpu_torch.suites.dgraph_nemesis",
+                     "jepsen_tpu_torch.suites.dgraph"):
         assert required in names, required
     for name in names:
         importlib.import_module(name)
@@ -173,13 +178,15 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
 
 
 def test_chip_smokes_suite_phase_imports_no_jax():
-    """Phase 32's fake servers (``tests/fake_servers.py``,
-    ``tests/fake_disque.py``, imported inside the phase) and one of its
-    runs, on the plain versions, load nothing the finder refuses."""
+    """Phases 32 and 33's fake servers (``tests/fake_servers.py``,
+    ``tests/fake_disque.py``, ``tests/fake_dgraph.py``, imported inside
+    the phase) and one of their runs, on the plain versions, load nothing
+    the finder refuses."""
     script = _IMPORT_ALL.replace("print(len(names))\n", textwrap.dedent("""
         fakes = chip_smoke.suite_fakes()
-        assert sorted(fakes) == ["FakeDisque", "FakeHttpKv", "FakeMysql",
-                                 "FakePg", "FakeRedis", "FakeZk"], \
+        assert sorted(fakes) == ["FakeCql", "FakeDgraph", "FakeDisque",
+                                 "FakeHttpKv", "FakeMysql", "FakePg",
+                                 "FakeRedis", "FakeZk", "TypedDgraph"], \
             sorted(fakes)
         t, h, results, _ = chip_smoke.suite_run(
             "etcd", "register", "FakeHttpKv", {}, 50, device="cpu")

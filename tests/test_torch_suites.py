@@ -40,7 +40,8 @@ import time
 import pytest
 
 from fake_disque import FakeDisque
-from fake_servers import FakeHttpKv, FakeMysql, FakePg, FakeRedis, FakeZk
+from fake_servers import (FakeCql, FakeDgraph, FakeHttpKv, FakeMysql, FakePg,
+                          FakeRedis, FakeZk)
 from test_torch_proto import Relay
 from jepsen_tpu import control as ref_control
 from jepsen_tpu import db as ref_db
@@ -63,9 +64,9 @@ from jepsen_tpu_torch.generator import sim as port_sim
 from jepsen_tpu_torch.suites import common
 
 NODES = ["n1", "n2", "n3"]
-PORTED = ("cockroachdb", "consul", "disque", "etcd", "galera",
+PORTED = ("cockroachdb", "consul", "dgraph", "disque", "etcd", "galera",
           "mysql_cluster", "percona", "postgres_rds", "raftis", "stolon",
-          "tidb", "zookeeper")
+          "tidb", "yugabyte", "zookeeper")
 JOIN_S = 30
 
 PACKAGES = {
@@ -248,6 +249,9 @@ DB_OPTS = {
     "percona": [{}],
     "mysql_cluster": [{}],
     "tidb": [{}, {"tarball": "file:///tmp/tidb.tgz"}],
+    "yugabyte": [{}, {"tarball": "file:///tmp/yb.tgz",
+                      "replication-factor": 1}],
+    "dgraph": [{}, {"version": "v1.0.17"}],
 }
 
 
@@ -516,6 +520,84 @@ CLIENT_CASES["tidb-table"] = ("tidb", "TableClient", DIALECTS["mysql"][0],
                                   ("insert", [1, 0]), ("insert", [1, 0]),
                                   ("create-table", 1), ("create-table", 2),
                                   ("insert", [2, 5]), ("nope", None)))
+#: yugabyte's YCQL clients over CQL (the reference's
+#: tests/test_suites.py:215-240 and tests/test_suite_workloads.py:697-840)
+#: and its YSQL clients over pgwire (:217-257, :842-870, :2366-2392)
+_PG = {"user": "postgres", "dialect": "pg"}
+_MKA = [[f, k, v] for f, k, v in (("w", 0, 3), ("w", 2, 4))]
+_MKA_READ = [["r", 0, None], ["r", 1, None], ["r", 2, None]]
+CLIENT_CASES.update({
+    "yugabyte-ycql-register": ("yugabyte", "YcqlRegisterClient", FakeCql, {},
+                               REGISTER_OPS),
+    "yugabyte-ycql-set": ("yugabyte", "YcqlSetClient", FakeCql, {}, _ops(
+        ("read", None), ("add", 0), ("add", 1), ("add", 2), ("add", 1),
+        ("read", None), ("nope", None))),
+    "yugabyte-ycql-multi-key-acid": (
+        "yugabyte", "YcqlMultiKeyAcidClient", FakeCql, {}, _ops(
+            ("read", [3, _MKA_READ]), ("write", [3, _MKA]),
+            ("read", [3, _MKA_READ]), ("write", [3, [["w", 1, 9]]]),
+            ("read", [3, _MKA_READ[1:]]), ("read", [4, _MKA_READ[:1]]),
+            ("nope", [3, []]))),
+    "yugabyte-ycql-bank": ("yugabyte", "YcqlBankClient", FakeCql, {}, _ops(
+        ("read", None), ("transfer", {"from": 0, "to": 2, "amount": 7}),
+        ("transfer", {"from": 1, "to": 0, "amount": 40}), ("read", None),
+        ("nope", None))),
+    "yugabyte-ycql-long-fork": (
+        "yugabyte", "YcqlLongForkClient", FakeCql, {}, _ops(
+            ("read", [["r", 0, None]]), ("write", [["w", 0, 1]]),
+            ("write", [["w", 2, 5]]),
+            ("read", [["r", 0, None], ["r", 1, None], ["r", 2, None]]),
+            ("nope", []))),
+    "yugabyte-ysql-multi-key-acid": (
+        "yugabyte", "MultiKeyAcidClient", FakePg, _PG, _ops(
+            ("write", [5, _MKA]), ("read", [5, _MKA_READ]),
+            ("write", [5, [["w", 0, 9]]]), ("read", [5, _MKA_READ[:1]]),
+            ("read", [6, _MKA_READ[:1]]), ("nope", [5, []]))),
+    "yugabyte-ysql-default-value": (
+        "yugabyte", "DefaultValueClient", FakePg, _PG, _ops(
+            ("read", None), ("create-table", None), ("insert", None),
+            ("insert", None), ("read", None), ("drop-table", None),
+            ("read", None), ("insert", None), ("create-table", None),
+            ("read", None), ("nope", None))),
+})
+for _mode in ("now", "count"):
+    CLIENT_CASES[f"yugabyte-ysql-append-table-{_mode}"] = (
+        "yugabyte", "AppendTableClient", FakePg,
+        {**_PG, "append-table-key": _mode}, _ops(
+            ("txn", [["append", 7, 1], ["r", 7, None]]),
+            ("txn", [["append", 7, 2], ["append", 7, 3], ["r", 7, None]]),
+            ("txn", [["r", 8, None]]), ("txn", [["append", 8, 4]]),
+            ("txn", [["x", 8, None]])))
+#: dgraph's clients over its HTTP API (the reference's
+#: tests/test_suite_workloads.py:326-410, :619-660, :1113-1200, :2060-2085)
+CLIENT_CASES.update({
+    "dgraph-register": ("dgraph", "DgraphClient", FakeDgraph, {},
+                        REGISTER_OPS + _ops(("add", 3), ("add", 3))),
+    "dgraph-set": ("dgraph", "DgraphSetClient", FakeDgraph, {}, _ops(
+        ("read", None), ("add", 0), ("add", 1), ("add", 1), ("read", None))),
+    "dgraph-upsert": ("dgraph", "DgraphUpsertClient", FakeDgraph, {}, _ops(
+        ("read", ["a@x", None]), ("upsert", ["a@x", None]),
+        ("upsert", ["a@x", None]), ("read", ["a@x", None]),
+        ("upsert", ["b@x", None]), ("nope", ["b@x", None]))),
+    "dgraph-delete": ("dgraph", "DgraphDeleteClient", FakeDgraph, {}, _ops(
+        ("upsert", [5, None]), ("upsert", [5, None]), ("read", [5, None]),
+        ("delete", [5, None]), ("delete", [5, None]), ("read", [5, None]),
+        ("nope", [5, None]))),
+    "dgraph-bank": ("dgraph", "DgraphBankClient", FakeDgraph, {}, _ops(
+        ("read", None), ("transfer", {"from": 0, "to": 1, "amount": 10}),
+        ("read", None), ("transfer", {"from": 1, "to": 0, "amount": 10}),
+        ("read", None), ("transfer", {"from": 2, "to": 0, "amount": 5}),
+        ("nope", None))),
+    "dgraph-txn": ("dgraph", "DgraphTxnClient", FakeDgraph, {}, _ops(
+        ("txn", [["w", 5, 1]]), ("txn", [["r", 5, None], ["w", 5, 2]]),
+        ("txn", [["w", 9, 4], ["r", 9, None], ["w", 9, 5], ["r", 9, None]]),
+        ("txn", [["r", 5, None], ["r", 9, None], ["r", 1, None]]),
+        ("txn", [["x", 1, None]]))),
+    "dgraph-sequential": ("dgraph", "DgraphSequentialClient", FakeDgraph, {},
+                          _ops(("read", [3, None]), ("inc", [3, None]),
+                               ("inc", [3, None]), ("read", [3, None]),
+                               ("inc", [4, None]), ("nope", [4, None]))),
+})
 CLIENT_CASES["stolon-ledger"] = ("stolon", "LedgerClient", FakePg,
                                  {"user": "postgres", "dialect": "pg"},
                                  _ops(("transfer", [0, 10]),
